@@ -45,6 +45,16 @@
 //
 // Both kernels: io fp32 or bf16, state and arithmetic fp32. They launch on
 // the caller's stream, allocate nothing, and return cudaGetLastError().
+//
+// State checkpoints for the backward kernels (csrc/scan_g_bwd.cu): given a
+// non-null `hck`, (batch, G, n_ck, N, dg) fp32 with n_ck = ceil(L / kSeg),
+// each thread that scans a channel stores its h[N] as it enters checkpoint
+// segment j (physical tokens [j*kSeg, (j+1)*kSeg)) in the walk's own
+// order: hck[j] is the state before the segment's first token walked
+// (token j*kSeg forward, its last token reversed). Checkpointing is a
+// template parameter (CK): a null `hck` (eval) launches the instantiation
+// without it, so serving pays nothing for checkpoints (a test inside the
+// token loop, even never taken, slowed K2's N = 4 walk 1.5-2x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +71,8 @@ constexpr int kGroups2 = kThreads2 / kChan2;  // token groups in dt projection
 constexpr int kTile2 = 32;       // K2 largest token tile
 constexpr int kTokPerGroup = kTile2 / kGroups2;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block
+constexpr int kSeg = 32;  // hck spacing in tokens; scan_g_bwd.cu's segment
+static_assert(kSeg % kTile2 == 0, "K2's tiles must align with hck segments");
 
 constexpr int kErrStateWidth = 10001;
 constexpr int kErrSharedMemory = 10002;
@@ -84,15 +96,30 @@ __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
 }
 
+// physical token p starts its checkpoint segment in the walk's order
+__device__ __forceinline__ bool seg_entry(int p, int L, int reverse) {
+  return reverse ? (p == L - 1 || (p + 1) % kSeg == 0) : p % kSeg == 0;
+}
+
+// hck[j][n][e] = h[n] as the walk enters segment j = p / kSeg
+template <int NT>
+__device__ __forceinline__ void store_ck(float* hck_c, int p, int N, int dg,
+                                         int e, const float (&h)[NT]) {
+  float* dst = hck_c + (size_t)(p / kSeg) * N * dg + e;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if (n < N) dst[(size_t)n * dg] = h[n];
+}
+
 // ---------------------------------------------------------------- K1
-template <typename T, int NT>
+template <typename T, int NT, bool CK>
 __global__ void __launch_bounds__(kThreads)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ bias,
                 const float* __restrict__ Dk, const T* __restrict__ yacc,
-                T* __restrict__ y, int G, int L, int dg, int N, int softplus,
-                int reverse) {
+                T* __restrict__ y, float* __restrict__ hck, int G, int L,
+                int dg, int N, int softplus, int reverse) {
   __shared__ float Bs[kTile1 * NT];
   __shared__ float Cs[kTile1 * NT];
   const int g = blockIdx.y;
@@ -106,6 +133,8 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   const T* C_c = Cm + chain * L * N;
   const T* ya_c = yacc ? yacc + chain * L * dg : nullptr;
   T* y_c = y + chain * L * dg;
+  float* hck_c =
+      hck ? hck + chain * (size_t)((L + kSeg - 1) / kSeg) * N * dg : nullptr;
 
   float a[NT], h[NT];
 #pragma unroll
@@ -132,6 +161,8 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     for (int k = 0; k < tl; ++k) {
       const int t = reverse ? tl - 1 - k : k;
       const size_t off = (size_t)(t0 + t) * dg + e;
+      if (CK && seg_entry(t0 + t, L, reverse))
+        store_ck<NT>(hck_c, t0 + t, N, dg, e, h);
       const float uv = to_f(u_c[off]);
       float dv = to_f(dt_c[off]) + bias_e;
       if (softplus) dv = softplus_f(dv);
@@ -163,6 +194,7 @@ struct ProjArgs {
   const float* Dk;    // (G, dg)
   const T* ya[2];
   T* y[2];
+  float* hck;  // (batch, G, n_ck, N, dg) or null
   int G, L, dg, N, n_u, tl, softplus, reverse, swap_c;
 };
 
@@ -173,7 +205,7 @@ __device__ __forceinline__ size_t chain_offset(const ProjArgs<T>& p, int b,
                     : ((size_t)b * p.G + g) * p.L * p.dg;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool CK>
 __global__ void __launch_bounds__(kThreads2)
 scan_proj_fwd_kernel(const ProjArgs<T> p) {
   extern __shared__ float smem[];
@@ -202,6 +234,9 @@ scan_proj_fwd_kernel(const ProjArgs<T> p) {
   const T* wb_g = p.wb + (size_t)g * dg * N;
   const T* wc_g = p.wc + (size_t)gp * dg * N;
   const float* c_src = p.swap_c ? up : us;
+  float* hck_c = p.hck ? p.hck + ((size_t)b * p.G + g) *
+                             ((L + kSeg - 1) / kSeg) * N * dg
+                       : nullptr;
 
   float a[NT], h[NT];
 #pragma unroll
@@ -263,6 +298,12 @@ scan_proj_fwd_kernel(const ProjArgs<T> p) {
     __syncthreads();  // B/C/dt complete
 
     if (!scanner || !active) continue;
+    // the tile (a divisor of kSeg tokens, aligned) is entered at a
+    // checkpoint segment's entry or inside one: test once per tile, out of
+    // the sequential loop
+    const int entry = p.reverse ? t0 + tl - 1 : t0;
+    if (CK && seg_entry(entry, L, p.reverse))
+      store_ck<NT>(hck_c, entry, N, dg, e, h);
     for (int k = 0; k < tl; ++k) {
       const int t = p.reverse ? tl - 1 - k : k;
       const size_t off = (size_t)(t0 + t) * dg + e;
@@ -286,14 +327,17 @@ scan_proj_fwd_kernel(const ProjArgs<T> p) {
 template <typename T, int NT>
 int launch_scan(const void* u, const void* dt, const float* A, const void* Bm,
                 const void* Cm, const float* bias, const float* Dk,
-                const void* yacc, void* y, int batch, int G, int L, int dg,
-                int N, int softplus, int reverse, cudaStream_t stream) {
+                const void* yacc, void* y, float* hck, int batch, int G,
+                int L, int dg, int N, int softplus, int reverse,
+                cudaStream_t stream) {
   const dim3 grid((dg + kThreads - 1) / kThreads, G, batch);
-  scan_fwd_kernel<T, NT><<<grid, kThreads, 0, stream>>>(
+  auto kernel = hck ? scan_fwd_kernel<T, NT, true>
+                    : scan_fwd_kernel<T, NT, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), A,
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), bias, Dk,
-      static_cast<const T*>(yacc), static_cast<T*>(y), G, L, dg, N, softplus,
-      reverse);
+      static_cast<const T*>(yacc), static_cast<T*>(y), hck, G, L, dg, N,
+      softplus, reverse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,9 +345,9 @@ template <typename T, int NT>
 int launch_proj(const void* u0, const void* u1, const void* wdt,
                 const void* wb, const void* wc, const float* A,
                 const float* bias, const float* Dk, const void* ya0,
-                const void* ya1, void* y0, void* y1, int batch, int G, int L,
-                int dg, int N, int n_u, int softplus, int reverse, int swap_c,
-                cudaStream_t stream) {
+                const void* ya1, void* y0, void* y1, float* hck, int batch,
+                int G, int L, int dg, int N, int n_u, int softplus,
+                int reverse, int swap_c, cudaStream_t stream) {
   const size_t n_tiles_u = swap_c ? 2 : 1;
   auto smem_bytes = [&](int tl) {
     return sizeof(float) * (n_tiles_u * tl * (size_t)(dg + 1) +
@@ -313,9 +357,11 @@ int launch_proj(const void* u0, const void* u1, const void* wdt,
   while (tl > 1 && smem_bytes(tl) > kMaxSmem) tl /= 2;
   const size_t smem = smem_bytes(tl);
   if (smem > kMaxSmem) return kErrSharedMemory;
+  auto kernel = hck ? scan_proj_fwd_kernel<T, NT, true>
+                    : scan_proj_fwd_kernel<T, NT, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_proj_fwd_kernel<T, NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
   ProjArgs<T> p;
@@ -331,6 +377,7 @@ int launch_proj(const void* u0, const void* u1, const void* wdt,
   p.ya[1] = static_cast<const T*>(ya1);
   p.y[0] = static_cast<T*>(y0);
   p.y[1] = static_cast<T*>(y1);
+  p.hck = hck;
   p.G = G;
   p.L = L;
   p.dg = dg;
@@ -341,7 +388,7 @@ int launch_proj(const void* u0, const void* u1, const void* wdt,
   p.reverse = reverse;
   p.swap_c = swap_c;
   const dim3 grid((dg + kChan2 - 1) / kChan2, G, batch);
-  scan_proj_fwd_kernel<T, NT><<<grid, kThreads2, smem, stream>>>(p);
+  kernel<<<grid, kThreads2, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,19 +397,21 @@ int launch_proj(const void* u0, const void* u1, const void* wdt,
 extern "C" {
 
 // u, dt, y, yacc: (batch, G, L, dg); Bm, Cm: (batch, G, L, N);
-// A: (G, N, dg) fp32; bias, Dk: (G, dg) fp32. yacc may be null.
+// A: (G, N, dg) fp32; bias, Dk: (G, dg) fp32. yacc may be null; hck, null
+// or (batch, G, nck, N, dg) fp32 with nck = ceil(L / kSeg), receives the
+// state checkpoints (nck is checked, so the caller's spacing must be kSeg).
 int sigma_scan_fwd(const void* u, const void* dt, const float* A,
                    const void* Bm, const void* Cm, const float* bias,
-                   const float* Dk, const void* yacc, void* y, int batch,
-                   int G, int L, int dg, int N, int softplus, int reverse,
-                   int bf16, void* stream) {
+                   const float* Dk, const void* yacc, void* y, float* hck,
+                   int nck, int batch, int G, int L, int dg, int N,
+                   int softplus, int reverse, int bf16, void* stream) {
   if (batch <= 0 || G <= 0 || L <= 0 || dg <= 0 || N <= 0 || G > 65535 ||
-      batch > 65535)
+      batch > 65535 || (hck && nck != (L + kSeg - 1) / kSeg))
     return kErrArguments;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIGMA_SCAN(T, NT)                                                    \
-  return launch_scan<T, NT>(u, dt, A, Bm, Cm, bias, Dk, yacc, y, batch, G,   \
-                            L, dg, N, softplus, reverse, s)
+  return launch_scan<T, NT>(u, dt, A, Bm, Cm, bias, Dk, yacc, y, hck, batch, \
+                            G, L, dg, N, softplus, reverse, s)
 #define SIGMA_SCAN_N(T)       \
   if (N <= 4) SIGMA_SCAN(T, 4); \
   if (N <= 8) SIGMA_SCAN(T, 8); \
@@ -381,21 +430,23 @@ int sigma_scan_fwd(const void* u, const void* dt, const float* A,
 // and G must be 2; n_u == 1: u0, ya0, y0 are (batch, G, L, dg).
 // wdt: (G, dg, dg); wb, wc: (G, dg, N) in the io type; A: (G, N, dg),
 // bias, Dk: (G, dg) fp32. swap_c needs G even (chain pairs 2k, 2k+1).
+// hck as for sigma_scan_fwd.
 int sigma_scan_proj_fwd(const void* u0, const void* u1, const void* wdt,
                         const void* wb, const void* wc, const float* A,
                         const float* bias, const float* Dk, const void* ya0,
-                        const void* ya1, void* y0, void* y1, int batch, int G,
-                        int L, int dg, int N, int n_u, int softplus,
-                        int reverse, int swap_c, int bf16, void* stream) {
+                        const void* ya1, void* y0, void* y1, float* hck,
+                        int nck, int batch, int G, int L, int dg, int N,
+                        int n_u, int softplus, int reverse, int swap_c,
+                        int bf16, void* stream) {
   if (batch <= 0 || G <= 0 || L <= 0 || dg <= 0 || N <= 0 || G > 65535 ||
       batch > 65535 || (n_u != 1 && n_u != 2) || (n_u == 2 && G != 2) ||
-      (swap_c && G % 2))
+      (swap_c && G % 2) || (hck && nck != (L + kSeg - 1) / kSeg))
     return kErrArguments;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIGMA_PROJ(T, NT)                                                   \
   return launch_proj<T, NT>(u0, u1, wdt, wb, wc, A, bias, Dk, ya0, ya1, y0, \
-                            y1, batch, G, L, dg, N, n_u, softplus, reverse,  \
-                            swap_c, s)
+                            y1, hck, batch, G, L, dg, N, n_u, softplus,      \
+                            reverse, swap_c, s)
 #define SIGMA_PROJ_N(T)       \
   if (N <= 4) SIGMA_PROJ(T, 4); \
   if (N <= 8) SIGMA_PROJ(T, 8); \

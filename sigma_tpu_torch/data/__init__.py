@@ -1,0 +1,7 @@
+"""Data pipeline of the port: copies of `sigma_tpu/data/` (numpy/cv2)."""
+
+from sigma_tpu_torch.data.dataset import RGBXDataset
+from sigma_tpu_torch.data.loader import TrainLoader
+from sigma_tpu_torch.data.transforms import TrainPre, ValPre, normalize
+
+__all__ = ["RGBXDataset", "TrainPre", "ValPre", "normalize", "TrainLoader"]

@@ -29,9 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sigma_tpu.utils.metrics import compute_score, hist_info
 from sigma_tpu_torch.engine.logger import get_logger
+from sigma_tpu_torch.models.builder import require_device
 from sigma_tpu_torch.models.common import resize_linear
+from sigma_tpu_torch.utils.metrics import compute_score, hist_info
 
 
 def _pad_hwc(x, top, bottom, left, right):
@@ -44,11 +45,12 @@ class SlidingEvaluator:
                  is_flip: bool = False,
                  eval_crop_size: Sequence[int] = (480, 640),
                  stride_rate: float = 2 / 3, window_batch: int = 8,
-                 device="cpu"):
-        """`model(rgb, modal_x)`: NHWC float tensors -> NHWC logits."""
+                 device="cuda"):
+        """`model(rgb, modal_x)`: NHWC float tensors -> NHWC logits, on
+        `device` (the card unless the caller asks for the CPU)."""
         self.model = model
         self.class_num = num_classes
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.norm_mean = torch.as_tensor(np.asarray(norm_mean, np.float32),
                                          device=self.device)
         self.norm_std = torch.as_tensor(np.asarray(norm_std, np.float32),

@@ -47,9 +47,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from configs import get_config
-    from sigma_tpu.data.dataset import RGBXDataset
-    from sigma_tpu.data.transforms import ValPre
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.data import RGBXDataset, ValPre
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.models.builder import build_model
@@ -73,7 +72,7 @@ def main(argv=None) -> int:
         object.__setattr__(cfg, k, v)
 
     logger = get_logger()
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(load_checkpoint(args.epochs))
     model.to(device)
     dataset = RGBXDataset(cfg.data_setting(), "val", ValPre())

@@ -1,5 +1,5 @@
-"""Top-level EncoderDecoder and `build_model` (counterpart of
-`sigma_tpu/models/builder.py`), MambaDecoder path.
+"""Top-level EncoderDecoder, `build_model` and `segmentation_loss`
+(counterpart of `sigma_tpu/models/builder.py`), MambaDecoder path.
 
 The module maps (rgb, modal_x), NHWC float, to logits NHWC at the input
 resolution. The other backbones (MiT, Swin) and decoders (MLP, UPerNet,
@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sigma_tpu_torch.models.common import resize_bilinear, uniform_
@@ -23,7 +24,9 @@ class EncoderDecoder(nn.Module):
     MambaDecoder."""
 
     def __init__(self, num_classes, backbone="sigma_tiny",
-                 decoder="MambaDecoder", deep_supervision=False):
+                 decoder="MambaDecoder", deep_supervision=False, remat=True):
+        """`remat`: True, False or a token threshold
+        (models/common.py::should_remat)."""
         super().__init__()
         if backbone not in SIGMA_VARIANTS:
             raise NotImplementedError(
@@ -34,10 +37,10 @@ class EncoderDecoder(nn.Module):
                 f"decoder {decoder!r} is not ported; the port has "
                 "MambaDecoder (ROADMAP.md queue A item 13)")
         variant = SIGMA_VARIANTS[backbone]
-        self.backbone = SigmaEncoder(**variant)
+        self.backbone = SigmaEncoder(**variant, remat=remat)
         self.decode_head = MambaDecoder(
             num_classes, embed_dim=variant["dims"][0],
-            deep_supervision=deep_supervision,
+            deep_supervision=deep_supervision, remat=remat,
         )
 
     def forward(self, rgb, modal_x):
@@ -70,9 +73,22 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def build_model(cfg, device="cpu", seed: int = 0) -> EncoderDecoder:
-    """The network of a config (configs/base.py), seeded, in eval mode on
-    `device`. fp32 only: the bf16 compute policy is open (ROADMAP C4)."""
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device on a host without one
+    raises instead of running anywhere else."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "asks for the CPU (device='cpu')")
+    return device
+
+
+def build_model(cfg, device="cuda", seed: int = 0) -> EncoderDecoder:
+    """The network of a config (sigma_tpu_torch/configs.py), seeded, in
+    eval mode on `device` (the card unless the caller asks for the CPU).
+    fp32 only: the bf16 compute policy is open (ROADMAP C4)."""
+    device = require_device(device)
     if getattr(cfg, "bf16", False):
         raise NotImplementedError(
             "bf16 compute is not ported (ROADMAP.md queue C4)")
@@ -80,5 +96,21 @@ def build_model(cfg, device="cpu", seed: int = 0) -> EncoderDecoder:
         num_classes=cfg.num_classes, backbone=cfg.backbone,
         decoder=cfg.decoder,
         deep_supervision=getattr(cfg, "deep_supervision", False),
+        remat=getattr(cfg, "remat", True),
     )
     return init_parameters(model, seed).to(device).eval()
+
+
+def segmentation_loss(logits, labels, ignore_index: int = 255):
+    """Mean CE over valid pixels (torch CrossEntropyLoss(ignore_index=255)),
+    in fp32. A batch with no valid pixel gives 0, not NaN (the count is
+    clamped to 1), as in the JAX package.
+
+    logits: (B, H, W, C) float; labels: (B, H, W) int.
+    """
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)

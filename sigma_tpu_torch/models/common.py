@@ -11,6 +11,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # torch nn.LayerNorm's default, which every live path of the reference uses
 LN_EPS = 1e-5
@@ -39,22 +40,58 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval mode or at rate 0.
-    Training draws its mask from `generator` (a torch.Generator on the
-    input's device) when one is set."""
+
+    Training draws its mask from a torch.Generator on the input's device
+    made anew in each call from `seed` (set per step and per module by
+    `set_drop_path_seeds`, the counterpart of flax's per-module fold of
+    `fold_in(rng, step)`). A forward recomputed under remat therefore
+    draws the same mask. With no seed set it draws from the global
+    generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
-        self.generator = None
+        self.seed = None
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        gen = None
+        if self.seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(self.seed)
         mask = torch.empty(shape, device=x.device).bernoulli_(
-            keep, generator=self.generator)
+            keep, generator=gen)
         return x * mask / keep
+
+
+def set_drop_path_seeds(model: nn.Module, seed: int, step: int) -> None:
+    """Seed every DropPath of `model` for one train step: module i draws
+    from a stream of its own, a fixed mix of (seed, step, i)."""
+    base = (seed * 1_000_003 + step) % 2**62
+    for i, m in enumerate(x for x in model.modules()
+                          if isinstance(x, DropPath)):
+        m.seed = (base * 65_537 + i) % 2**62
+
+
+def should_remat(remat, tokens: int) -> bool:
+    """remat policy (vssm.py::should_remat of the JAX package): a bool
+    passes through; an int is a token-count threshold (remat only the
+    large-L blocks)."""
+    if isinstance(remat, bool):
+        return remat
+    return tokens >= int(remat)
+
+
+def maybe_remat(module: nn.Module, remat: bool, *args):
+    """`module(*args)`, recomputed in the backward pass (activation
+    checkpointing per block) when `remat` and autograd is recording a
+    training forward."""
+    if remat and module.training and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 class Mlp(nn.Module):

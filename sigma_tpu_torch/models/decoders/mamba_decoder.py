@@ -15,7 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from sigma_tpu_torch.models.common import LN_EPS, resize_bilinear
+from sigma_tpu_torch.models.common import (
+    LN_EPS,
+    maybe_remat,
+    resize_bilinear,
+    should_remat,
+)
 from sigma_tpu_torch.models.vssm import CVSSDecoderBlock
 
 
@@ -130,11 +135,13 @@ class FinalUpsampleX4(nn.Module):
 
 
 class MambaUp(nn.Module):
-    """Stack of CVSSDecoderBlocks + optional UpsampleExpand."""
+    """Stack of CVSSDecoderBlocks + optional UpsampleExpand; training
+    rematerializes the blocks where `should_remat` says so."""
 
     def __init__(self, dim, depth, drop_path, d_state=4, ssm_ratio=2.0,
-                 upsample=True):
+                 upsample=True, remat=True):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(
             CVSSDecoderBlock(dim, float(drop_path[i]), d_state, ssm_ratio)
             for i in range(depth)
@@ -142,8 +149,9 @@ class MambaUp(nn.Module):
         self.upsample = UpsampleExpand(dim) if upsample else None
 
     def forward(self, x):
+        remat = should_remat(self.remat, x.shape[1] * x.shape[2])
         for blk in self.blocks:
-            x = blk(x)
+            x = maybe_remat(blk, remat, x)
         return x if self.upsample is None else self.upsample(x)
 
 
@@ -154,7 +162,7 @@ class MambaDecoder(nn.Module):
 
     def __init__(self, num_classes, embed_dim=96, depths=(4, 4, 4, 4),
                  d_state=4, ssm_ratio=2.0, drop_path_rate=0.1,
-                 deep_supervision=False):
+                 deep_supervision=False, remat=True):
         super().__init__()
         if deep_supervision:
             raise NotImplementedError(
@@ -168,7 +176,7 @@ class MambaDecoder(nn.Module):
             layers.append(MambaUp(
                 embed_dim * 2 ** lvl, depths[lvl],
                 dpr[sum(depths[:lvl]):sum(depths[:lvl + 1])], d_state,
-                ssm_ratio, upsample=i < n - 1,
+                ssm_ratio, upsample=i < n - 1, remat=remat,
             ))
         self.layers_up = nn.ModuleList(layers)
         self.norm_up = nn.LayerNorm(embed_dim, eps=LN_EPS)

@@ -1,13 +1,15 @@
 """Siamese VMamba RGB-X encoder (counterpart of
 `sigma_tpu/models/sigma_encoder.py`): ONE weight-shared trunk pass over
 both modalities stacked on the batch axis, then per-stage CroMB -> ConMB
-fusion."""
+fusion, each fusion block rematerialized in training where `should_remat`
+says so, as in the JAX package."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from sigma_tpu_torch.models.common import maybe_remat, should_remat
 from sigma_tpu_torch.models.fusion import (
     ConcatMambaFusionBlock,
     CrossMambaFusionBlock,
@@ -38,11 +40,12 @@ SIGMA_VARIANTS = {
 class SigmaEncoder(nn.Module):
     def __init__(self, depths=(2, 2, 9, 2), dims=(96, 192, 384, 768),
                  d_state=16, fusion_d_state=4, ssm_ratio=2.0, mlp_ratio=0.0,
-                 drop_path_rate=0.2):
+                 drop_path_rate=0.2, remat=True):
         super().__init__()
+        self.remat = remat
         self.vssm = VSSMBackbone(depths=depths, dims=dims, d_state=d_state,
                                  ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio,
-                                 drop_path_rate=drop_path_rate)
+                                 drop_path_rate=drop_path_rate, remat=remat)
         self.cross_mamba = nn.ModuleList(
             CrossMambaFusionBlock(d, d_state=fusion_d_state,
                                   ssm_ratio=ssm_ratio)
@@ -60,6 +63,7 @@ class SigmaEncoder(nn.Module):
         fused = []
         for o, cromb, conmb in zip(outs, self.cross_mamba,
                                    self.channel_attn_mamba):
-            o_rgb, o_e = cromb(o[:b], o[b:])
-            fused.append(conmb(o_rgb, o_e))
+            remat = should_remat(self.remat, o.shape[1] * o.shape[2])
+            o_rgb, o_e = maybe_remat(cromb, remat, o[:b], o[b:])
+            fused.append(maybe_remat(conmb, remat, o_rgb, o_e))
         return fused

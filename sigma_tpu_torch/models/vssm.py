@@ -4,6 +4,8 @@
   PatchEmbed, PatchMerging2D (v1), VSSBlock, VSSMBackbone (per-block
   modules; the JAX package stacks stages of 12+ blocks under nn.scan),
   ChannelAttention(+Block) and CVSSDecoderBlock.
+Training rematerializes each VSSBlock of a stage where `should_remat`
+says so (`remat=True` by default, as in the JAX package).
 VSSMClassifier is not ported yet.
 """
 
@@ -14,7 +16,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sigma_tpu_torch.models.common import LN_EPS, DropPath, Mlp, conv2d_nhwc
+from sigma_tpu_torch.models.common import (
+    LN_EPS,
+    DropPath,
+    Mlp,
+    conv2d_nhwc,
+    maybe_remat,
+    should_remat,
+)
 from sigma_tpu_torch.models.ss2d import SS2D
 
 
@@ -70,11 +79,13 @@ class VSSBlock(nn.Module):
             self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
             self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio),
                            hidden_dim)
+            # a mask of its own, as the JAX block's second DropPath draws
+            self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x):
         x = x + self.drop_path(self.op(self.norm(x)))
         if self.mlp is not None:
-            x = x + self.drop_path(self.mlp(self.norm2(x)))
+            x = x + self.drop_path2(self.mlp(self.norm2(x)))
         return x
 
 
@@ -92,8 +103,9 @@ class VSSMBackbone(nn.Module):
 
     def __init__(self, depths=(2, 2, 9, 2), dims=(96, 192, 384, 768),
                  d_state=16, ssm_ratio=2.0, mlp_ratio=0.0,
-                 drop_path_rate=0.2):
+                 drop_path_rate=0.2, remat=True):
         super().__init__()
+        self.remat = remat
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
         self.patch_embed = PatchEmbed(3, dims[0])
         stages, k = [], 0
@@ -115,8 +127,9 @@ class VSSMBackbone(nn.Module):
         x = self.patch_embed(x)
         outs = []
         for i, stage in enumerate(self.layers):
+            remat = should_remat(self.remat, x.shape[1] * x.shape[2])
             for blk in stage.blocks:
-                x = blk(x)
+                x = maybe_remat(blk, remat, x)
             outs.append(getattr(self, f"outnorm{i}")(x))
             if stage.downsample is not None:
                 x = stage.downsample(x)

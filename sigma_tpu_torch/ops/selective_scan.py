@@ -8,8 +8,9 @@ Counterpart of `sigma_tpu/ops/selective_scan.py`. Per (batch b, channel d):
 
 with h in R^N, h_0 = 0, all accumulation in float32.
 
-This module is the CPU path of the port and the oracle that both Hopper
-scan kernels (`ops/scan_g.py`) are held against on the card:
+This module is the CPU path of the port and the oracle that the Hopper
+scan kernels (`ops/scan_g.py`) are held against on the card, forward and,
+through autograd, backward:
   * `selective_scan_ref` — sequential, one step per token (tests only);
   * `selective_scan_chunked` — the chunked two-level scan of
     `selective_scan_xla`: a doubling (Hillis-Steele) scan inside fixed-size
@@ -20,6 +21,7 @@ scan kernels (`ops/scan_g.py`) are held against on the card:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 # chunk length of the chunked scan; it changes only float32 association
@@ -84,11 +86,23 @@ def _doubling_scan(a, b, dim):
     return a, b
 
 
-def _scan_grouped(u, d_eff, A_t, B, C, chunk):
+def _scan_chunk(h, d_c, u_c, A_t, B_c, C_c):
+    """One chunk of `_scan_grouped`: (y chunk, carry out)."""
+    a = torch.exp(d_c[..., None] * A_t[None, :, None])  # (b, G, c, dg, N)
+    bx = (d_c * u_c)[..., None] * B_c[:, :, :, None, :]
+    a_s, b_s = _doubling_scan(a, bx, 2)
+    h_all = b_s + a_s * h[:, :, None]
+    return torch.einsum("bgcdn,bgcn->bgcd", h_all, C_c), h_all[:, :, -1]
+
+
+def _scan_grouped(u, d_eff, A_t, B, C, chunk, remat_chunks=False):
     """Chunked scan in the grouped channel-last layout, float32.
 
     u, d_eff: (batch, G, L, dg); A_t: (G, dg, N); B, C: (batch, G, L, N).
-    Returns y (batch, G, L, dg) without the D skip.
+    Returns y (batch, G, L, dg) without the D skip. `remat_chunks` keeps
+    only each chunk's inputs for autograd and recomputes the chunk in the
+    backward pass (same values; bounds the memory of a differentiated
+    full-size call to about one chunk's intermediates).
     """
     batch, G, L, dg = u.shape
     N = A_t.shape[-1]
@@ -96,13 +110,13 @@ def _scan_grouped(u, d_eff, A_t, B, C, chunk):
     ys = []
     for t0 in range(0, L, chunk):
         c = min(chunk, L - t0)
-        d_c = d_eff[:, :, t0:t0 + c]                      # (b, G, c, dg)
-        a = torch.exp(d_c[..., None] * A_t[None, :, None])  # (b, G, c, dg, N)
-        bx = (d_c * u[:, :, t0:t0 + c])[..., None] * B[:, :, t0:t0 + c, None, :]
-        a_s, b_s = _doubling_scan(a, bx, 2)
-        h_all = b_s + a_s * h[:, :, None]
-        ys.append(torch.einsum("bgcdn,bgcn->bgcd", h_all, C[:, :, t0:t0 + c]))
-        h = h_all[:, :, -1]
+        args = (h, d_eff[:, :, t0:t0 + c], u[:, :, t0:t0 + c], A_t,
+                B[:, :, t0:t0 + c], C[:, :, t0:t0 + c])
+        if remat_chunks:
+            y_c, h = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            y_c, h = _scan_chunk(*args)
+        ys.append(y_c)
     return torch.cat(ys, dim=2)
 
 
@@ -133,11 +147,12 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
 
 
 def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
-                      delta_softplus=False):
+                      delta_softplus=False, remat_chunks=False):
     """Channel-last grouped selective scan (the model-native layout).
 
     u, delta: (batch*G, L, dg), rows batch-major; A: (G, N, dg) negative;
     B, C: (batch*G, L, N); D, delta_bias: (G, dg). Returns y like u.
+    `remat_chunks`: see `_scan_grouped`.
     """
     bg, L, dg = u.shape
     G, N, _ = A.shape
@@ -150,7 +165,7 @@ def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
     y = _scan_grouped(
         uf, d, A.float().transpose(1, 2),
         B.float().reshape(batch, G, L, N), C.float().reshape(batch, G, L, N),
-        CHUNK,
+        CHUNK, remat_chunks,
     )
     if D is not None:
         y = y + D.float().reshape(1, G, 1, dg) * uf

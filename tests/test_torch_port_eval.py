@@ -6,8 +6,11 @@
     with a 2-D modal-x, and the collapsed-window geometry;
   * `python -m sigma_tpu_torch.eval` end to end on a synthetic PNG MFNet
     tree, on the CPU;
-  * importing every module of the port and running its eval leaves jax
-    and flax out of sys.modules (a fresh interpreter).
+  * importing every module of the port (the train CLI and chip_smoke.py
+    included) and running its eval loads nothing of jax, jaxlib, flax,
+    sigma_tpu or configs (a fresh interpreter);
+  * build_model and SlidingEvaluator run on the card unless asked for the
+    CPU: on a host without one they raise.
 """
 
 import os
@@ -79,7 +82,7 @@ def test_evaluator_matches_jax(img_hw, crop, scales, flip, modal2d):
     kw = dict(multi_scales=scales, is_flip=flip, eval_crop_size=crop,
               stride_rate=2 / 3, window_batch=3)
     jev = JaxEvaluator(JaxLinear(), C, MEAN, STD, **kw)
-    tev = SlidingEvaluator(torch_linear, C, MEAN, STD, **kw)
+    tev = SlidingEvaluator(torch_linear, C, MEAN, STD, device="cpu", **kw)
     want = _jax_scores(jev, img, mx)
     got = tev.scores(img, mx).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
@@ -101,8 +104,8 @@ def test_run_matches_jax():
     kw = dict(eval_crop_size=(40, 56), window_batch=2)
     miou_j, det_j = JaxEvaluator(JaxLinear(), C, MEAN, STD, **kw).run(
         None, items, shard_across_processes=False)
-    miou_t, det_t = SlidingEvaluator(torch_linear, C, MEAN, STD, **kw).run(
-        items)
+    miou_t, det_t = SlidingEvaluator(torch_linear, C, MEAN, STD,
+                                     device="cpu", **kw).run(items)
     assert miou_t == pytest.approx(miou_j, abs=1e-3)
     np.testing.assert_allclose(det_t["iou"], det_j["iou"], atol=1e-4)
 
@@ -131,7 +134,7 @@ def mfnet_tree(tmp_path_factory):
     cfg = get_config("mfnet")
     object.__setattr__(cfg, "backbone", "sigma_mini")
     ckpt = root / "sigma_mini.pt"
-    torch.save(build_model(cfg, seed=1).state_dict(), ckpt)
+    torch.save(build_model(cfg, device="cpu", seed=1).state_dict(), ckpt)
     return root, ckpt
 
 
@@ -143,7 +146,8 @@ def _cli_args(root, ckpt, out=None):
 
 
 def _env():
-    env = dict(os.environ)
+    # two torch threads: the suite runs several test processes at once
+    env = dict(os.environ, OMP_NUM_THREADS="2")
     env.pop("XLA_FLAGS", None)
     return env
 
@@ -174,10 +178,11 @@ def test_port_imports_and_eval_stay_jax_free(mfnet_tree):
         "                               'sigma_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import sigma_tpu_torch.train\n"
         "from sigma_tpu_torch.eval import main\n"
         f"rc = main({_cli_args(root, ckpt)!r})\n"
-        "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "roots = ('jax', 'jaxlib', 'flax', 'sigma_tpu', 'configs')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in roots)\n"
         "assert rc == 0 and not bad, (rc, bad[:10])\n"
         "print('JAX_FREE')\n"
     )
@@ -199,3 +204,23 @@ def test_cuda_device_without_card_fails():
     with pytest.raises(SystemExit) as e:
         main(["-n", "mfnet", "-e", "x.pt", "--device", "cuda"])
     assert e.value.code != 0
+
+
+def test_build_model_and_evaluator_default_to_the_card():
+    """The entry points run on the card unless the caller asks for the
+    CPU: without a card, their default device raises instead of running
+    anywhere else."""
+    import inspect
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.models.builder import build_model
+
+    for fn in (build_model, SlidingEvaluator.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = get_config("mfnet", backbone="sigma_test")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlidingEvaluator(torch_linear, C, MEAN, STD)

@@ -8,9 +8,10 @@ sources; it imports nothing of JAX. TF32 is off for matmuls and cuDNN, so
 fp32 means fp32 on both sides of every comparison. Phases, each printing
 its findings:
 
-  1. build    — compile the Hopper scan kernels from sigma_tpu_torch/csrc
-                with nvcc, one process per source, all started together
-                (timed); print the card's name and power limit.
+  1. build    — compile the Hopper kernels from sigma_tpu_torch/csrc (the
+                two scan sources and the fused SS2D epilogue) with nvcc,
+                one process per source, all started together (timed);
+                print the card's name and power limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
                 batch 1, run K1 (streamed) / K2 (fused projection) against
                 their plain PyTorch versions on the card, fp32 and bf16 io,
@@ -27,26 +28,41 @@ its findings:
                 entry point's backward against the plain version's, and
                 of K3 / K4 / K5 each launched alone (K5 against its plain
                 products).
-  4. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
+  4. epilogue — at every SS2D epilogue shape of sigma_tiny at 480x640 (eval
+                batch 1 and train batch 2), fp32 and bf16: K6 against the
+                plain forward, K7 against the plain backward formula; fp32
+                also through the entry point's autograd (one K6 and one K7
+                launch) against autograd of the plain forward, all five
+                gradients, and a K7 rerun that must give the same dgamma /
+                dbeta bits. z is a column slice, as SS2D splits it. Prints
+                errors and the ms of K6 / K7, of their plain versions and
+                of the unfused chain of PyTorch calls the switch replaces.
+  5. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
                 seeded 480x640 RGB-X pairs through the port's
-                SlidingEvaluator.run under the MFNet preset; img/s and
-                mIoU; K1 and K2 must have been launched on that path, and
-                no backward kernel. Then the same model at 96x128: GPU
-                logits against the CPU plain path.
-  5. train    — the train CLI's step (engine.train.build_train: AdamW,
+                SlidingEvaluator.run under the MFNet preset, with the fused
+                SS2D epilogue off, on, on, off (one model): img/s and mIoU
+                of each run; K1 and K2 must have been launched, K6 once
+                per SS2D forward with the switch on and never with it off,
+                no backward kernel. Logits of one 480x640 pair with the
+                switch on against off. Then the same model at 96x128, both
+                ways: GPU logits against the CPU plain path.
+  6. train    — the train CLI's step (engine.train.build_train: AdamW,
                 warmup-poly lr, remat, drop path) for 3 steps at 480x640,
                 batch 2, on seeded synthetic uint8 batches with pad
-                margins (trace_step.synthetic_batch): finite
-                losses, parameters changed, K1-K5 all launched; s/step and
-                img/s of the last two steps. Then one step of sigma_test
-                at 64x80 on the card and on the CPU from the same weights
-                and batch (drop path 0, SGD with momentum): losses and
-                post-step parameters against each other.
+                margins (trace_step.synthetic_batch), with the switch off,
+                on, on, off (the same seeded weights each time): finite
+                losses, parameters changed, K1-K5 all launched, K6 / K7 as
+                many times as the remat plan implies with the switch on
+                and never with it off; s/step and img/s of the last two
+                steps. Then one step of sigma_test at 64x80 on the card and
+                on the CPU from the same weights and batch (drop path 0,
+                SGD with momentum), both ways: losses and post-step
+                parameters against each other.
 
 Ends with the card line, one JSON line of the kernels (launches from the
-train phase; bound_ms from this run's shapes, see `_work`), then the
-device line. Exits non-zero, with no result line, without a CUDA card or
-when a phase fails.
+train phase's last run with the switch on; bound_ms from this run's shapes,
+see `_work`), then the device line. Exits non-zero, with no result line,
+without a CUDA card or when a phase fails.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -95,8 +112,18 @@ KERNELS = {
         replaces="sigma_tpu/ops/pallas_scan_g.py:594 (_bwd_kernel's "
                  "weight-grad and du-chain dots :594-622, pallas_calls "
                  ":1060 and :1225)"),
+    "merge_ln_gate_fwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/merge_ln_gate.cu",
+        replaces="sigma_tpu/ops/pallas_merge_ln_gate.py:54 (_fwd_kernel via "
+                 "_fwd, pallas_call :153)"),
+    "merge_ln_gate_bwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/merge_ln_gate.cu",
+        replaces="sigma_tpu/ops/pallas_merge_ln_gate.py:66 (_bwd_kernel via "
+                 "_vjp_bwd, pallas_call :183)"),
 }
 FORWARD = ("scan_fwd", "scan_proj_fwd")
+SCAN_BACKWARD = ("scan_bwd", "scan_proj_bwd", "proj_grad")
+EPILOGUE = ("merge_ln_gate_fwd", "merge_ln_gate_bwd")
 
 
 def main_path_scans(H=480, W=640, batch=1):
@@ -200,11 +227,19 @@ def _run_case(kernel, kw, x, reverse, use_kernel):
 def _work(kernel, kw, reverse=False):
     """(bytes, operations) of one call's function at shape `kw`, fp32:
     each input read once and each output written once; operations count
-    an exp as one. Scan: 9 per (token, chain, channel, state) forward
-    (the JAX package's flops count), 22 backward (5 to recompute h, 14 in
-    the dh sweep, 3 in the dB / dC channel sums); projections 2 per
-    multiply-add."""
+    an exp or a division as one. Scan: 9 per (token, chain, channel,
+    state) forward (the JAX package's flops count), 22 backward (5 to
+    recompute h, 14 in the dh sweep, 3 in the dB / dC channel sums);
+    projections 2 per multiply-add. Epilogue, per element: K6 reads y_hw,
+    y_wh, z and writes out (16 bytes) for 14 operations; K7 reads the three
+    and dout and writes three gradients (28 bytes) for 32 operations; both
+    read gamma and beta, K7 writes their gradients."""
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
+
+    if kernel in EPILOGUE:
+        n, c = kw["B"] * kw["H"] * kw["W"] * kw["C"], kw["C"]
+        return {"merge_ln_gate_fwd": (16 * n + 8 * c, 14 * n),
+                "merge_ln_gate_bwd": (28 * n + 16 * c, 32 * n)}[kernel]
 
     G = 2 if kw["ml"] else 1
     B, L, dg, N = kw["B"], kw["L"], kw["dg"], kw["N"]
@@ -248,6 +283,30 @@ def _time_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps):
+    """Device time per call of `fn`: the summed durations of the kernels
+    it launches (torch.profiler), over `reps` calls after a warm-up. Unlike
+    `_time_ms`, it leaves out the host's time between launches, which
+    bounds a call of a few tens of microseconds. Returns
+    ({kernel name: ms per call}, total ms per call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    by_name = {k: v / reps for k, v in by_name.items()}
+    return by_name, sum(by_name.values())
 
 
 def build_phase():
@@ -326,14 +385,16 @@ def kernel_phase(device, cases=None, reps=5):
     return summary
 
 
-def _scaled_err(got, want):
-    """(max |got - want|, ok) at FP32_TOL against max(|want|, 1)."""
+def _scaled_err(got, want, tol=FP32_TOL):
+    """(max |got - want|, ok) at `tol` (rtol, atol) against
+    max(|want|, 1), in fp32."""
     import torch
 
+    got, want = got.float(), want.float()
     scale = max(want.abs().max().item(), 1.0)
     err = (got - want).abs().max().item()
     ok = bool(torch.isfinite(got).all()) and torch.allclose(
-        got / scale, want / scale, rtol=FP32_TOL[0], atol=FP32_TOL[1])
+        got / scale, want / scale, rtol=tol[0], atol=tol[1])
     return err, ok
 
 
@@ -440,7 +501,7 @@ def backward_phase(device, reps=3):
 
     gen = torch.Generator().manual_seed(SEED + 2)
     summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
-               for k in KERNELS if k not in FORWARD}
+               for k in SCAN_BACKWARD}
     failures = []
     for fwd_kernel, tag, kw in main_path_scans(batch=2):
         streamed = fwd_kernel == "scan_fwd"
@@ -501,6 +562,190 @@ def backward_phase(device, reps=3):
     return summary
 
 
+def epilogue_shapes(H=480, W=640):
+    """{(B, h, w, C): tags} of every SS2D epilogue of sigma_tiny at HxW:
+    a trunk SS2D sees both modalities (batch 2 in eval, 4 in a batch-2
+    train step), a decoder SS2D one (1 / 2), at stages 0-2."""
+    shapes = {}
+    for s, dim in enumerate((96, 192, 384, 768)):
+        h, w, c = H // 4 >> s, W // 4 >> s, 2 * dim
+        for mode, batch in (("eval", 1), ("train", 2)):
+            shapes.setdefault((2 * batch, h, w, c), []).append(
+                f"trunk{s}-{mode}")
+            if s < 3:
+                shapes.setdefault((batch, h, w, c), []).append(
+                    f"dec{s}-{mode}")
+    return shapes
+
+
+def _epilogue_inputs(kw, dtype, device, gen):
+    """y_hw, y_wh, z, gamma, beta and a cotangent dout at shape `kw`; z is
+    the second half of a (B, H, W, 2C) tensor, as SS2D splits it out of
+    in_proj's output."""
+    import torch
+
+    b, h, w, c = kw["B"], kw["H"], kw["W"], kw["C"]
+    rnd = lambda *s: torch.randn(s, generator=gen).to(device)  # noqa: E731
+    y_hw, y_wh = rnd(b, h, w, c).to(dtype), rnd(b, w, h, c).to(dtype)
+    z = rnd(b, h, w, 2 * c).to(dtype)[..., c:]
+    gamma, beta = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
+    return [y_hw, y_wh, z, gamma, beta], rnd(b, h, w, c)
+
+
+def _unfused(y_hw, y_wh, z, gamma, beta, eps):
+    """What the switch replaces: SS2D's unfused epilogue, PyTorch calls."""
+    import torch.nn.functional as F
+
+    y = y_hw + y_wh.transpose(1, 2)
+    return F.layer_norm(y, (y.shape[-1],), gamma, beta, eps) * F.silu(z)
+
+
+def epilogue_phase(device, reps=10):
+    """Every SS2D epilogue shape, fp32 and bf16: K6 / K7 against the plain
+    forward and backward; fp32 also the entry point's autograd (K6 + K7,
+    launches counted) against autograd of the plain forward and a K7 rerun
+    for identical dgamma / dbeta bits; the device ms of K6 / K7, of the
+    plain versions and of the unfused chain. Returns per-kernel summaries;
+    raises on disagreement."""
+    import torch
+
+    from sigma_tpu_torch.models.common import LN_EPS as eps
+    from sigma_tpu_torch.ops import merge_ln_gate as mlg
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, unfused_ms=0.0,
+                       at="") for k in EPILOGUE}
+    names = ("dy_hw", "dy_wh", "dz", "dgamma", "dbeta")
+    failures = []
+    for (b, h, w, c), tags in epilogue_shapes().items():
+        kw = dict(B=b, H=h, W=w, C=c)
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            args, dout = _epilogue_inputs(kw, dtype, device, gen)
+            errs, bad = {}, []
+            out = mlg.launch_merge_ln_gate_fwd(*args, eps)
+            errs["out"], ok = _scaled_err(
+                out, mlg.merge_ln_gate_plain(*args, eps), tol)
+            bad += [] if ok and out.dtype == torch.float32 else ["out"]
+            got = mlg.launch_merge_ln_gate_bwd(*args, eps, dout)
+            want = mlg.merge_ln_gate_bwd_plain(*args, eps, dout)
+            for k, g_, w_ in zip(names, got, want):
+                errs[k], ok = _scaled_err(g_, w_, tol)
+                bad += [] if ok and g_.dtype == w_.dtype else [k]
+            line = (f"epilogue: {'/'.join(tags)} {kw} {str(dtype)[6:]} "
+                    + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+            if dtype == torch.float32:
+                # the entry point's autograd: one K6, one K7
+                leaves = [x.detach().clone().requires_grad_(True)
+                          for x in args]
+                zfull = torch.cat([args[2], args[2]], -1).requires_grad_(True)
+                leaves[2] = zfull[..., c:]
+                mlg.reset_launches()
+                o = mlg.merge_ln_gate(*leaves, eps)
+                g_entry = torch.autograd.grad(o, leaves, dout)
+                torch.cuda.synchronize()
+                if dict(mlg.LAUNCHES) != dict.fromkeys(EPILOGUE, 1):
+                    bad.append(f"launches {mlg.LAUNCHES}")
+                g_auto = torch.autograd.grad(
+                    mlg.merge_ln_gate_plain(*leaves, eps), leaves, dout)
+                for k, g_, w_ in zip(names, g_entry, g_auto):
+                    e, ok = _scaled_err(g_, w_)
+                    errs[k] = max(errs[k], e)
+                    bad += [] if ok else [f"autograd {k}"]
+                again = mlg.launch_merge_ln_gate_bwd(*args, eps, dout)
+                if not all(torch.equal(got[i], again[i]) for i in (3, 4)):
+                    bad.append("rerun dgamma/dbeta bits")
+                s6, s7 = (summary[k] for k in EPILOGUE)
+                s6["max_abs_err"] = max(s6["max_abs_err"], errs["out"])
+                s7["max_abs_err"] = max(s7["max_abs_err"],
+                                        *(errs[k] for k in names))
+
+                def unfused_run(backward):
+                    y = _unfused(*leaves, eps)
+                    if backward:
+                        torch.autograd.grad(y, leaves, dout)
+
+                runs = {
+                    "k6": lambda: mlg.launch_merge_ln_gate_fwd(*args, eps),
+                    "plain": lambda: mlg.merge_ln_gate_plain(*args, eps),
+                    "unfused": lambda: _unfused(*args, eps),
+                    "k7": lambda: mlg.launch_merge_ln_gate_bwd(*args, eps,
+                                                               dout),
+                    "plain_bwd": lambda: mlg.merge_ln_gate_bwd_plain(
+                        *args, eps, dout)}
+                # device time: the host's time between launches bounds a
+                # call of a few tens of microseconds on the stream
+                with torch.no_grad():
+                    dev = {k: _device_ms(f, reps) for k, f in runs.items()}
+                dev["unfused_bwd"] = (
+                    None, _device_ms(lambda: unfused_run(True), reps)[1]
+                    - _device_ms(lambda: unfused_run(False), reps)[1])
+                # a kernel's own time; its plain version and the unfused
+                # chain: all the kernels they launch
+                d6 = sum(v for k, v in dev["k6"][0].items()
+                         if "merge_ln_gate_fwd_kernel" in k)
+                d7 = sum(v for k, v in dev["k7"][0].items()
+                         if "merge_ln_gate_bwd_kernel" in k)
+                dt = {k: v[1] for k, v in dev.items()}
+                line += (" device_ms: k6=%.4f plain=%.4f unfused=%.4f "
+                         "k7=%.4f (wrapper %.4f) plain_bwd=%.4f "
+                         "unfused_bwd=%.4f" % (
+                             d6, dt["plain"], dt["unfused"], d7, dt["k7"],
+                             dt["plain_bwd"], dt["unfused_bwd"]))
+                for s_, t, p_, u in (
+                        (s6, d6, dt["plain"], dt["unfused"]),
+                        (s7, d7, dt["plain_bwd"], dt["unfused_bwd"])):
+                    if t > s_["ms"]:
+                        s_.update(ms=t, plain_ms=p_, unfused_ms=u,
+                                  at=f"{'/'.join(tags)} fp32 {kw}", kw=kw)
+                del leaves, zfull, o, g_entry, g_auto, again, runs
+            line += f" {'ok' if not bad else 'FAIL ' + str(bad)}"
+            print(line, flush=True)
+            if bad:
+                failures.append(line)
+            del args, dout, out, got, want
+    torch.cuda.empty_cache()
+    mlg.reset_launches()
+    if failures:
+        raise AssertionError(f"{len(failures)} epilogue comparisons failed")
+    return summary
+
+
+def _reset_launches():
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_g
+
+    scan_g.reset_launches()
+    merge_ln_gate.reset_launches()
+
+
+def _launches():
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_g
+
+    return {**scan_g.LAUNCHES, **merge_ln_gate.LAUNCHES}
+
+
+def epilogue_plan(model, h, w):
+    """(K6, K7) launches of one train step of `model` at h x w, as its
+    remat plan implies: each SS2D's forward launches K6, once more when its
+    block is rematerialized (the recompute in the backward pass), and its
+    backward launches K7 once. One SS2D per VSSBlock / CVSSDecoderBlock."""
+    from sigma_tpu_torch.models.common import should_remat
+
+    hh, ww = -(-h // 4), -(-w // 4)
+    vssm, dec = model.backbone.vssm, model.decode_head
+    groups = [(stage.blocks, vssm.remat, s)
+              for s, stage in enumerate(vssm.layers)]
+    n = len(dec.layers_up)
+    groups += [(up.blocks, up.remat, n - 1 - i)
+               for i, up in enumerate(dec.layers_up) if i > 0]
+    k6 = k7 = 0
+    for blocks, remat, level in groups:
+        tokens = -(-hh // 2 ** level) * -(-ww // 2 ** level)
+        k6 += len(blocks) * (1 + int(should_remat(remat, tokens)))
+        k7 += len(blocks)
+    return k6, k7
+
+
 class _SyntheticMFNet:
     """In-memory stand-in for RGBXDataset's val split (same item keys):
     seeded uint8 480x640 RGB, thermal replicated to 3 channels, labels in
@@ -529,10 +774,12 @@ class _SyntheticMFNet:
         return self.items[i]
 
 
-def model_phase(device):
+def model_phase(device, order=(False, True, True, False)):
     """The port's serving path: build_model + SlidingEvaluator.run under
-    the MFNet preset. Returns the launch counts of that run; raises if a
-    kernel was not launched, an output is wrong, or the GPU logits
+    the MFNet preset, once per entry of `order` (the fused SS2D epilogue
+    off or on; one model, so the same weights). Returns {switch: [img/s of
+    each run]}; raises if a kernel was not launched as the path implies,
+    an output is wrong, the switch changes the logits, or the GPU logits
     disagree with the CPU plain path."""
     import copy
 
@@ -542,14 +789,18 @@ def model_phase(device):
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.models.builder import build_model
-    from sigma_tpu_torch.ops import scan_g
+    from sigma_tpu_torch.models.ss2d import SS2D, set_fused_epilogue
 
     cfg = get_config("mfnet")
     t0 = time.perf_counter()
     model = build_model(cfg, device=device, seed=SEED)
+    n_ss2d = sum(isinstance(m, SS2D) for m in model.modules())
     print(f"model: {cfg.backbone}/{cfg.decoder} {cfg.num_classes} classes "
-          f"{sum(p.numel() for p in model.parameters())} params, "
-          f"built in {time.perf_counter() - t0:.2f}s")
+          f"{sum(p.numel() for p in model.parameters())} params, {n_ss2d} "
+          f"SS2Ds, built in {time.perf_counter() - t0:.2f}s")
+    forwards = [0]
+    model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     data = _SyntheticMFNet(4, cfg.image_height, cfg.image_width, SEED)
     ev = SlidingEvaluator(
         model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
@@ -557,61 +808,156 @@ def model_phase(device):
         eval_crop_size=cfg.eval_crop_size, stride_rate=cfg.eval_stride_rate,
         device=device,
     )
-    t0 = time.perf_counter()
-    pred = ev.sliding_eval(data[0]["data"], data[0]["modal_x"])
-    print(f"model: warm-up image {time.perf_counter() - t0:.3f}s")
-    if pred.shape != (cfg.image_height, cfg.image_width) or not (
-            (pred >= 0) & (pred < cfg.num_classes)).all():
-        raise AssertionError(f"bad prediction {pred.shape} {pred.dtype}")
+    img_s = {False: [], True: []}
+    for fused in order:
+        set_fused_epilogue(model, fused)
+        t0 = time.perf_counter()
+        pred = ev.sliding_eval(data[0]["data"], data[0]["modal_x"])
+        print(f"model: fused_epilogue={int(fused)} warm-up image "
+              f"{time.perf_counter() - t0:.3f}s")
+        if pred.shape != (cfg.image_height, cfg.image_width) or not (
+                (pred >= 0) & (pred < cfg.num_classes)).all():
+            raise AssertionError(f"bad prediction {pred.shape} {pred.dtype}")
 
-    torch.cuda.reset_peak_memory_stats(device)
-    scan_g.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    miou, detail = ev.run(data)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(scan_g.LAUNCHES)
-    print(f"model: MFNet {cfg.image_height}x{cfg.image_width} eval of "
-          f"{len(data)} images in {seconds:.3f}s = "
-          f"{len(data) / seconds:.4f} img/s, mIoU {miou:.4f} "
-          f"(random weights), peak "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
-          f"launches {launches}")
-    if not np.isfinite(miou) or not np.isfinite(detail["pixel_acc"]):
-        raise AssertionError(f"non-finite metrics {miou} {detail}")
-    missing = [k for k in FORWARD if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    backward = [k for k in launches if k not in FORWARD and launches[k]]
-    if backward:
-        raise AssertionError(f"backward kernels launched by eval: "
-                             f"{backward}")
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        forwards[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, detail = ev.run(data)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        img_s[fused].append(len(data) / seconds)
+        print(f"model: fused_epilogue={int(fused)} MFNet "
+              f"{cfg.image_height}x{cfg.image_width} eval of {len(data)} "
+              f"images in {seconds:.3f}s = {len(data) / seconds:.4f} img/s, "
+              f"mIoU {miou:.4f} (random weights), peak "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
+              f"{forwards[0]} forwards, launches {launches}")
+        if not np.isfinite(miou) or not np.isfinite(detail["pixel_acc"]):
+            raise AssertionError(f"non-finite metrics {miou} {detail}")
+        missing = [k for k in FORWARD if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: "
+                                 f"{missing}")
+        backward = [k for k in SCAN_BACKWARD + EPILOGUE[1:] if launches[k]]
+        if backward:
+            raise AssertionError(f"backward kernels launched by eval: "
+                                 f"{backward}")
+        want_k6 = n_ss2d * forwards[0] if fused else 0
+        if launches["merge_ln_gate_fwd"] != want_k6:
+            raise AssertionError(f"K6 launched {launches['merge_ln_gate_fwd']}"
+                                 f" times, the path implies {want_k6}")
+    print(f"model: eval img/s unfused {img_s[False]} fused {img_s[True]}")
+
+    # the switch at 480x640: the same weights and input, fused against not
+    rng = np.random.default_rng(SEED + 7)
+    rgb, mx = (torch.from_numpy(rng.standard_normal(
+        (1, cfg.image_height, cfg.image_width, 3)).astype(np.float32))
+        .to(device) for _ in range(2))
+    logits = {}
+    with torch.inference_mode():
+        for fused in (False, True):
+            set_fused_epilogue(model, fused)
+            logits[fused] = model(rgb, mx)
+    agree = (logits[True].argmax(-1) == logits[False].argmax(-1)).float() \
+        .mean().item()
+    err = (logits[True] - logits[False]).abs().max().item()
+    print(f"model: {cfg.image_height}x{cfg.image_width} logits fused vs "
+          f"unfused epilogue max_abs_err={err:.3e} argmax agreement "
+          f"{agree:.5f} (need >= {ARGMAX_AGREEMENT})")
+    if not torch.isfinite(logits[True]).all() or agree < ARGMAX_AGREEMENT:
+        raise AssertionError("the fused epilogue changes the logits")
+    del logits, rgb, mx
 
     # the same model at 96x128: GPU (kernels) against CPU (plain path)
     rng = np.random.default_rng(SEED + 1)
     rgb, mx = (torch.from_numpy(rng.standard_normal((1, 96, 128, 3))
                                 .astype(np.float32)) for _ in range(2))
     cpu_model = copy.deepcopy(model).cpu()
-    with torch.inference_mode():
-        got = model(rgb.to(device), mx.to(device)).cpu()
-        want = cpu_model(rgb, mx)
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    err = (got - want).abs().max().item()
-    print(f"model: 96x128 GPU vs CPU logits max_abs_err={err:.3e} "
-          f"argmax agreement {agree:.5f} (need >= {ARGMAX_AGREEMENT})")
-    if not torch.isfinite(got).all() or agree < ARGMAX_AGREEMENT:
-        raise AssertionError("GPU logits disagree with the CPU plain path")
-    return launches
+    for fused in (False, True):
+        set_fused_epilogue(model, fused)
+        set_fused_epilogue(cpu_model, fused)
+        with torch.inference_mode():
+            got = model(rgb.to(device), mx.to(device)).cpu()
+            want = cpu_model(rgb, mx)
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        err = (got - want).abs().max().item()
+        print(f"model: fused_epilogue={int(fused)} 96x128 GPU vs CPU logits "
+              f"max_abs_err={err:.3e} argmax agreement {agree:.5f} (need >= "
+              f"{ARGMAX_AGREEMENT})")
+        if not torch.isfinite(got).all() or agree < ARGMAX_AGREEMENT:
+            raise AssertionError("GPU logits disagree with the CPU plain "
+                                 "path")
+    return img_s
 
 
-def train_phase(device, steps=3):
+def _train_run(cfg, device, batches, fused):
+    """The train CLI's step (a fresh seeded model) over `batches`, with the
+    fused SS2D epilogue `fused`. Returns (launch counts, timing dict);
+    raises if a loss is not finite, no weight moved, or the kernels
+    launched differ from what the path and its remat plan imply."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
+    from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch
+
+    h, w = cfg.image_height, cfg.image_width
+    state, step, schedule = build_train(cfg, device)
+    model = set_fused_epilogue(state.model, fused)
+    k6, k7 = epilogue_plan(model, h, w)
+    steps = len(batches)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    seconds, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, b)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = _launches()
+    moved = sum(int((p.detach() != before[k]).sum())
+                for k, p in model.named_parameters())
+    total = sum(p.numel() for p in model.parameters())
+    s_step = sum(seconds[1:]) / len(seconds[1:])
+    tag = f"train: fused_epilogue={int(fused)}"
+    print(f"{tag} sigma_tiny MFNet {h}x{w} batch {batch}, {steps} steps: "
+          f"losses {losses}, seconds {[round(t, 4) for t in seconds]}, "
+          f"lr {[schedule(k) for k in range(steps)]}")
+    print(f"{tag} last {steps - 1} steps {s_step:.4f} s/step = "
+          f"{batch / s_step:.4f} img/s, peak "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
+          f"{moved} of {total} weights moved, launches {launches}")
+    del state, step, model, before
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss {losses}")
+    if moved == 0:
+        raise AssertionError("the train steps moved no weight")
+    missing = [k for k in FORWARD + SCAN_BACKWARD if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the train step: "
+                             f"{missing}")
+    want = ((steps * k6, steps * k7) if fused else (0, 0))
+    got = tuple(launches[k] for k in EPILOGUE)
+    if got != want:
+        raise AssertionError(f"K6/K7 launched {got} times, the remat plan "
+                             f"implies {want}")
+    return launches, dict(s_step=s_step, img_s=batch / s_step)
+
+
+def train_phase(device, steps=3, order=(False, True, True, False)):
     """The port's train step at the MFNet preset (sigma_tiny, 480x640),
-    built as the train CLI and trace_step build it.
-    Returns (launch counts of the steps, timing dict); raises if a loss is
-    not finite, no weight moved, a kernel was not launched, or the card
-    and the CPU disagree on a sigma_test step."""
+    built as the train CLI and trace_step build it, 3 steps once per entry
+    of `order` (the fused SS2D epilogue off or on), then a sigma_test step
+    on the card against the CPU, both ways. Returns (launch counts of the
+    last run with the switch on, {switch: [timing dicts]}); raises on a
+    failed check."""
     import copy
 
     import numpy as np
@@ -620,78 +966,57 @@ def train_phase(device, steps=3):
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.engine.optim import build_optimizer
     from sigma_tpu_torch.engine.train import (
-        build_train,
         create_train_state,
         make_train_step,
     )
     from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
     from sigma_tpu_torch.models.common import DropPath
-    from sigma_tpu_torch.ops import scan_g
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
     from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch
     from sigma_tpu_torch.trace_step import synthetic_batch
     from sigma_tpu_torch.utils.lr_schedule import poly_lr
 
     cfg = get_config("mfnet")
-    h, w = cfg.image_height, cfg.image_width
-    state, step, schedule = build_train(cfg, device)
-    model = state.model
     rng = np.random.default_rng(SEED + 3)
-    batches = [synthetic_batch(rng, batch, h, w) for _ in range(steps)]
-    before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    torch.cuda.reset_peak_memory_stats(device)
-    scan_g.reset_launches()
-    seconds, losses = [], []
-    for b in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(float(step(state, b)))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    launches = dict(scan_g.LAUNCHES)
-    moved = sum(int((p.detach() != before[k]).sum())
-                for k, p in model.named_parameters())
-    total = sum(p.numel() for p in model.parameters())
-    s_step = sum(seconds[1:]) / len(seconds[1:])
-    print(f"train: sigma_tiny MFNet {h}x{w} batch {batch}, {steps} steps: "
-          f"losses {losses}, seconds {[round(t, 4) for t in seconds]}, "
-          f"lr {[schedule(k) for k in range(steps)]}")
-    print(f"train: last {steps - 1} steps {s_step:.4f} s/step = "
-          f"{batch / s_step:.4f} img/s, peak "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
-          f"{moved} of {total} weights moved, launches {launches}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite train loss {losses}")
-    if moved == 0:
-        raise AssertionError("the train steps moved no weight")
-    missing = [k for k in KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the train step: "
-                             f"{missing}")
+    batches = [synthetic_batch(rng, batch, cfg.image_height,
+                               cfg.image_width) for _ in range(steps)]
+    timing, main_launches = {False: [], True: []}, None
+    for fused in order:
+        launches, t = _train_run(cfg, device, batches, fused)
+        timing[fused].append(t)
+        if fused:
+            main_launches = launches
+    print("train: s/step unfused "
+          f"{[round(t['s_step'], 4) for t in timing[False]]} fused "
+          f"{[round(t['s_step'], 4) for t in timing[True]]}")
 
     # one sigma_test step on the card and on the CPU, same weights/batch
     cfg_t = get_config("mfnet", optimizer="SGDM")
-    cpu = init_parameters(EncoderDecoder(9, "sigma_test"), seed=SEED + 4)
-    for m in cpu.modules():  # the CPU and CUDA generators draw differently
-        if isinstance(m, DropPath):
-            m.rate = 0.0
-    gpu = copy.deepcopy(cpu).to(device)
     small = synthetic_batch(np.random.default_rng(SEED + 5), 2, 64, 80)
-    out = {}
-    for name, m in (("cpu", cpu), ("gpu", gpu)):
-        o = build_optimizer(cfg_t, m)
-        st = create_train_state(m, o)
-        loss = make_train_step(m, o, poly_lr(1e-2, 0.9, 100))(st, small)
-        out[name] = float(loss)
-    err = max((b.cpu() - a).abs().max().item() for a, b in
-              zip(cpu.state_dict().values(), gpu.state_dict().values()))
-    rel = abs(out["gpu"] - out["cpu"]) / abs(out["cpu"])
-    print(f"train: sigma_test 64x80 one SGDM step card vs CPU: loss "
-          f"{out['gpu']:.6f} vs {out['cpu']:.6f} (rel {rel:.2e}, need <= "
-          f"{TRAIN_LOSS_RTOL}), post-step weights max |diff| {err:.3e} "
-          f"(need <= {TRAIN_PARAM_ATOL})")
-    if rel > TRAIN_LOSS_RTOL or err > TRAIN_PARAM_ATOL:
-        raise AssertionError("the card's train step disagrees with the CPU")
-    return launches, dict(s_step=s_step, img_s=batch / s_step)
+    for fused in (False, True):
+        cpu = init_parameters(EncoderDecoder(9, "sigma_test"), seed=SEED + 4)
+        set_fused_epilogue(cpu, fused)
+        for m in cpu.modules():  # the CPU and CUDA generators draw differently
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+        gpu = copy.deepcopy(cpu).to(device)
+        out = {}
+        for name, m in (("cpu", cpu), ("gpu", gpu)):
+            o = build_optimizer(cfg_t, m)
+            st = create_train_state(m, o)
+            loss = make_train_step(m, o, poly_lr(1e-2, 0.9, 100))(st, small)
+            out[name] = float(loss)
+        err = max((b.cpu() - a).abs().max().item() for a, b in
+                  zip(cpu.state_dict().values(), gpu.state_dict().values()))
+        rel = abs(out["gpu"] - out["cpu"]) / abs(out["cpu"])
+        print(f"train: fused_epilogue={int(fused)} sigma_test 64x80 one SGDM "
+              f"step card vs CPU: loss {out['gpu']:.6f} vs {out['cpu']:.6f} "
+              f"(rel {rel:.2e}, need <= {TRAIN_LOSS_RTOL}), post-step "
+              f"weights max |diff| {err:.3e} (need <= {TRAIN_PARAM_ATOL})")
+        if rel > TRAIN_LOSS_RTOL or err > TRAIN_PARAM_ATOL:
+            raise AssertionError("the card's train step disagrees with the "
+                                 "CPU")
+    return main_launches, timing
 
 
 def main() -> int:
@@ -718,8 +1043,9 @@ def main() -> int:
     card = build_phase()
     summary = kernel_phase(device)
     summary.update(backward_phase(device))
-    model_phase(device)
-    launches, _ = train_phase(device)
+    summary.update(epilogue_phase(device))
+    eval_img_s = model_phase(device)
+    launches, train_timing = train_phase(device)
     kernels = []
     for name in KERNELS:
         s = summary[name]
@@ -732,9 +1058,26 @@ def main() -> int:
         print(f"summary: {name} ms/plain_ms/bound_ms at its slowest "
               f"main-path call, {s['at']}; max_abs_err over all fp32 "
               f"calls (a backward kernel: over the gradients it "
-              f"finishes); launches in the train phase")
+              f"finishes); launches in the train phase's last run with "
+              f"the fused epilogue")
+    for name in EPILOGUE:
+        s = summary[name]
+        print(f"summary: {name} {s['ms']:.4f} device ms against the "
+              f"unfused chain of PyTorch calls it replaces "
+              f"{s['unfused_ms']:.4f} ms "
+              f"({'backward, autograd' if name.endswith('bwd') else 'forward'}"
+              f") at {s['at']} (K6 / K7: ms, plain_ms and the unfused "
+              f"chain are device time, torch.profiler)")
+    for fused in (False, True):
+        img = eval_img_s[fused]
+        s_step = [t["s_step"] for t in train_timing[fused]]
+        print(f"summary: fused_epilogue={int(fused)} eval img/s "
+              f"{[round(x, 4) for x in img]} mean {sum(img) / len(img):.4f}; "
+              f"train s/step {[round(x, 4) for x in s_step]} mean "
+              f"{sum(s_step) / len(s_step):.4f}")
     print("summary: library_ms null: no single PyTorch call computes a "
-          "selective scan or its gradient, nor K5's pair of products")
+          "selective scan or its gradient, nor K5's pair of products, nor "
+          "K6's merge + LayerNorm + gate or its gradient")
     print(f"summary: command time {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

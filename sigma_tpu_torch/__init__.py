@@ -4,7 +4,8 @@ H100 (Hopper, sm_90a).
 Layout mirrors `sigma_tpu/` so each module's counterpart is easy to find:
   ops/        selective-scan oracles (plain torch) and the hand-written
               Hopper scan kernels behind the `pallas_scan_g` entry points,
-              forward and backward (torch.autograd.Functions)
+              and the fused SS2D epilogue (`merge_ln_gate`), forward and
+              backward (torch.autograd.Functions)
   csrc/       CUDA C++ sources of those kernels, built with nvcc at first use
   models/     nn.Module model zoo (VSSM trunk, fusion blocks, MambaDecoder,
               EncoderDecoder, segmentation_loss), channel-last (B, H, W, C)

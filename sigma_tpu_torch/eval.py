@@ -52,6 +52,7 @@ def main(argv=None) -> int:
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.models.builder import build_model
+    from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
     from sigma_tpu_torch.utils.convert import load_checkpoint
     from sigma_tpu_torch.utils.visualize import print_iou, save_prediction
 
@@ -72,6 +73,8 @@ def main(argv=None) -> int:
         object.__setattr__(cfg, k, v)
 
     logger = get_logger()
+    logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
+                "fused" if FUSED_EPILOGUE else "unfused")
     model = build_model(cfg, device="cpu")
     model.load_state_dict(load_checkpoint(args.epochs))
     model.to(device)

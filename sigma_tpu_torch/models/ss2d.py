@@ -17,11 +17,20 @@ package:
     does so, vmamba.py:1629-1630);
   * ConMB's SE gating squeezes the pre-conv projections.
 Parameter names and shapes are the reference torch state_dict's.
+
+SS2D's epilogue (merge the two layouts, `out_norm`, silu gate) runs either
+unfused, as PyTorch ops, or fused in one pass (`ops/merge_ln_gate.py`) when
+its `fused_epilogue` is set. The default is the JAX package's switch,
+`SIGMA_FUSED_EPILOGUE` (not "0": on), read once at import;
+`set_fused_epilogue` sets it on every SS2D of a model. Both ways keep
+`out_norm` an nn.LayerNorm, so the state_dict is the same. ConMB and CroMB
+keep their own unfused `out_norm*`, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -35,10 +44,14 @@ from sigma_tpu_torch.models.common import (
     dt_proj_bias_init,
     uniform_,
 )
+from sigma_tpu_torch.ops.merge_ln_gate import merge_ln_gate
 from sigma_tpu_torch.ops.scan_g import (
     selective_scan_g_proj,
     selective_scan_g_proj_ml,
 )
+
+# the fused SS2D epilogue by default (sigma_tpu/models/ss2d.py:58)
+FUSED_EPILOGUE = os.environ.get("SIGMA_FUSED_EPILOGUE", "0") != "0"
 
 
 def _dt_rank(d_model):
@@ -114,7 +127,8 @@ def project_scan(m, u_layouts, d_state, dt_rank):
 
 class SS2D(nn.Module):
     """2-D selective scan over 4 directions with gated output.
-    Input/output: (B, H, W, d_model)."""
+    Input/output: (B, H, W, d_model). `fused_epilogue` (default
+    FUSED_EPILOGUE) takes the fused epilogue."""
 
     def __init__(self, d_model, d_state=16, ssm_ratio=2.0):
         super().__init__()
@@ -126,6 +140,7 @@ class SS2D(nn.Module):
         _dir_params(self, 4, d_inner, d_state, self.dt_rank)
         self.out_norm = nn.LayerNorm(d_inner, eps=LN_EPS)
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.fused_epilogue = FUSED_EPILOGUE
 
     def init_ssm(self, generator):
         _init_dir_params(self, generator)
@@ -137,9 +152,22 @@ class SS2D(nn.Module):
         hw = xx.reshape(b, h * w, d)
         wh = xx.transpose(1, 2).reshape(b, h * w, d)
         y_hw, y_wh = project_scan(self, (hw, wh), self.d_state, self.dt_rank)
+        y_hw, y_wh = y_hw.reshape(b, h, w, d), y_wh.reshape(b, w, h, d)
+        if self.fused_epilogue:
+            norm = self.out_norm
+            return self.out_proj(merge_ln_gate(y_hw, y_wh, z, norm.weight,
+                                               norm.bias, norm.eps))
         # complete CrossMerge: un-transpose the wh layout and sum
-        y = y_hw.reshape(b, h, w, d) + y_wh.reshape(b, w, h, d).transpose(1, 2)
+        y = y_hw + y_wh.transpose(1, 2)
         return self.out_proj(self.out_norm(y) * F.silu(z))
+
+
+def set_fused_epilogue(model: nn.Module, on: bool) -> nn.Module:
+    """Set `fused_epilogue` on every SS2D of `model`; returns `model`."""
+    for m in model.modules():
+        if isinstance(m, SS2D):
+            m.fused_epilogue = bool(on)
+    return model
 
 
 class ConMBSS2D(nn.Module):

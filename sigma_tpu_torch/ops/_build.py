@@ -1,4 +1,5 @@
-"""Build and load the Hopper scan kernels (`csrc/*.cu`).
+"""Build and load the Hopper kernels (`csrc/*.cu`): the scan kernels and
+the fused SS2D epilogue.
 
 At first use, nvcc compiles each source into a shared library with a plain
 C interface (`-gencode arch=compute_90a,code=sm_90a`), one nvcc process per
@@ -24,6 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {
     "fwd": _PKG / "csrc" / "scan_g_fwd.cu",
     "bwd": _PKG / "csrc" / "scan_g_bwd.cu",
+    "mlg": _PKG / "csrc" / "merge_ln_gate.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "sigma_tpu_torch"
 NVCC_FLAGS = (
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "fwd": {
         # u, dt, A, B, C, bias, D, y_accum, y, hck, nck, batch, G, L, dg,
@@ -54,9 +57,18 @@ _SIGNATURES = {
         # N, n_u, nsplit, stream
         "sigma_proj_grad": [_P] * 11 + [_I] * 7 + [_P],
     },
+    "mlg": {
+        # yhw, ywh, z, gamma, beta, out, B, H, W, C, ld_hw, ld_wh, ld_z,
+        # bf16, eps, stream
+        "sigma_mlg_fwd": [_P] * 6 + [_I] * 8 + [_F, _P],
+        # yhw, ywh, z, gamma, beta, dout, dyhw, dywh, dz, dgp, dbp, B, H, W,
+        # C, ld_hw, ld_wh, ld_z, n_blocks, bf16, eps, stream
+        "sigma_mlg_bwd": [_P] * 11 + [_I] * 9 + [_F, _P],
+    },
 }
 _ERROR_STRING = {"fwd": "sigma_scan_error_string",
-                 "bwd": "sigma_scan_bwd_error_string"}
+                 "bwd": "sigma_scan_bwd_error_string",
+                 "mlg": "sigma_mlg_error_string"}
 
 
 def _nvcc() -> str:
@@ -67,7 +79,7 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the Hopper "
-            "scan kernels cannot be built"
+            "kernels cannot be built"
         )
     return found
 
@@ -115,7 +127,7 @@ def build() -> dict[str, tuple[Path, float, str]]:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name` ("fwd" or "bwd"), built at first
+    """The loaded kernel library `name` (a key of SOURCES), built at first
     call."""
     path, _, _ = build()[name]
     lib = ctypes.CDLL(str(path))

@@ -8,9 +8,10 @@ Builds the MFNet preset's train step as the train CLI does
 step to warm up, then traces one more with torch.profiler (CPU + CUDA
 activities) and prints: the host wall time of the traced step, the device's busy time
 (the union of its kernel and copy intervals) and idle share, the time of
-each kernel group (the five scan kernels by name, then the rest), and the
-15 kernels with the most device time. Synthetic seeded uint8 inputs
-(`synthetic_batch`); needs a CUDA card (it raises without one).
+each kernel group (the port's seven kernels by name, then the rest), and
+the 15 kernels with the most device time. Synthetic seeded uint8 inputs
+(`synthetic_batch`); needs a CUDA card (it raises without one). The SS2D
+epilogue is fused when SIGMA_FUSED_EPILOGUE is set (models/ss2d.py).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ GROUPS = (
     ("K2 scan_proj_fwd", ("scan_proj_fwd_kernel",)),
     ("K1 scan_fwd", ("scan_fwd_kernel",)),
     ("K5 proj_grad", ("weight_grad_kernel", "du_chain_kernel")),
+    ("K6 merge_ln_gate_fwd", ("merge_ln_gate_fwd_kernel",)),
+    ("K7 merge_ln_gate_bwd", ("merge_ln_gate_bwd_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_xmma")),
     ("convolution (cuDNN)", ("conv", "Conv", "cudnn", "implicit")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -86,6 +89,7 @@ def main(argv=None) -> int:
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.train import build_train
     from sigma_tpu_torch.models.builder import build_model
+    from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
 
     cfg = get_config("mfnet")
     h, w = cfg.image_height, cfg.image_width
@@ -134,7 +138,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     print(f"trace: {args.what} sigma_tiny {h}x{w} batch "
-          f"{TRAIN_BATCH if args.what == 'train' else 1} on {smi}")
+          f"{TRAIN_BATCH if args.what == 'train' else 1}, fused SS2D "
+          f"epilogue {'on' if FUSED_EPILOGUE else 'off'}, on {smi}")
     print(f"trace: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.2f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.2f}%")

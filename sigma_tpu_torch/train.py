@@ -90,6 +90,7 @@ def main(argv=None) -> int:
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
 
     overrides = {}
     if args.dataset_path:
@@ -120,6 +121,8 @@ def main(argv=None) -> int:
     logger = get_logger()
     logger.info("device: %s", torch.cuda.get_device_name(device)
                 if device.type == "cuda" else device)
+    logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
+                "fused" if FUSED_EPILOGUE else "unfused")
 
     dataset = RGBXDataset(
         cfg.data_setting(), "train",

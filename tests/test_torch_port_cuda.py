@@ -1,4 +1,4 @@
-"""The Hopper scan kernels against their plain PyTorch versions, on the card.
+"""The Hopper kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
 no JAX, so they run on a machine with the card and no JAX:
@@ -11,15 +11,18 @@ fill a tile or a checkpoint segment, every d_state width the kernels are
 built for, chain pairs beside n_u = 1, the shared-memory tile halving of
 the fused kernels (forward and backward), the routing of the entry points,
 and the errors a wrapper raises. The backward kernels (K3-K5) are held to
-autograd of the plain versions, every cotangent of each entry point.
-Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
-against max(|ref|, 1).
+autograd of the plain versions, every cotangent of each entry point. The
+fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
+that take the vector and the scalar layout, at a strided z, with its
+dgamma / dbeta rerun bit for bit. Tolerances are chip_smoke's: fp32 rtol
+6e-4 / atol 2e-3 and bf16 5e-2, against max(|ref|, 1).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sigma_tpu_torch.ops import merge_ln_gate as mlg
 from sigma_tpu_torch.ops import scan_g
 
 pytestmark = pytest.mark.cuda
@@ -169,22 +172,30 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                wide["C"])
 
 
-def test_sigma_test_model_on_the_card_matches_the_cpu(dev):
+@pytest.mark.parametrize("fused", [False, True])
+def test_sigma_test_model_on_the_card_matches_the_cpu(dev, fused):
     """A seeded sigma_test EncoderDecoder: the card (fused-projection
-    kernel at every scan) against the CPU plain path, at 64x80."""
+    kernel at every scan, K6 at every SS2D with the fused epilogue)
+    against the CPU plain path, at 64x80."""
     import copy
 
     from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
 
     cpu = init_parameters(EncoderDecoder(9, "sigma_test"), seed=5).eval()
+    set_fused_epilogue(cpu, fused)
     gpu = copy.deepcopy(cpu).to(dev)
     a = _arrays(6, rgb=(1, 64, 80, 3), x=(1, 64, 80, 3))
     rgb, x = (torch.from_numpy(v) for v in a.values())
     scan_g.reset_launches()
+    mlg.reset_launches()
     with torch.inference_mode():
         got = gpu(rgb.to(dev), x.to(dev)).cpu()
         want = cpu(rgb, x)
     assert scan_g.LAUNCHES["scan_proj_fwd"] > 0
+    # sigma_test: 5 trunk SS2Ds and 12 in the decoder
+    assert mlg.LAUNCHES == dict(merge_ln_gate_fwd=17 if fused else 0,
+                                merge_ln_gate_bwd=0)
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert agree >= 0.995, agree
     _close(got, want, torch.float32)
@@ -331,10 +342,12 @@ def test_eval_forward_writes_no_checkpoints(dev):
     assert grown <= sum(y.numel() * 4 for y in ys) + 2048, grown
 
 
-def test_sigma_test_train_step_on_the_card_matches_the_cpu(dev):
+@pytest.mark.parametrize("fused", [False, True])
+def test_sigma_test_train_step_on_the_card_matches_the_cpu(dev, fused):
     """Two train steps of a seeded sigma_test (every drop path 0, remat
     on) at 64x80 on the card and on the CPU from the same weights and
-    uint8 batch: losses and post-step parameters agree. SGD with momentum keeps
+    uint8 batch, the SS2D epilogue unfused or fused (K6 + K7 on the card):
+    losses and post-step parameters agree. SGD with momentum keeps
     the update linear in the gradient (Adam's g / sqrt(v) would turn
     rounding noise in a near-zero gradient into a full lr-sized step)."""
     import copy
@@ -347,10 +360,12 @@ def test_sigma_test_train_step_on_the_card_matches_the_cpu(dev):
     )
     from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
     from sigma_tpu_torch.models.common import DropPath
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
     from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
 
     cfg = get_config("mfnet", optimizer="SGDM")
     cpu = init_parameters(EncoderDecoder(9, "sigma_test"), seed=8)
+    set_fused_epilogue(cpu, fused)
     for m in cpu.modules():  # the CPU and CUDA generators draw differently
         if isinstance(m, DropPath):
             m.rate = 0.0
@@ -363,13 +378,104 @@ def test_sigma_test_train_step_on_the_card_matches_the_cpu(dev):
         margins=np.array([[4, 3, 0, 5], [0, 0, 2, 2]], np.int32))
     sched = warmup_poly_lr(1e-2, 0.9, 100, 1)
     losses = {}
+    mlg.reset_launches()
     for name, m in (("cpu", cpu), ("gpu", gpu)):
         opt = build_optimizer(cfg, m)
         state = create_train_state(m, opt)
         step = make_train_step(m, opt, sched)
         losses[name] = [float(step(state, batch)) for _ in range(2)]
+    # 17 SS2Ds, each forward twice under remat, backward once, per step
+    assert mlg.LAUNCHES == (dict(merge_ln_gate_fwd=68, merge_ln_gate_bwd=34)
+                            if fused else dict(merge_ln_gate_fwd=0,
+                                               merge_ln_gate_bwd=0))
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
     for (k, a), b in zip(cpu.state_dict().items(),
                          gpu.state_dict().values()):
         diff = (b.cpu() - a).abs().max().item()
         assert diff < 1e-5, (k, diff)
+
+
+# ------------------------------------------------------------ epilogue
+def _epilogue(b, h, w, c, dtype, dev, seed):
+    """Inputs of merge_ln_gate, and a cotangent of its output."""
+    a = _arrays(seed, y_hw=(b, h, w, c), y_wh=(b, w, h, c), z=(b, h, w, c),
+                gamma=(c,), beta=(c,), dout=(b, h, w, c))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    t["gamma"] = 1.0 + 0.1 * t["gamma"]
+    t["beta"] = 0.1 * t["beta"]
+    for k in ("y_hw", "y_wh", "z"):
+        t[k] = t[k].to(dtype)
+    return [t[k] for k in ("y_hw", "y_wh", "z", "gamma", "beta")], t["dout"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(15, 20), (8, 128)])
+@pytest.mark.parametrize("c", [64, 96, 192, 1536])
+def test_epilogue_kernels_match_plain(dev, dtype, h, w, c):
+    """K6 and K7 launched alone against the plain forward and the plain
+    backward formula: out, dy_hw, dy_wh, dz, dgamma, dbeta."""
+    args, dout = _epilogue(2, h, w, c, dtype, dev, seed=c + h)
+    mlg.reset_launches()
+    out = mlg.launch_merge_ln_gate_fwd(*args, 1e-5)
+    got = mlg.launch_merge_ln_gate_bwd(*args, 1e-5, dout)
+    assert mlg.LAUNCHES == dict(merge_ln_gate_fwd=1, merge_ln_gate_bwd=1)
+    assert out.dtype == torch.float32
+    _close(out, mlg.merge_ln_gate_plain(*args, 1e-5), dtype)
+    want = mlg.merge_ln_gate_bwd_plain(*args, 1e-5, dout)
+    for g_, w_, x in zip(got, want, args[:3] + [None, None]):
+        if x is not None:
+            assert g_.dtype == x.dtype and g_.shape == x.shape
+        _close(g_, w_, dtype)
+
+
+@pytest.mark.parametrize("c", [50, 96])
+def test_epilogue_entry_point_grads_and_counts(dev, c):
+    """merge_ln_gate through autograd on CUDA tensors, z a column slice:
+    one K6 and one K7 launch, all five gradients against autograd of the
+    plain forward. C = 50 takes the scalar layout, 96 the vector one."""
+    args, dout = _epilogue(2, 9, 13, c, torch.float32, dev, seed=c)
+    leaves = [_leaf(x) for x in args]
+    # z as SS2D splits it out of in_proj's output: rows at stride 2C
+    leaves[2] = _leaf(torch.cat([args[2], args[2]], -1))[..., c:]
+    assert leaves[2].stride(2) == 2 * c
+    mlg.reset_launches()
+    out = mlg.merge_ln_gate(*leaves, 1e-5)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert mlg.LAUNCHES == dict(merge_ln_gate_fwd=1, merge_ln_gate_bwd=1)
+    want_out = mlg.merge_ln_gate_plain(*leaves, 1e-5)
+    want = torch.autograd.grad(want_out, leaves, dout)
+    _close(out, want_out, torch.float32)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, torch.float32)
+
+
+def test_epilogue_backward_reruns_bit_for_bit(dev):
+    """dgamma / dbeta are per-block partials summed in a fixed order: a
+    rerun gives the same bits (rows enough for many blocks per SM)."""
+    args, dout = _epilogue(4, 60, 80, 384, torch.float32, dev, seed=3)
+    first = mlg.launch_merge_ln_gate_bwd(*args, 1e-5, dout)
+    again = mlg.launch_merge_ln_gate_bwd(*args, 1e-5, dout)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)
+
+
+def test_epilogue_wrappers_raise(dev):
+    args, dout = _epilogue(1, 4, 6, 32, torch.float32, dev, seed=4)
+    y_hw, y_wh, z, g, b = args
+    with pytest.raises(ValueError, match="y_wh: shape"):
+        mlg.merge_ln_gate(y_hw, y_hw, z, g, b)
+    with pytest.raises(ValueError, match="y_wh: shape"):
+        mlg.launch_merge_ln_gate_fwd(y_hw, y_hw, z, g, b, 1e-5)
+    with pytest.raises(ValueError, match="dout: shape"):
+        mlg.launch_merge_ln_gate_bwd(*args, 1e-5, dout[:, :2])
+    with pytest.raises(ValueError, match="inputs on"):
+        mlg.merge_ln_gate(y_hw.cpu(), y_wh, z, g, b)
+    with pytest.raises(ValueError, match="inputs on"):
+        mlg.launch_merge_ln_gate_bwd(*args, 1e-5, dout.cpu())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mlg.launch_merge_ln_gate_fwd(*[x.cpu() for x in args], 1e-5)
+    with pytest.raises(TypeError, match="all fp32"):
+        mlg.launch_merge_ln_gate_fwd(y_hw.bfloat16(), y_wh, z, g, b, 1e-5)
+    wide, _ = _epilogue(1, 2, 3, 2052, torch.float32, dev, seed=5)
+    with pytest.raises(RuntimeError, match="at most 2048 channels"):
+        mlg.launch_merge_ln_gate_fwd(*wide, 1e-5)

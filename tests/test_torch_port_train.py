@@ -8,10 +8,12 @@
   * two steps of `make_train_step` on a sigma_test model against JAX
     `make_train_step` from the same weights and uint8 batch, at the golden
     portable tier (tests/test_golden_logits.py): max|diff| < 3e-2 and
-    mean|diff| < 3e-3 on the post-update parameters;
+    mean|diff| < 3e-3 on the post-update parameters, with the SS2D
+    epilogue unfused and fused;
   * remat and DropPath: a rematerialized step draws the same masks;
   * `python -m sigma_tpu_torch.train` end to end on a synthetic tree, its
-    `.pt` read by `python -m sigma_tpu_torch.eval`.
+    `.pt` read by `python -m sigma_tpu_torch.eval`, with the SS2D epilogue
+    unfused and fused (SIGMA_FUSED_EPILOGUE).
 """
 
 import os
@@ -52,6 +54,8 @@ from sigma_tpu_torch.models.builder import (
     segmentation_loss,
 )
 from sigma_tpu_torch.models.common import DropPath, set_drop_path_seeds
+from sigma_tpu_torch.models.ss2d import set_fused_epilogue
+from sigma_tpu_torch.ops import merge_ln_gate as mlg
 from sigma_tpu_torch.models.vssm import VSSBlock
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
@@ -256,35 +260,63 @@ def _first_moments(opt, model):
             else torch.zeros_like(p) for k, p in model.named_parameters()}
 
 
-def test_train_steps_match_jax(jax_test_model, monkeypatch):
-    """The golden-tier check of losses and weights cannot see the
-    gradient: update 0 runs at lr 0, and AdamW's update 1 is about lr per
-    element for any gradient. So the gradients are compared as well,
-    through AdamW's first moment, which after update k holds
-    sum_j 0.1 * 0.9^(k-j) * g_j on both sides: leaf by leaf, within
-    GRAD_RTOL of the leaf's norm."""
+_TRAIN_BATCHES = (10, 11)
+
+
+@pytest.fixture(scope="module")
+def jax_train_run(jax_test_model):
+    """Two JAX `make_train_step` updates of the sigma_test model (drop path
+    0, warmup of one update, so lr(0) = 0 and lr(1) != 0), compiled once
+    for every variant of the port's step: (losses, AdamW's first moment
+    after each update, the final params)."""
     jm, params = jax_test_model
-    monkeypatch.setattr(jvssm, "DropPath", _NoDropPath)
     cfg = get_config("mfnet", backbone="sigma_test")
     jcfg = jax_get_config("mfnet", backbone="sigma_test")
-    batches = [_uint8_batch(10), _uint8_batch(11)]
-
-    # JAX: warmup of one update, so lr(0) = 0 and lr(1) != 0
     sched_j = jax_warmup_poly(1e-3, 0.9, 100, 1)
     tx = jax_build_optimizer(jcfg, sched_j, params)
     jparams = jax.tree.map(jnp.asarray, params)
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
                           opt_state=tx.init(jparams))
-    jstep = jax_make_step(jm, tx, donate=False, norm_mean=cfg.norm_mean,
-                          norm_std=cfg.norm_std)
-    want_losses, want_mu = [], []
-    for b in batches:
-        state, loss = jstep(state, b, jax.random.PRNGKey(1))
-        want_losses.append(float(loss))
-        want_mu.append(jax.tree.map(np.asarray, state.opt_state[0].mu))
+    losses, mus = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jvssm, "DropPath", _NoDropPath)
+        jstep = jax_make_step(jm, tx, donate=False, norm_mean=cfg.norm_mean,
+                              norm_std=cfg.norm_std)
+        for seed in _TRAIN_BATCHES:
+            state, loss = jstep(state, _uint8_batch(seed),
+                                jax.random.PRNGKey(1))
+            losses.append(float(loss))
+            mus.append(jax.tree.map(np.asarray, state.opt_state[0].mu))
+    return losses, mus, jax.tree.map(np.asarray, state.params)
+
+
+@pytest.mark.parametrize("fused_epilogue", [False, True],
+                         ids=["unfused", "fused_epilogue"])
+def test_train_steps_match_jax(jax_test_model, jax_train_run,
+                               fused_epilogue, monkeypatch):
+    """The golden-tier check of losses and weights cannot see the
+    gradient: update 0 runs at lr 0, and AdamW's update 1 is about lr per
+    element for any gradient. So the gradients are compared as well,
+    through AdamW's first moment, which after update k holds
+    sum_j 0.1 * 0.9^(k-j) * g_j on both sides: leaf by leaf, within
+    GRAD_RTOL of the leaf's norm. With `fused_epilogue` every SS2D takes
+    the fused epilogue (its CPU route: the plain forward and the explicit
+    backward formula); the JAX step's CPU route is unfused."""
+    backwards = [0]
+    bwd_plain = mlg.merge_ln_gate_bwd_plain
+
+    def counted_bwd(*a):
+        backwards[0] += 1
+        return bwd_plain(*a)
+
+    monkeypatch.setattr(mlg, "merge_ln_gate_bwd_plain", counted_bwd)
+    _, params = jax_test_model
+    want_losses, want_mu, want_params = jax_train_run
+    cfg = get_config("mfnet", backbone="sigma_test")
 
     model = EncoderDecoder(9, "sigma_test", remat=False)
     model.load_state_dict(state_dict_from_jax(params, model))
+    set_fused_epilogue(model, fused_epilogue)
     for m in model.modules():
         if isinstance(m, DropPath):
             m.rate = 0.0
@@ -293,10 +325,12 @@ def test_train_steps_match_jax(jax_test_model, monkeypatch):
     step = make_train_step(model, opt, warmup_poly_lr(1e-3, 0.9, 100, 1),
                            cfg.norm_mean, cfg.norm_std)
     got_losses, got_mu = [], []
-    for b in batches:
-        got_losses.append(float(step(tstate, b)))
+    for seed in _TRAIN_BATCHES:
+        got_losses.append(float(step(tstate, _uint8_batch(seed))))
         got_mu.append(_first_moments(opt, model))
     np.testing.assert_allclose(got_losses, want_losses, rtol=1e-3)
+    # the explicit backward ran for each of sigma_test's 17 SS2Ds, twice
+    assert backwards == [34 if fused_epilogue else 0]
 
     for k, (got_k, want_tree) in enumerate(zip(got_mu, want_mu)):
         want_k = state_dict_from_jax(want_tree, model)
@@ -305,8 +339,7 @@ def test_train_steps_match_jax(jax_test_model, monkeypatch):
                if (g - want_k[name]).norm() > GRAD_RTOL * want_k[name].norm()]
         assert not bad, (k, bad[:5])
 
-    want = state_dict_from_jax(jax.tree.map(np.asarray, state.params),
-                               model)
+    want = state_dict_from_jax(want_params, model)
     got = model.state_dict()
     diff = torch.cat([(got[k] - want[k]).abs().flatten() for k in want])
     assert diff.max() < 3e-2, diff.max()
@@ -383,31 +416,39 @@ def tiny_tree(tmp_path_factory):
     return root
 
 
-def _run(args):
-    env = dict(os.environ, OMP_NUM_THREADS=str(TORCH_THREADS))
+def _run(args, **env_vars):
+    env = dict(os.environ, OMP_NUM_THREADS=str(TORCH_THREADS), **env_vars)
     env.pop("XLA_FLAGS", None)
     return subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
 
 
-def test_train_cli_then_eval_cli(tiny_tree, tmp_path):
+@pytest.mark.parametrize("fused", ["0", "1"],
+                         ids=["unfused", "fused_epilogue"])
+def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused):
+    """Both CLIs, with SIGMA_FUSED_EPILOGUE off and on (read by
+    models/ss2d.py at import, as in the JAX package)."""
     common = ["-n", "mfnet", "--dataset-path", str(tiny_tree), "--device",
               "cpu", "--backbone", "sigma_test",
               "--override", "eval_crop_size=(32,32)"]
     log = tmp_path / "log"
+    epilogue = f"SS2D epilogue: {'fused' if fused == '1' else 'unfused'}"
     proc = _run(["sigma_tpu_torch.train", *common, "--steps", "2",
                  "--batch-size", "2", "--log-dir", str(log),
                  "--override", "image_height=32",
                  "--override", "image_width=32",
-                 "--override", "num_workers=1"])
+                 "--override", "num_workers=1"], SIGMA_FUSED_EPILOGUE=fused)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "training finished (2 steps)" in proc.stderr
     assert "mIoU" in proc.stderr  # the train-time eval ran
+    assert epilogue in proc.stderr
     ckpt = log / "checkpoint" / "model.pt"
     assert ckpt.exists()
-    proc = _run(["sigma_tpu_torch.eval", *common, "-e", str(ckpt)])
+    proc = _run(["sigma_tpu_torch.eval", *common, "-e", str(ckpt)],
+                SIGMA_FUSED_EPILOGUE=fused)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "mean IoU" in proc.stdout
+    assert epilogue in proc.stderr
 
 
 @pytest.mark.parametrize("flag,item", [

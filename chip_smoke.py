@@ -9,9 +9,10 @@ fp32 means fp32 on both sides of every comparison. Phases, each printing
 its findings:
 
   1. build    — compile the Hopper kernels from sigma_tpu_torch/csrc (the
-                two scan sources and the fused SS2D epilogue) with nvcc,
-                one process per source, all started together (timed);
-                print the card's name and power limit.
+                grouped scan's two sources, the fused SS2D epilogue and the
+                channel-first scan) with nvcc, one process per source, all
+                started together (timed); print the card's name and power
+                limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
                 batch 1, run K1 (streamed) / K2 (fused projection) against
                 their plain PyTorch versions on the card, fp32 and bf16 io,
@@ -27,7 +28,8 @@ its findings:
                 kernels launched checked. Prints errors, the ms of the
                 entry point's backward against the plain version's, and
                 of K3 / K4 / K5 each launched alone (K5 against its plain
-                products).
+                products and against cuBLAS: torch.matmul on the
+                concatenated operands).
   4. epilogue — at every SS2D epilogue shape of sigma_tiny at 480x640 (eval
                 batch 1 and train batch 2), fp32 and bf16: K6 against the
                 plain forward, K7 against the plain backward formula; fp32
@@ -37,7 +39,20 @@ its findings:
                 dbeta bits. z is a column slice, as SS2D splits it. Prints
                 errors and the ms of K6 / K7, of their plain versions and
                 of the unfused chain of PyTorch calls the switch replaces.
-  5. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
+  5. ops      — the ops-level scan entry points (sigma_tpu_torch.ops) at
+                every trunk SS2D scan of sigma_tiny at 480x640, batch 2
+                (RGB and X stacked), four directions, d_state 16, S4D A
+                and dt-bias inits: `selective_scan` in the reference's
+                channel-first layout (K8 forward, K9 backward) and
+                `selective_scan_cl` in the per-row layout (K1 / K3), fp32
+                and bf16 io forward at all four stages, all seven
+                gradients at stages 0 and 3, against the plain versions
+                (autograd, each chunk recomputed). Every call must launch
+                its kernels once and nothing else; the counters are zeroed
+                before these calls and read after them. Then K8, K9, K1
+                and K3 are timed launched alone against the plain
+                versions and their bounds, K8 beside K1 on the same scan.
+  6. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
                 seeded 480x640 RGB-X pairs through the port's
                 SlidingEvaluator.run under the MFNet preset, with the fused
                 SS2D epilogue off, on, on, off (one model): img/s and mIoU
@@ -46,7 +61,7 @@ its findings:
                 no backward kernel. Logits of one 480x640 pair with the
                 switch on against off. Then the same model at 96x128, both
                 ways: GPU logits against the CPU plain path.
-  6. train    — the train CLI's step (engine.train.build_train: AdamW,
+  7. train    — the train CLI's step (engine.train.build_train: AdamW,
                 warmup-poly lr, remat, drop path) for 3 steps at 480x640,
                 batch 2, on seeded synthetic uint8 batches with pad
                 margins (trace_step.synthetic_batch), with the switch off,
@@ -60,8 +75,8 @@ its findings:
                 parameters against each other.
 
 Ends with the card line, one JSON line of the kernels (launches from the
-train phase's last run with the switch on; bound_ms from this run's shapes,
-see `_work`), then the device line. Exits non-zero, with no result line,
+train phase's last run with the switch on, K8 / K9's from the ops phase;
+bound_ms from this run's shapes, see `_work`), then the device line. Exits non-zero, with no result line,
 without a CUDA card or when a phase fails.
 """
 
@@ -93,7 +108,9 @@ KERNELS = {
     "scan_fwd": dict(
         route="cuda", source="sigma_tpu_torch/csrc/scan_g_fwd.cu",
         replaces="sigma_tpu/ops/pallas_scan_g.py:149 (_fwd_kernel via "
-                 "_fwd_call :806, proj=False)"),
+                 "_fwd_call :806, proj=False); in the per-row layout also "
+                 "sigma_tpu/ops/pallas_scan_seq.py:40 (_fwd_kernel via "
+                 "_fwd_call :157, pallas_call :165)"),
     "scan_proj_fwd": dict(
         route="cuda", source="sigma_tpu_torch/csrc/scan_g_fwd.cu",
         replaces="sigma_tpu/ops/pallas_scan_g.py:149 (_fwd_kernel via "
@@ -101,7 +118,10 @@ KERNELS = {
     "scan_bwd": dict(
         route="cuda", source="sigma_tpu_torch/csrc/scan_g_bwd.cu",
         replaces="sigma_tpu/ops/pallas_scan_g.py:305 (_bwd_kernel via "
-                 "_bwd_call :989, streamed pallas_call :1111)"),
+                 "_bwd_call :989, streamed pallas_call :1111); in the "
+                 "per-row layout also sigma_tpu/ops/pallas_scan_seq.py:71 "
+                 "(_bwd_kernel via _scan_core_cl_bwd :212, pallas_call "
+                 ":224)"),
     "scan_proj_bwd": dict(
         route="cuda", source="sigma_tpu_torch/csrc/scan_g_bwd.cu",
         replaces="sigma_tpu/ops/pallas_scan_g.py:305 (_bwd_kernel via "
@@ -120,10 +140,19 @@ KERNELS = {
         route="cuda", source="sigma_tpu_torch/csrc/merge_ln_gate.cu",
         replaces="sigma_tpu/ops/pallas_merge_ln_gate.py:66 (_bwd_kernel via "
                  "_vjp_bwd, pallas_call :183)"),
+    "scan_cf_fwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/scan_cf.cu",
+        replaces="sigma_tpu/ops/pallas_scan.py:41 (_fwd_kernel via "
+                 "_fwd_call :85, pallas_call :94)"),
+    "scan_cf_bwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/scan_cf.cu",
+        replaces="sigma_tpu/ops/pallas_scan_bwd.py:49 (_bwd_kernel via "
+                 "selective_scan_pallas_bwd :132, pallas_call :176)"),
 }
 FORWARD = ("scan_fwd", "scan_proj_fwd")
 SCAN_BACKWARD = ("scan_bwd", "scan_proj_bwd", "proj_grad")
 EPILOGUE = ("merge_ln_gate_fwd", "merge_ln_gate_bwd")
+OPS = ("scan_cf_fwd", "scan_cf_bwd")
 
 
 def main_path_scans(H=480, W=640, batch=1):
@@ -233,15 +262,27 @@ def _work(kernel, kw, reverse=False):
     projections 2 per multiply-add. Epilogue, per element: K6 reads y_hw,
     y_wh, z and writes out (16 bytes) for 14 operations; K7 reads the three
     and dout and writes three gradients (28 bytes) for 32 operations; both
-    read gamma and beta, K7 writes their gradients."""
+    read gamma and beta, K7 writes their gradients. K8 / K9 count as K1 /
+    K3 on the scan core (no bias, D or their gradients; A read, dA
+    written), with K9's chunk carries every CF_CHUNK tokens. `kw` may name
+    the streamed kernels' G (the per-row layout's)."""
+    from sigma_tpu_torch.ops.scan_cf import CF_CHUNK
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
 
     if kernel in EPILOGUE:
         n, c = kw["B"] * kw["H"] * kw["W"] * kw["C"], kw["C"]
         return {"merge_ln_gate_fwd": (16 * n + 8 * c, 14 * n),
                 "merge_ln_gate_bwd": (28 * n + 16 * c, 32 * n)}[kernel]
+    if kernel in OPS:
+        rows, dg, L, N = kw["batch"] * kw["G"], kw["dg"], kw["L"], kw["N"]
+        big, small = 4 * rows * dg * L, 4 * rows * N * L
+        a, work = 4 * kw["G"] * dg * N, rows * dg * L * N
+        if kernel == "scan_cf_fwd":
+            return 3 * big + 2 * small + a, 9 * work
+        hck = 4 * rows * -(-L // CF_CHUNK) * dg * N
+        return 5 * big + 4 * small + hck + 2 * a, 22 * work
 
-    G = 2 if kw["ml"] else 1
+    G = kw.get("G", 2 if kw["ml"] else 1)
     B, L, dg, N = kw["B"], kw["L"], kw["dg"], kw["N"]
     tok = B * G * L
     big, small = 4 * tok * dg, 4 * tok * N
@@ -438,11 +479,27 @@ def _entry_grads(kw, x, dy, reverse, plain):
     return run(), run
 
 
+def _proj_grad_library(us, dd, dB, dC, w):
+    """K5's function as cuBLAS products: per chain dW = u^T [dd | dB | dC]
+    and du_chain = [dd | dB | dC] [W_dt | W_B | W_C]^T, torch.matmul on the
+    concatenated operands (made here, outside the timed closure)."""
+    import torch
+
+    u = us[0] if len(us) == 1 else torch.stack(tuple(us), 1)
+    G, dg = u.shape[1], u.shape[-1]
+    z = torch.cat([dd, dB, dC], -1)
+    ut = u.transpose(0, 1).reshape(G, -1, dg).transpose(1, 2)
+    zt = z.transpose(0, 1).reshape(G, -1, z.shape[-1])
+    wt = torch.cat(w, -1).transpose(1, 2)
+    return lambda: (torch.matmul(ut, zt), torch.matmul(z, wt))
+
+
 def _kernel_runs(kernel, kw, x, dy):
     """For timing only: {kernel: closure launching it alone} on the inputs
     of one forward main-path call (K3 after K1's checkpoints, or K4 after
-    K2's and K5 on K4's cotangents), and {kernel: its plain version} where
-    that is not the scan's autograd (K5)."""
+    K2's and K5 on K4's cotangents), {kernel: its plain version} where
+    that is not the scan's autograd (K5), and {kernel: the PyTorch
+    library calls that compute its function} (K5's cuBLAS products)."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
@@ -458,7 +515,7 @@ def _kernel_runs(kernel, kw, x, dy):
                                         with_hck=True, **common)
         return {"scan_bwd": lambda: scan_g.launch_scan_bwd(
             x["u"], dts, x["A"], bs, cs, x["D"], x["bias"], hck, dy,
-            True)}, {}
+            True)}, {}, {}
     if kw["ml"]:
         us, dys = ((t[:, 0].contiguous(), t[:, 1].contiguous())
                    for t in (x["u"], dy))
@@ -477,7 +534,8 @@ def _kernel_runs(kernel, kw, x, dy):
              "proj_grad": lambda: scan_g.launch_proj_grad(
                  us, dus, dd, dB, dC, *w)},
             {"proj_grad": lambda: scan_g.proj_grad_plain(us, dd, dB, dC,
-                                                          *w)})
+                                                          *w)},
+            {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)})
 
 
 # which kernel finishes each gradient of the fused path (K4 writes dA, dD
@@ -500,8 +558,8 @@ def backward_phase(device, reps=3):
     from sigma_tpu_torch.ops import scan_g
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
-               for k in SCAN_BACKWARD}
+    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                       library_ms=None, at="") for k in SCAN_BACKWARD}
     failures = []
     for fwd_kernel, tag, kw in main_path_scans(batch=2):
         streamed = fwd_kernel == "scan_fwd"
@@ -536,21 +594,25 @@ def backward_phase(device, reps=3):
                             - _time_ms(lambda: fn(False), 1, warm=False))
 
                 entry, plain = bwd_ms(run), bwd_ms(plain_run)
-                runs, plain_runs = _kernel_runs(ran[1], kw, x, dy)
+                runs, plain_runs, lib_runs = _kernel_runs(ran[1], kw, x, dy)
                 times = {k: _time_ms(fn, reps) for k, fn in runs.items()}
                 plain_ms = {k: _time_ms(fn, reps)
                             for k, fn in plain_runs.items()}
+                lib_ms = {k: _time_ms(fn, reps) for k, fn in lib_runs.items()}
                 line += (f" entry_bwd_ms={entry:.4f}"
                          f" plain_bwd_ms={plain:.4f} " + " ".join(
                              f"{k}_ms={v:.4f}" for k, v in times.items())
                          + "".join(f" plain_{k}_ms={v:.4f}"
-                                   for k, v in plain_ms.items()))
+                                   for k, v in plain_ms.items())
+                         + "".join(f" library_{k}_ms={v:.4f}"
+                                   for k, v in lib_ms.items()))
                 for k, ms in times.items():
                     s = summary[k]
                     if ms > s["ms"]:
                         s.update(ms=ms, plain_ms=plain_ms.get(k, plain),
+                                 library_ms=lib_ms.get(k),
                                  at=f"{tag} {kw}", kw=kw)
-                del runs, plain_runs
+                del runs, plain_runs, lib_runs
             print(line, flush=True)
             if bad:
                 failures.append(line)
@@ -711,17 +773,251 @@ def epilogue_phase(device, reps=10):
     return summary
 
 
+def ops_scans(H=480, W=640, batch=2):
+    """(tag, kw) of the reference-layout scans of sigma_tiny's trunk SS2Ds
+    at HxW: batch 2 (RGB and X stacked on the batch axis), the four
+    directions as G = 4 groups of d_inner channels, d_state 16."""
+    return [(f"trunk{s}", dict(batch=batch, G=4, dg=2 * dim, N=16,
+                               L=(H // 4 >> s) * (W // 4 >> s)))
+            for s, dim in enumerate((96, 192, 384, 768))]
+
+
+def _ops_inputs(kw, device, seed):
+    """Channel-first operands of `selective_scan` at `kw`: u = silu(randn),
+    raw dt 0.5 randn, S4D A, inverse-softplus dt bias, D ones (the streams
+    drawn on the card)."""
+    import torch
+
+    from sigma_tpu_torch.models.common import a_log_init, dt_proj_bias_init
+
+    batch, G, dg, L, N = (kw[k] for k in ("batch", "G", "dg", "L", "N"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    bias = dt_proj_bias_init((G * dg,), torch.Generator().manual_seed(seed))
+    return dict(u=torch.nn.functional.silu(rnd(batch, G * dg, L)),
+                delta=0.5 * rnd(batch, G * dg, L),
+                A=-torch.exp(a_log_init(G, dg, N)).to(device),
+                B=rnd(batch, G, N, L), C=rnd(batch, G, N, L),
+                D=torch.ones(G * dg, device=device), delta_bias=bias.to(device))
+
+
+def _per_row(x, kw):
+    """The same scan in selective_scan_cl's per-row layout: rows
+    (batch*G, L, dg), A (G, N, dg), B / C (batch*G, L, N), D / delta_bias
+    (G, dg)."""
+    batch, G, dg, L, N = (kw[k] for k in ("batch", "G", "dg", "L", "N"))
+
+    def rows(t, width):
+        return t.reshape(batch, G, width, L).transpose(2, 3).reshape(
+            batch * G, L, width).contiguous()
+
+    return dict(u=rows(x["u"], dg), delta=rows(x["delta"], dg),
+                A=x["A"].reshape(G, dg, N).transpose(1, 2).contiguous(),
+                B=rows(x["B"], N), C=rows(x["C"], N),
+                D=x["D"].reshape(G, dg), delta_bias=x["delta_bias"].reshape(
+                    G, dg))
+
+
+def _ops_grads(fn, x, dy):
+    """y = fn(**x) and the gradients of sum(y * dy) w.r.t. all seven
+    inputs."""
+    import torch
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in x.items()}
+    y = fn(**leaves)
+    grads = torch.autograd.grad((y * dy).sum(), list(leaves.values()))
+    return y.detach(), dict(zip(leaves, grads))
+
+
+OPS_GRAD_STAGES = (0, 3)
+
+
+def ops_phase(device, reps=3):
+    """The ops-level scan entry points at every trunk SS2D scan of
+    sigma_tiny at 480x640, batch 2, in both layouts: `selective_scan`
+    (channel-first, K8 / K9) and `selective_scan_cl` (per-row, K1 / K3),
+    fp32 and bf16 io forward at every stage and all seven gradients (fp32)
+    at stages 0 and 3, against the plain versions (autograd, each chunk
+    recomputed). Counters are zeroed before and read after these calls;
+    each must launch its kernels once and nothing else. Then K8, K9 and
+    K1 / K3 on the per-row scan are timed launched alone. Returns
+    (summary of K8 / K9, summary of K1 / K3 on the per-row calls, the
+    counts); raises on disagreement."""
+    import torch
+
+    from sigma_tpu_torch import ops
+    from sigma_tpu_torch.ops import scan_cf, scan_g
+    from sigma_tpu_torch.ops.selective_scan import (
+        selective_scan_chunked,
+        selective_scan_cl_plain,
+        softplus,
+    )
+
+    # the entry points, their plain versions and the kernels they launch
+    # (forward, backward): channel-first K8 / K9, per-row K1 / K3
+    routes = {"cf": (ops.selective_scan, selective_scan_chunked,
+                     ("scan_cf_fwd", "scan_cf_bwd")),
+              "row": (ops.selective_scan_cl, selective_scan_cl_plain,
+                      ("scan_fwd", "scan_bwd"))}
+    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
+               for k in OPS}
+    per_row = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
+               for k in ("scan_fwd", "scan_bwd")}
+    sums = {"cf": summary, "row": per_row}
+    failures = []
+    cases = ops_scans()
+    want_counts = defaultdict(int)
+    _reset_launches()
+    for s, (tag, kw) in enumerate(cases):
+        x = _ops_inputs(kw, device, SEED + 10 + s)
+        for layout, inputs in (("cf", x), ("row", _per_row(x, kw))):
+            entry, plain, (kf, kb) = routes[layout]
+            entry_name = entry.__name__
+            for dtype, tol in ((torch.float32, FP32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                xi = {k: v.to(dtype) if k in ("u", "delta", "B", "C") else v
+                      for k, v in inputs.items()}
+                before = _launches()
+                with torch.inference_mode():
+                    got = entry(**xi, delta_softplus=True)
+                    torch.cuda.synchronize()
+                    ran = {k: n - before[k] for k, n in _launches().items()
+                           if n != before[k]}
+                    want = plain(**xi, delta_softplus=True)
+                want_counts[kf] += 1
+                err, ok = _scaled_err(got, want, tol)
+                ok = ok and got.dtype == dtype and ran == {kf: 1}
+                line = (f"ops: {entry_name} {tag} {kw} {str(dtype)[6:]} "
+                        f"max_abs_err={err:.3e} launched {ran} "
+                        f"{'ok' if ok else 'FAIL'}")
+                if dtype == torch.float32:
+                    m = sums[layout][kf]
+                    m["max_abs_err"] = max(m["max_abs_err"], err)
+                print(line, flush=True)
+                if not ok:
+                    failures.append(line)
+                del got, want, xi
+            if s in OPS_GRAD_STAGES:
+                dy = torch.randn(inputs["u"].shape, device=device,
+                                 generator=torch.Generator(
+                                     device=device).manual_seed(SEED + s))
+                before = _launches()
+                got_y, got = _ops_grads(
+                    lambda **a: entry(**a, delta_softplus=True), inputs, dy)
+                torch.cuda.synchronize()
+                ran = {k: n - before[k] for k, n in _launches().items()
+                       if n != before[k]}
+                want_counts[kf] += 1
+                want_counts[kb] += 1
+                want_y, want = _ops_grads(
+                    lambda **a: plain(**a, delta_softplus=True,
+                                      remat_chunks=True), inputs, dy)
+                errs, bad = {}, []
+                for k in ["y"] + list(want):
+                    errs[k], ok = _scaled_err(got_y if k == "y" else got[k],
+                                              want_y if k == "y" else want[k])
+                    bad += [] if ok else [k]
+                if ran != {kf: 1, kb: 1}:
+                    bad.append(f"launched {ran}")
+                m = sums[layout][kb]
+                m["max_abs_err"] = max(m["max_abs_err"], *(
+                    v for k, v in errs.items() if k not in ("y", "D")))
+                line = (f"ops: {entry_name} gradients {tag} {kw} fp32 "
+                        + " ".join(f"{'d' * (k != 'y')}{k}={v:.2e}"
+                                   for k, v in errs.items())
+                        + f" {'ok' if not bad else 'FAIL ' + str(bad)}")
+                print(line, flush=True)
+                if bad:
+                    failures.append(line)
+                del got_y, got, want_y, want, dy
+            torch.cuda.empty_cache()
+        del x
+    counts = _launches()
+    print(f"ops: launches of the entry-point calls {counts}")
+    wrong = {k: n for k, n in counts.items() if n != want_counts[k]}
+    if wrong:
+        failures.append(f"launch counts {wrong}, the calls imply "
+                        f"{dict(want_counts)}")
+
+    # each kernel launched alone on one call's inputs (not counted above)
+    for s, (tag, kw) in enumerate(cases):
+        batch, G, dg, L, N = (kw[k] for k in ("batch", "G", "dg", "L", "N"))
+        x = _ops_inputs(kw, device, SEED + 10 + s)
+        xr = _per_row(x, kw)
+        d_eff = softplus(x["delta"] + x["delta_bias"][None, :, None])
+        core = (x["u"], d_eff, x["A"], x["B"], x["C"])
+        grouped = {k: xr[k].reshape(batch, G, L, -1)
+                   for k in ("u", "delta", "B", "C")}
+        streamed = (grouped["u"], grouped["delta"], xr["A"], grouped["B"],
+                    grouped["C"], xr["D"], xr["delta_bias"], True)
+        dy = torch.randn(x["u"].shape, device=device)
+        dyg = torch.randn(grouped["u"].shape, device=device)
+        with torch.no_grad():
+            _, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+            _, hck1 = scan_g.launch_scan_fwd(*streamed, with_hck=True)
+            ms = {
+                "scan_cf_fwd": _time_ms(
+                    lambda: scan_cf.launch_scan_cf_fwd(*core), reps),
+                "scan_cf_bwd": _time_ms(
+                    lambda: scan_cf.launch_scan_cf_bwd(*core, hck, dy), reps),
+                "scan_fwd": _time_ms(
+                    lambda: scan_g.launch_scan_fwd(*streamed), reps),
+                "scan_bwd": _time_ms(
+                    lambda: scan_g.launch_scan_bwd(
+                        *streamed[:7], hck1, dyg, True), reps)}
+            plain_ms = {
+                "scan_cf_fwd": _time_ms(lambda: selective_scan_chunked(
+                    **x, delta_softplus=True), 1),
+                "scan_fwd": _time_ms(lambda: selective_scan_cl_plain(
+                    **xr, delta_softplus=True), 1)}
+        for layout, kb, xi in (("cf", "scan_cf_bwd", x),
+                               ("row", "scan_bwd", xr)):
+            plain = routes[layout][1]
+
+            def run(backward, plain=plain, xi=xi):
+                leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in xi.items()}
+                y = plain(**leaves, delta_softplus=True, remat_chunks=True)
+                if backward:
+                    torch.autograd.grad(y.sum(), list(leaves.values()))
+
+            plain_ms[kb] = (_time_ms(lambda: run(True), 1)
+                            - _time_ms(lambda: run(False), 1))
+        row_kw = dict(ml=False, G=G, B=batch, L=L, dg=dg, N=N)
+        bounds = {k: _bound(k, kw) for k in OPS}
+        bounds.update({k: _bound(k, row_kw) for k in ("scan_fwd", "scan_bwd")})
+        print(f"ops: {tag} {kw} ms (plain, bound) K8 "
+              + " ".join(f"{k}={ms[k]:.4f} ({plain_ms[k]:.4f}, "
+                         f"{bounds[k][0]:.4f} {bounds[k][1]})"
+                         for k in ms)
+              + f"; same scan, chunk-parallel K8 / sequential K1 per row: "
+                f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms", flush=True)
+        for k in ms:
+            m = (summary if k in OPS else per_row)[k]
+            if ms[k] > m["ms"]:
+                m.update(ms=ms[k], plain_ms=plain_ms[k], at=f"{tag} {kw}",
+                         kw=kw if k in OPS else row_kw, bound=bounds[k])
+        del x, xr, core, streamed, hck, hck1, dy, dyg, grouped, d_eff
+        torch.cuda.empty_cache()
+    _reset_launches()
+    if failures:
+        raise AssertionError(f"{len(failures)} ops comparisons failed")
+    return summary, per_row, counts
+
+
 def _reset_launches():
-    from sigma_tpu_torch.ops import merge_ln_gate, scan_g
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g
 
     scan_g.reset_launches()
     merge_ln_gate.reset_launches()
+    scan_cf.reset_launches()
 
 
 def _launches():
-    from sigma_tpu_torch.ops import merge_ln_gate, scan_g
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g
 
-    return {**scan_g.LAUNCHES, **merge_ln_gate.LAUNCHES}
+    return {**scan_g.LAUNCHES, **merge_ln_gate.LAUNCHES, **scan_cf.LAUNCHES}
 
 
 def epilogue_plan(model, h, w):
@@ -1044,22 +1340,34 @@ def main() -> int:
     summary = kernel_phase(device)
     summary.update(backward_phase(device))
     summary.update(epilogue_phase(device))
+    ops_summary, per_row, ops_launches = ops_phase(device)
+    summary.update(ops_summary)
     eval_img_s = model_phase(device)
     launches, train_timing = train_phase(device)
     kernels = []
     for name in KERNELS:
         s = summary[name]
         bound_ms, bound_by = _bound(name, s["kw"])
+        ops_path = name in OPS
         kernels.append(dict(
-            name=name, **KERNELS[name], launches=launches[name],
+            name=name, **KERNELS[name],
+            launches=(ops_launches if ops_path else launches)[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+            library_ms=s.get("library_ms")))
         print(f"summary: {name} ms/plain_ms/bound_ms at its slowest "
               f"main-path call, {s['at']}; max_abs_err over all fp32 "
               f"calls (a backward kernel: over the gradients it "
-              f"finishes); launches in the train phase's last run with "
-              f"the fused epilogue")
+              f"finishes); launches in "
+              + ("the ops phase's entry-point calls" if ops_path else
+                 "the train phase's last run with the fused epilogue"))
+    for name, s in per_row.items():
+        print(f"summary: {name} on the per-row scan of selective_scan_cl "
+              f"(TPU rows 8-9) at its slowest ops-phase call, {s['at']}: "
+              f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
+              f"{s['bound'][0]:.4f} ms ({s['bound'][1]}), max_abs_err "
+              f"{s['max_abs_err']:.3e}, launches {ops_launches[name]} in "
+              f"the ops phase's entry-point calls")
     for name in EPILOGUE:
         s = summary[name]
         print(f"summary: {name} {s['ms']:.4f} device ms against the "
@@ -1075,9 +1383,11 @@ def main() -> int:
               f"{[round(x, 4) for x in img]} mean {sum(img) / len(img):.4f}; "
               f"train s/step {[round(x, 4) for x in s_step]} mean "
               f"{sum(s_step) / len(s_step):.4f}")
-    print("summary: library_ms null: no single PyTorch call computes a "
-          "selective scan or its gradient, nor K5's pair of products, nor "
-          "K6's merge + LayerNorm + gate or its gradient")
+    print("summary: library_ms of proj_grad (K5): its two cuBLAS products, "
+          "torch.matmul on the concatenated operands, at the same call; "
+          "null for the others: no single PyTorch call computes a "
+          "selective scan or its gradient (K1-K4, K8, K9), nor K6's merge "
+          "+ LayerNorm + gate or its gradient (K7)")
     print(f"summary: command time {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

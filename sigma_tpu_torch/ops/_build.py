@@ -1,5 +1,5 @@
-"""Build and load the Hopper kernels (`csrc/*.cu`): the scan kernels and
-the fused SS2D epilogue.
+"""Build and load the Hopper kernels (`csrc/*.cu`): the grouped scan
+kernels, the channel-first scan kernels and the fused SS2D epilogue.
 
 At first use, nvcc compiles each source into a shared library with a plain
 C interface (`-gencode arch=compute_90a,code=sm_90a`), one nvcc process per
@@ -26,6 +26,7 @@ SOURCES = {
     "fwd": _PKG / "csrc" / "scan_g_fwd.cu",
     "bwd": _PKG / "csrc" / "scan_g_bwd.cu",
     "mlg": _PKG / "csrc" / "merge_ln_gate.cu",
+    "cf": _PKG / "csrc" / "scan_cf.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "sigma_tpu_torch"
 NVCC_FLAGS = (
@@ -65,10 +66,18 @@ _SIGNATURES = {
         # C, ld_hw, ld_wh, ld_z, n_blocks, bf16, eps, stream
         "sigma_mlg_bwd": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
+    "cf": {
+        # u, d, A, B, C, y, hck, rows, G, dg, L, N, nl, stream
+        "sigma_scan_cf_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        # u, d, A, B, C, hck, dy, du, dd, dA, dBp, dCp, rows, G, dg, L, N,
+        # nl, stream
+        "sigma_scan_cf_bwd": [_P] * 12 + [_I] * 6 + [_P],
+    },
 }
 _ERROR_STRING = {"fwd": "sigma_scan_error_string",
                  "bwd": "sigma_scan_bwd_error_string",
-                 "mlg": "sigma_mlg_error_string"}
+                 "mlg": "sigma_mlg_error_string",
+                 "cf": "sigma_scan_cf_error_string"}
 
 
 def _nvcc() -> str:

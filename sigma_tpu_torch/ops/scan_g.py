@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from sigma_tpu_torch.ops import _build
-from sigma_tpu_torch.ops.selective_scan import selective_scan_cl
+from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
 
 # launches of each kernel; reset with reset_launches()
 LAUNCHES = {"scan_fwd": 0, "scan_proj_fwd": 0, "scan_bwd": 0,
@@ -90,7 +90,7 @@ def selective_scan_g_plain(u, delta, A, B, C, D=None, delta_bias=None,
     N = A.shape[1]
     if reverse:
         u, delta, B, C = (t.flip(2) for t in (u, delta, B, C))
-    y = selective_scan_cl(
+    y = selective_scan_cl_plain(
         u.reshape(batch * G, L, dg), delta.reshape(batch * G, L, dg), A,
         B.reshape(batch * G, L, N), C.reshape(batch * G, L, N),
         D=None if D is None else D.reshape(G, dg),

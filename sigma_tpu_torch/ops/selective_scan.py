@@ -1,4 +1,5 @@
-"""Selective scan (Mamba S6 recurrence) in plain PyTorch.
+"""Selective scan (Mamba S6 recurrence): the plain PyTorch versions and the
+ops-level entry points.
 
 Counterpart of `sigma_tpu/ops/selective_scan.py`. Per (batch b, channel d):
 
@@ -8,14 +9,20 @@ Counterpart of `sigma_tpu/ops/selective_scan.py`. Per (batch b, channel d):
 
 with h in R^N, h_0 = 0, all accumulation in float32.
 
-This module is the CPU path of the port and the oracle that the Hopper
-scan kernels (`ops/scan_g.py`) are held against on the card, forward and,
-through autograd, backward:
+The plain versions are the CPU path of the port and the oracle that the
+Hopper scan kernels are held against on the card, forward and, through
+autograd, backward:
   * `selective_scan_ref` — sequential, one step per token (tests only);
   * `selective_scan_chunked` — the chunked two-level scan of
     `selective_scan_xla`: a doubling (Hillis-Steele) scan inside fixed-size
     chunks, the float32 carry passed from chunk to chunk;
-  * `selective_scan_cl` — the channel-last grouped layout the models use.
+  * `selective_scan_cl_plain` — the channel-last grouped layout.
+
+The entry points dispatch by `backend`, as the JAX package's do:
+  * `selective_scan` — channel-first (batch, G*dg, L), the layout of the
+    reference's CUDA extension; kernels K8/K9 (`ops/scan_cf.py`);
+  * `selective_scan_cl` — per-row channel-last (batch*G, L, dg), the
+    model-native layout; kernels K1/K3 (`ops/scan_seq.py`).
 """
 
 from __future__ import annotations
@@ -121,10 +128,12 @@ def _scan_grouped(u, d_eff, A_t, B, C, chunk, remat_chunks=False):
 
 
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
-                           delta_softplus=False, chunk: int = CHUNK):
+                           delta_softplus=False, chunk: int = CHUNK,
+                           remat_chunks=False):
     """Chunked two-level selective scan (counterpart of
     `selective_scan_xla`). Same signature and semantics as
-    `selective_scan_ref`; `chunk` changes only float32 association."""
+    `selective_scan_ref`; `chunk` changes only float32 association.
+    `remat_chunks`: see `_scan_grouped`."""
     batch, dim, L = u.shape
     G, N = B.shape[1], A.shape[1]
     if dim % G:
@@ -138,7 +147,7 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
         A.float().reshape(G, dg, N),
         B.float().transpose(2, 3),
         C.float().transpose(2, 3),
-        chunk,
+        chunk, remat_chunks,
     )
     y = y.transpose(2, 3).reshape(batch, dim, L)
     if D is not None:
@@ -146,8 +155,9 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
     return y.to(u.dtype)
 
 
-def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
-                      delta_softplus=False, remat_chunks=False):
+def selective_scan_cl_plain(u, delta, A, B, C, D=None, delta_bias=None,
+                            delta_softplus=False, chunk: int = CHUNK,
+                            remat_chunks=False):
     """Channel-last grouped selective scan (the model-native layout).
 
     u, delta: (batch*G, L, dg), rows batch-major; A: (G, N, dg) negative;
@@ -165,16 +175,85 @@ def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
     y = _scan_grouped(
         uf, d, A.float().transpose(1, 2),
         B.float().reshape(batch, G, L, N), C.float().reshape(batch, G, L, N),
-        CHUNK, remat_chunks,
+        chunk, remat_chunks,
     )
     if D is not None:
         y = y + D.float().reshape(1, G, 1, dg) * uf
     return y.reshape(bg, L, dg).to(u.dtype)
 
 
+# ------------------------------------------------------------ entry points
+BACKENDS = ("auto", "kernel", "plain")
+
+
+def _use_kernel(backend, u):
+    """True to launch the Hopper kernels, False for the plain version:
+    "auto" launches them for CUDA tensors and takes the plain version for
+    CPU tensors, "kernel" takes CUDA tensors only, "plain" never launches."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "plain":
+        return False
+    if backend == "kernel" and u.device.type != "cuda":
+        raise ValueError(f"backend='kernel' takes CUDA tensors, not "
+                         f"{u.device}")
+    return u.device.type == "cuda"
+
+
+def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
+                   delta_softplus=False, chunk: int = CHUNK,
+                   backend: str = "auto"):
+    """Selective scan in the reference's channel-first layout, with backend
+    dispatch. Arguments as `selective_scan_ref`: u, delta (batch, dim, L);
+    A (dim, N); B, C (batch, G, N, L); D, delta_bias (dim,).
+
+    backend (the JAX package's names in brackets):
+      "auto"   — the kernels for CUDA tensors, the plain version for CPU
+                 tensors ("auto": Pallas on a TPU, XLA elsewhere);
+      "kernel" — K8 forward / K9 backward (`ops/scan_cf.py`); CUDA tensors
+                 only, a CPU tensor raises ("pallas", which JAX interprets
+                 off the TPU);
+      "plain"  — `selective_scan_chunked` on any device ("xla").
+    `chunk` shapes the plain version only (the kernels' chunk is fixed at
+    256 tokens); JAX's `unroll` has no counterpart.
+    fp32 math; y has u's dtype.
+    """
+    if _use_kernel(backend, u):
+        # imported here: the kernel modules import this one
+        from sigma_tpu_torch.ops.scan_cf import selective_scan_cf
+
+        return selective_scan_cf(u, delta, A, B, C, D, delta_bias,
+                                 delta_softplus)
+    return selective_scan_chunked(u, delta, A, B, C, D, delta_bias,
+                                  delta_softplus, chunk)
+
+
+def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
+                      delta_softplus=False, chunk: int = CHUNK,
+                      backend: str = "auto"):
+    """Channel-last grouped selective scan, with backend dispatch.
+    Arguments as `selective_scan_cl_plain`: u, delta (batch*G, L, dg), rows
+    batch-major; A (G, N, dg); B, C (batch*G, L, N); D, delta_bias (G, dg).
+
+    backend: as for `selective_scan`; "kernel" is the per-row scan
+    `selective_scan_seq_cl` (`ops/scan_seq.py`: K1 forward, K3 backward,
+    d_state <= 16), the counterpart of JAX's "pallas" route to
+    `pallas_scan_seq.py`. `chunk` shapes the plain version only.
+    """
+    if _use_kernel(backend, u):
+        from sigma_tpu_torch.ops.scan_seq import selective_scan_seq_cl
+
+        return selective_scan_seq_cl(u, delta, A, B, C, D, delta_bias,
+                                     delta_softplus)
+    return selective_scan_cl_plain(u, delta, A, B, C, D, delta_bias,
+                                   delta_softplus, chunk)
+
+
 __all__ = [
+    "selective_scan",
     "selective_scan_chunked",
     "selective_scan_cl",
+    "selective_scan_cl_plain",
     "selective_scan_ref",
     "softplus",
 ]

@@ -14,8 +14,11 @@ and the errors a wrapper raises. The backward kernels (K3-K5) are held to
 autograd of the plain versions, every cotangent of each entry point. The
 fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
-dgamma / dbeta rerun bit for bit. Tolerances are chip_smoke's: fp32 rtol
-6e-4 / atol 2e-3 and bf16 5e-2, against max(|ref|, 1).
+dgamma / dbeta rerun bit for bit. The ops-level entry points take the
+channel-first kernels (K8, K9) at one token, ragged chunks and channel
+tiles, odd dg, d_state 1-40 and above their bound, with a K9 rerun bit for
+bit, and the per-row route onto K1 + K3. Tolerances are chip_smoke's: fp32
+rtol 6e-4 / atol 2e-3 and bf16 5e-2, against max(|ref|, 1).
 """
 
 import numpy as np
@@ -23,7 +26,13 @@ import pytest
 import torch
 
 from sigma_tpu_torch.ops import merge_ln_gate as mlg
-from sigma_tpu_torch.ops import scan_g
+from sigma_tpu_torch.ops import scan_cf, scan_g
+from sigma_tpu_torch.ops.selective_scan import (
+    selective_scan,
+    selective_scan_chunked,
+    selective_scan_cl,
+    selective_scan_cl_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -479,3 +488,118 @@ def test_epilogue_wrappers_raise(dev):
     wide, _ = _epilogue(1, 2, 3, 2052, torch.float32, dev, seed=5)
     with pytest.raises(RuntimeError, match="at most 2048 channels"):
         mlg.launch_merge_ln_gate_fwd(*wide, 1e-5)
+
+
+# ------------------------------------------------------------ ops-level scans
+def _channel_first(batch, G, dg, L, N, dev, seed):
+    dim = G * dg
+    a = _arrays(seed, u=(batch, dim, L), delta=(batch, dim, L), A=(dim, N),
+                B=(batch, G, N, L), C=(batch, G, N, L), D=(dim,),
+                delta_bias=(dim,))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    t["A"] = -torch.exp(t["A"])
+    t["delta"] = t["delta"] * 0.5
+    return t
+
+
+CF_CASES = [
+    # (batch, G, dg, L, N)
+    (2, 1, 8, 1, 4),       # one token
+    (1, 2, 5, 300, 1),     # odd dg, L not a multiple of the 256-token chunk
+    (2, 3, 9, 513, 16),    # three chunks, the last of one token
+    (1, 2, 33, 256, 40),   # one full chunk, a partial channel tile, N > 16
+]
+
+
+@pytest.mark.parametrize("batch,G,dg,L,N", CF_CASES)
+def test_channel_first_kernels_match_plain(dev, batch, G, dg, L, N):
+    """K8 + K9 through selective_scan(backend="kernel"): y and all seven
+    gradients against autograd of the plain version, one launch each."""
+    inputs = {k: _leaf(v) for k, v in
+              _channel_first(batch, G, dg, L, N, dev, seed=30 + L).items()}
+    scan_cf.reset_launches()
+    got_y, got = _grads(lambda **a: selective_scan(
+        **a, delta_softplus=True, backend="kernel"), inputs)
+    assert scan_cf.LAUNCHES == dict(scan_cf_fwd=1, scan_cf_bwd=1)
+    want_y, want = _grads(lambda **a: selective_scan_chunked(
+        **a, delta_softplus=True), inputs)
+    _close(got_y[0], want_y[0], torch.float32)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+
+
+def test_channel_first_bf16_io_and_bounds(dev):
+    t = _channel_first(1, 2, 16, 100, 8, dev, seed=40)
+    for k in ("u", "delta", "B", "C"):
+        t[k] = t[k].bfloat16()
+    with torch.inference_mode():
+        got = selective_scan(**t, delta_softplus=True, backend="kernel")
+        want = selective_scan_chunked(**t, delta_softplus=True)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16)
+    wide = _channel_first(1, 1, 4, 10, 257, dev, seed=41)
+    with pytest.raises(ValueError, match="at most 256"):
+        selective_scan(**wide, backend="kernel")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        selective_scan(**{k: v.cpu() for k, v in wide.items()},
+                       backend="kernel")
+    with pytest.raises(ValueError, match="take CUDA tensors"):
+        scan_cf.launch_scan_cf_fwd(*(wide[k].cpu() for k in "u delta A B C"
+                                     .split()))
+
+
+def test_channel_first_backward_reruns_bit_for_bit(dev):
+    """dB / dC are channel-tile partials summed in a fixed order (40
+    channels: five tiles): a rerun of K9 gives the same bits."""
+    t = _channel_first(2, 2, 40, 600, 16, dev, seed=42)
+    core = (t["u"], t["delta"].abs(), t["A"], t["B"], t["C"])
+    _, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+    dy = torch.randn(t["u"].shape, device=dev)
+    first = scan_cf.launch_scan_cf_bwd(*core, hck, dy)
+    again = scan_cf.launch_scan_cf_bwd(*core, hck, dy)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)
+
+
+def _per_row(batch, G, dg, L, N, dev, seed):
+    bg = batch * G
+    a = _arrays(seed, u=(bg, L, dg), delta=(bg, L, dg), A=(G, N, dg),
+                B=(bg, L, N), C=(bg, L, N), D=(G, dg), delta_bias=(G, dg))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    t["A"] = -torch.exp(t["A"])
+    t["delta"] = t["delta"] * 0.5
+    return t
+
+
+@pytest.mark.parametrize("N", [1, 16])
+def test_per_row_scan_runs_on_k1_k3(dev, N):
+    """selective_scan_cl(backend="kernel") on (batch*G, L, dg) rows takes
+    K1 + K3 (one launch each): y and all seven gradients against autograd
+    of the plain version."""
+    inputs = {k: _leaf(v) for k, v in
+              _per_row(2, 3, 50, 77, N, dev, seed=50 + N).items()}
+    scan_g.reset_launches()
+    got_y, got = _grads(lambda **a: selective_scan_cl(
+        **a, delta_softplus=True, backend="kernel"), inputs)
+    launched = {k: n for k, n in scan_g.LAUNCHES.items() if n}
+    assert launched == dict(scan_fwd=1, scan_bwd=1)
+    want_y, want = _grads(lambda **a: selective_scan_cl_plain(
+        **a, delta_softplus=True), inputs)
+    _close(got_y[0], want_y[0], torch.float32)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+
+
+def test_per_row_scan_bounds(dev):
+    """A bf16 call with a gradient runs in fp32 (cast first, as JAX does);
+    d_state 17 raises instead of reaching the plain version."""
+    t = _per_row(1, 2, 16, 40, 4, dev, seed=60)
+    u = t["u"].bfloat16().requires_grad_(True)
+    y = selective_scan_cl(u, *(t[k] for k in ("delta", "A", "B", "C")),
+                          backend="kernel")
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert u.grad is not None and torch.isfinite(u.grad.float()).all()
+    wide = _per_row(1, 2, 16, 40, 17, dev, seed=61)
+    with pytest.raises(ValueError, match="at most 16"):
+        selective_scan_cl(**wide, backend="kernel")

@@ -9,10 +9,10 @@ fp32 means fp32 on both sides of every comparison. Phases, each printing
 its findings:
 
   1. build    — compile the Hopper kernels from sigma_tpu_torch/csrc (the
-                grouped scan's two sources, the fused SS2D epilogue and the
-                channel-first scan) with nvcc, one process per source, all
-                started together (timed); print the card's name and power
-                limit.
+                grouped scan's two sources, the fused SS2D epilogue, the
+                channel-first scan and the image-layout scan) with nvcc,
+                one process per source, all started together (timed);
+                print the card's name and power limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
                 batch 1, run K1 (streamed) / K2 (fused projection) against
                 their plain PyTorch versions on the card, fp32 and bf16 io,
@@ -52,7 +52,22 @@ its findings:
                 before these calls and read after them. Then K8, K9, K1
                 and K3 are timed launched alone against the plain
                 versions and their bounds, K8 beside K1 on the same scan.
-  6. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
+  6. image    — the image-layout SS2D scan `selective_scan_ss2d_proj` (K10
+                forward, K11 + K5 backward) at sigma_tiny's four trunk SS2D
+                shapes at 480x640, batch 2 (RGB and X stacked), d_state
+                16, S4D A and dt-bias inits: fp32 and bf16 forward at every
+                stage and all seven gradients at stages 0 and 3 against
+                the plain version (the stacked composition, autograd, each
+                chunk recomputed), one K10 per forward and K11 + two K5 per
+                backward and nothing else, and a K11 rerun bit for bit.
+                Then the grouped and per-row scan entry points at d_state
+                17 and 40 (slices of 16 on K1 / K3) against their plain
+                versions. Timed (CUDA events): K10, K11 and K5 launched
+                alone, the plain version, and the same function through
+                the route the port's SS2D takes today (the wh transpose
+                copy, two selective_scan_g_proj_ml calls, the
+                un-transpose), forward and forward + backward.
+  7. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
                 seeded 480x640 RGB-X pairs through the port's
                 SlidingEvaluator.run under the MFNet preset, with the fused
                 SS2D epilogue off, on, on, off (one model): img/s and mIoU
@@ -61,7 +76,7 @@ its findings:
                 no backward kernel. Logits of one 480x640 pair with the
                 switch on against off. Then the same model at 96x128, both
                 ways: GPU logits against the CPU plain path.
-  7. train    — the train CLI's step (engine.train.build_train: AdamW,
+  8. train    — the train CLI's step (engine.train.build_train: AdamW,
                 warmup-poly lr, remat, drop path) for 3 steps at 480x640,
                 batch 2, on seeded synthetic uint8 batches with pad
                 margins (trace_step.synthetic_batch), with the switch off,
@@ -75,7 +90,8 @@ its findings:
                 parameters against each other.
 
 Ends with the card line, one JSON line of the kernels (launches from the
-train phase's last run with the switch on, K8 / K9's from the ops phase;
+train phase's last run with the switch on, K8 / K9's from the ops phase,
+K10 / K11's from the image phase;
 bound_ms from this run's shapes, see `_work`), then the device line. Exits non-zero, with no result line,
 without a CUDA card or when a phase fails.
 """
@@ -148,11 +164,20 @@ KERNELS = {
         route="cuda", source="sigma_tpu_torch/csrc/scan_cf.cu",
         replaces="sigma_tpu/ops/pallas_scan_bwd.py:49 (_bwd_kernel via "
                  "selective_scan_pallas_bwd :132, pallas_call :176)"),
+    "scan_img_fwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/scan_img.cu",
+        replaces="sigma_tpu/ops/pallas_scan_g.py:1856 (_fwd_kernel_img via "
+                 "_fwd_call_img :2217, pallas_call :2249)"),
+    "scan_img_bwd": dict(
+        route="cuda", source="sigma_tpu_torch/csrc/scan_img.cu",
+        replaces="sigma_tpu/ops/pallas_scan_g.py:1942 (_bwd_kernel_img via "
+                 "_bwd_call_img :2270, pallas_call :2323)"),
 }
 FORWARD = ("scan_fwd", "scan_proj_fwd")
 SCAN_BACKWARD = ("scan_bwd", "scan_proj_bwd", "proj_grad")
 EPILOGUE = ("merge_ln_gate_fwd", "merge_ln_gate_bwd")
 OPS = ("scan_cf_fwd", "scan_cf_bwd")
+IMAGE = ("scan_img_fwd", "scan_img_bwd")
 
 
 def main_path_scans(H=480, W=640, batch=1):
@@ -265,9 +290,27 @@ def _work(kernel, kw, reverse=False):
     read gamma and beta, K7 writes their gradients. K8 / K9 count as K1 /
     K3 on the scan core (no bias, D or their gradients; A read, dA
     written), with K9's chunk carries every CF_CHUNK tokens. `kw` may name
-    the streamed kernels' G (the per-row layout's)."""
+    the streamed kernels' G (the per-row layout's). K10 / K11 count the
+    image's four chains: K10 reads x once and writes y once, with its
+    projections (the JAX package's count); K11 reads x, dy and the
+    checkpoints and writes du once, dd / dB / dC per chain and dA /
+    dbias / dD, with the scan backward and the re-projections."""
     from sigma_tpu_torch.ops.scan_cf import CF_CHUNK
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
+    from sigma_tpu_torch.ops.scan_img import IMG_CK_TOKENS
+
+    if kernel in IMAGE:
+        B, dg, N = kw["B"], kw["dg"], kw["N"]
+        L = kw["H"] * kw["W"]
+        img, chains = 4 * B * L * dg, 4 * 4 * B * L
+        wts = 4 * 4 * dg * (dg + 2 * N)
+        params = 4 * 4 * dg * (N + 2)
+        proj = 2 * 4 * B * L * dg * (dg + 2 * N)
+        if kernel == "scan_img_fwd":
+            return 2 * img + wts + params, 9 * 4 * B * L * dg * N + proj
+        hck = 4 * 4 * B * -(-L // IMG_CK_TOKENS) * N * dg
+        return (3 * img + chains * dg + 2 * chains * N + hck + wts
+                + 2 * params, 22 * 4 * B * L * dg * N + proj)
 
     if kernel in EPILOGUE:
         n, c = kw["B"] * kw["H"] * kw["W"] * kw["C"], kw["C"]
@@ -1006,18 +1049,313 @@ def ops_phase(device, reps=3):
     return summary, per_row, counts
 
 
+def image_scans(H=480, W=640, batch=2):
+    """(tag, kw) of the image-layout scans of sigma_tiny's trunk SS2Ds at
+    HxW: batch 2 (RGB and X stacked), the image at each stage, d_inner
+    channels, d_state 16."""
+    return [(f"trunk{s}", dict(B=batch, H=H // 4 >> s, W=W // 4 >> s,
+                               dg=2 * dim, N=16))
+            for s, dim in enumerate((96, 192, 384, 768))]
+
+
+def _img_inputs(kw, dtype, device, seed):
+    """x = silu(randn) and the four directions' weights composed as the
+    models compose them ([direction, layout]), S4D A, inverse-softplus dt
+    bias, D ones."""
+    import torch
+
+    from sigma_tpu_torch.models.common import a_log_init, dt_proj_bias_init
+
+    B, H, W, dg, N = (kw[k] for k in ("B", "H", "W", "dg", "N"))
+    gen = torch.Generator().manual_seed(seed)
+    R = math.ceil(dg / 2 / 16)
+    xproj = (torch.rand((4, R + 2 * N, dg), generator=gen) * 2 - 1) / dg ** .5
+    dtw = (torch.rand((4, dg, R), generator=gen) * 2 - 1) / R ** .5
+    A = -torch.exp(a_log_init(4, dg, N)).reshape(4, dg, N).transpose(1, 2)
+    t = dict(
+        x=torch.nn.functional.silu(torch.randn((B, H, W, dg), generator=gen)),
+        w_dt=torch.einsum("grd,ger->gde", xproj[:, :R], dtw),
+        w_b=xproj[:, R:R + N].transpose(1, 2),
+        w_c=xproj[:, R + N:].transpose(1, 2), A=A,
+        D=torch.ones(4, dg), delta_bias=dt_proj_bias_init((4, dg), gen))
+    out = {}
+    for k, v in t.items():
+        v = v.reshape(2, 2, *v.shape[1:]) if k != "x" else v
+        if k in ("x", "w_dt", "w_b", "w_c"):
+            v = v.to(dtype)
+        out[k] = v.to(device).contiguous()
+    return out
+
+
+def _two_call_route(x, w_dt, w_b, w_c, A, D, delta_bias):
+    """The same function through the route the port's SS2D takes today
+    (models/ss2d.py: the wh transpose copy, one selective_scan_g_proj_ml
+    call per direction group, the un-transpose in the merge): K2 at stages
+    0-2, torch.matmul projections and K1 at stage 3."""
+    from sigma_tpu_torch.ops import scan_g
+
+    b, H, W, dg = x.shape
+    us = (x.reshape(b, H * W, dg), x.transpose(1, 2).reshape(b, H * W, dg))
+    ys = None
+    for d in range(2):
+        ys = scan_g.selective_scan_g_proj_ml(
+            us, w_dt[d], w_b[d], w_c[d], A[d], D=D[d],
+            delta_bias=delta_bias[d], delta_softplus=True, reverse=d == 1,
+            y_accum=ys)
+    return ys[0].reshape(b, H, W, dg) + ys[1].reshape(b, W, H, dg) \
+        .transpose(1, 2)
+
+
+IMG_GRAD_STAGES = (0, 3)
+WIDE_STATES = (17, 40)
+
+
+def _wide_state_checks(device):
+    """The grouped (`selective_scan_g`, reversed) and per-row
+    (`selective_scan_cl`) entry points at d_state 17 and 40, trunk stage
+    3's per-row scan shape (batch 2, G 4, L 300, dg 1536): y and every
+    gradient against the plain versions, one K1 and one K3 per slice of at
+    most 16 states. Returns the failed lines."""
+    import torch
+
+    from sigma_tpu_torch import ops
+    from sigma_tpu_torch.ops import scan_g
+    from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
+
+    failures = []
+    for N in WIDE_STATES:
+        kw = dict(batch=2, G=4, dg=1536, N=N, L=300)
+        rows = _per_row(_ops_inputs(kw, device, SEED + 20 + N), kw)
+        grouped = {k: v.reshape(kw["batch"], kw["G"], kw["L"], -1)
+                   if k in ("u", "delta", "B", "C") else v
+                   for k, v in rows.items()}
+        dy = torch.randn(rows["u"].shape, device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED + N))
+        slices = -(-N // 16)
+        for name, entry, plain, inputs, opts in (
+                ("selective_scan_g", scan_g.selective_scan_g,
+                 scan_g.selective_scan_g_plain, grouped,
+                 dict(delta_softplus=True, reverse=True)),
+                ("selective_scan_cl", ops.selective_scan_cl,
+                 selective_scan_cl_plain, rows, dict(delta_softplus=True))):
+            _reset_launches()
+            got_y, got = _ops_grads(lambda **a: entry(**a, **opts), inputs,
+                                    dy.reshape(inputs["u"].shape))
+            torch.cuda.synchronize()
+            ran = {k: n for k, n in _launches().items() if n}
+            want_y, want = _ops_grads(
+                lambda **a: plain(**a, **opts, remat_chunks=True), inputs,
+                dy.reshape(inputs["u"].shape))
+            errs, bad = {}, []
+            for k in ["y"] + list(want):
+                errs[k], ok = _scaled_err(got_y if k == "y" else got[k],
+                                          want_y if k == "y" else want[k])
+                bad += [] if ok else [k]
+            if ran != dict(scan_fwd=slices, scan_bwd=slices):
+                bad.append(f"launched {ran}")
+            line = (f"image: wide state {name} N={N} {kw} fp32 "
+                    + " ".join(f"{'d' * (k != 'y')}{k}={v:.2e}"
+                               for k, v in errs.items())
+                    + f" launched {ran} "
+                    + ("ok" if not bad else "FAIL " + str(bad)))
+            print(line, flush=True)
+            if bad:
+                failures.append(line)
+            del got_y, got, want_y, want
+        del rows, grouped, dy
+        torch.cuda.empty_cache()
+    _reset_launches()
+    return failures
+
+
+def image_phase(device, reps=3):
+    """`selective_scan_ss2d_proj` at every trunk SS2D of sigma_tiny at
+    480x640, batch 2: fp32 and bf16 forward at every stage and all seven
+    gradients (fp32) at stages 0 and 3 against the plain version, with the
+    launches checked (counters zeroed before these calls and read after);
+    the d_state 17 / 40 entry points; then K10, K11 (run twice: the same
+    bits) and K5 alone, the plain version and the two-call route the
+    port's SS2D takes today, timed. Returns (per-kernel summaries, the
+    counts); raises on disagreement."""
+    import torch
+
+    from sigma_tpu_torch.ops import scan_g, scan_img
+
+    t_phase = time.perf_counter()
+    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
+               for k in IMAGE}
+    names = ("x", "w_dt", "w_b", "w_c", "A", "D", "delta_bias")
+    failures = []
+    want_counts = defaultdict(int)
+    cases = image_scans()
+    _reset_launches()
+    for s, (tag, kw) in enumerate(cases):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x = _img_inputs(kw, dtype, device, SEED + 30 + s)
+            before = _launches()
+            with torch.inference_mode():
+                got = scan_g.selective_scan_ss2d_proj(**x,
+                                                      delta_softplus=True)
+                torch.cuda.synchronize()
+                ran = {k: n - before[k] for k, n in _launches().items()
+                       if n != before[k]}
+                want = scan_img.selective_scan_ss2d_proj_plain(
+                    **x, delta_softplus=True)
+            want_counts["scan_img_fwd"] += 1
+            err, ok = _scaled_err(got, want, tol)
+            ok = ok and got.dtype == dtype and got.shape == x["x"].shape \
+                and ran == {"scan_img_fwd": 1}
+            line = (f"image: selective_scan_ss2d_proj {tag} {kw} "
+                    f"{str(dtype)[6:]} max_abs_err={err:.3e} launched {ran} "
+                    f"{'ok' if ok else 'FAIL'}")
+            if dtype == torch.float32:
+                m = summary["scan_img_fwd"]
+                m["max_abs_err"] = max(m["max_abs_err"], err)
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+            del x, got, want
+        if s in IMG_GRAD_STAGES:
+            x = _img_inputs(kw, torch.float32, device, SEED + 30 + s)
+            dy = torch.randn(x["x"].shape, device=device,
+                             generator=torch.Generator(
+                                 device=device).manual_seed(SEED + 40 + s))
+            before = _launches()
+            got_y, got = _ops_grads(lambda **a: scan_g.selective_scan_ss2d_proj(
+                **a, delta_softplus=True), x, dy)
+            torch.cuda.synchronize()
+            ran = {k: n - before[k] for k, n in _launches().items()
+                   if n != before[k]}
+            want_counts["scan_img_fwd"] += 1
+            want_counts["scan_img_bwd"] += 1
+            want_counts["proj_grad"] += 2
+            want_y, want = _ops_grads(
+                lambda **a: scan_img.selective_scan_ss2d_proj_plain(
+                    **a, delta_softplus=True, remat_chunks=True), x, dy)
+            errs, bad = {}, []
+            for k in ("y",) + names:
+                errs[k], ok = _scaled_err(got_y if k == "y" else got[k],
+                                          want_y if k == "y" else want[k])
+                bad += [] if ok else [k]
+            if ran != dict(scan_img_fwd=1, scan_img_bwd=1, proj_grad=2):
+                bad.append(f"launched {ran}")
+            m = summary["scan_img_bwd"]
+            m["max_abs_err"] = max(m["max_abs_err"], *(
+                v for k, v in errs.items() if k != "y"))
+            line = (f"image: selective_scan_ss2d_proj gradients {tag} {kw} "
+                    "fp32 " + " ".join(f"{'d' * (k != 'y')}{k}={v:.2e}"
+                                       for k, v in errs.items())
+                    + f" launched {ran} "
+                    + ("ok" if not bad else "FAIL " + str(bad)))
+            print(line, flush=True)
+            if bad:
+                failures.append(line)
+            del x, dy, got_y, got, want_y, want
+            torch.cuda.empty_cache()
+    counts = _launches()
+    print(f"image: launches of the entry-point calls "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    wrong = {k: n for k, n in counts.items() if n != want_counts[k]}
+    if wrong:
+        failures.append(f"launch counts {wrong}, the calls imply "
+                        f"{dict(want_counts)}")
+    failures += _wide_state_checks(device)
+
+    # each kernel alone on one call's inputs, beside the plain version and
+    # the two-call route (not counted above)
+    for s, (tag, kw) in enumerate(cases):
+        x = _img_inputs(kw, torch.float32, device, SEED + 30 + s)
+        args = [x[k] for k in names]
+        dy = torch.randn(x["x"].shape, device=device)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in x.items()}
+
+        def fwd_bwd(fn, backward=True):
+            y = fn(**leaves)
+            if backward:
+                torch.autograd.grad(y, list(leaves.values()), dy)
+
+        with torch.no_grad():
+            _, hck = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
+                                                  with_hck=True)
+            first = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+            again = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+            du4, dd, dB, dC = first[:4]
+        # a rerun of K11 gives the same bits (no atomics)
+        rerun = all(torch.equal(a, b) for a, b in zip(first, again))
+        if not rerun:
+            failures.append(f"image: {tag} K11 rerun changed bits")
+        del again
+        with torch.no_grad():
+            ms = {
+                "scan_img_fwd": _time_ms(lambda: scan_img.launch_scan_img_fwd(
+                    *args, delta_softplus=True), reps),
+                "scan_img_bwd": _time_ms(lambda: scan_img.launch_scan_img_bwd(
+                    *args, hck, dy, True), reps),
+                "proj_grad_x2": _time_ms(lambda: scan_img._chain_grads(
+                    x["x"], du4, dd, dB, dC, x["w_dt"], x["w_b"], x["w_c"]),
+                    reps),
+                "two_call_fwd": _time_ms(lambda: _two_call_route(**x), reps),
+                "plain_fwd": _time_ms(
+                    lambda: scan_img.selective_scan_ss2d_proj_plain(
+                        **x, delta_softplus=True), 1)}
+            route_y = _two_call_route(**x)
+            img_y = scan_g.selective_scan_ss2d_proj(**x, delta_softplus=True)
+        err, ok = _scaled_err(img_y, route_y)
+        if not ok:
+            failures.append(f"image: {tag} two-call route disagrees "
+                            f"{err:.3e}")
+        ms["image_fwd_bwd"] = _time_ms(lambda: fwd_bwd(
+            lambda **a: scan_g.selective_scan_ss2d_proj(
+                **a, delta_softplus=True)), reps)
+        ms["two_call_fwd_bwd"] = _time_ms(lambda: fwd_bwd(_two_call_route),
+                                          reps)
+        if s in IMG_GRAD_STAGES:
+            def plain(**a):
+                return scan_img.selective_scan_ss2d_proj_plain(
+                    **a, delta_softplus=True, remat_chunks=True)
+
+            ms["plain_bwd"] = (
+                _time_ms(lambda: fwd_bwd(plain), 1, warm=False)
+                - _time_ms(lambda: fwd_bwd(plain, False), 1, warm=False))
+        bounds = {k: _bound(k, kw) for k in IMAGE}
+        print(f"image: {tag} {kw} ms "
+              + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
+              + " bound " + " ".join(f"{k}={b[0]:.4f} ({b[1]})"
+                                     for k, b in bounds.items())
+              + f"; two-call route agrees max_abs_err={err:.3e}; K11 rerun "
+                f"bit for bit {'ok' if rerun else 'FAIL'}", flush=True)
+        for k, plain_key in (("scan_img_fwd", "plain_fwd"),
+                             ("scan_img_bwd", "plain_bwd")):
+            m = summary[k]
+            if plain_key in ms and ms[k] > m["ms"]:
+                m.update(ms=ms[k], plain_ms=ms[plain_key],
+                         at=f"{tag} {kw}", kw=kw)
+        del x, args, dy, leaves, hck, first, du4, dd, dB, dC, route_y, img_y
+        torch.cuda.empty_cache()
+    _reset_launches()
+    print(f"image: phase {time.perf_counter() - t_phase:.1f}s")
+    if failures:
+        raise AssertionError(f"{len(failures)} image comparisons failed")
+    return summary, counts
+
+
 def _reset_launches():
-    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g, scan_img
 
     scan_g.reset_launches()
     merge_ln_gate.reset_launches()
     scan_cf.reset_launches()
+    scan_img.reset_launches()
 
 
 def _launches():
-    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g
+    from sigma_tpu_torch.ops import merge_ln_gate, scan_cf, scan_g, scan_img
 
-    return {**scan_g.LAUNCHES, **merge_ln_gate.LAUNCHES, **scan_cf.LAUNCHES}
+    return {**scan_g.LAUNCHES, **merge_ln_gate.LAUNCHES, **scan_cf.LAUNCHES,
+            **scan_img.LAUNCHES}
 
 
 def epilogue_plan(model, h, w):
@@ -1342,6 +1680,8 @@ def main() -> int:
     summary.update(epilogue_phase(device))
     ops_summary, per_row, ops_launches = ops_phase(device)
     summary.update(ops_summary)
+    img_summary, img_launches = image_phase(device)
+    summary.update(img_summary)
     eval_img_s = model_phase(device)
     launches, train_timing = train_phase(device)
     kernels = []
@@ -1349,9 +1689,10 @@ def main() -> int:
         s = summary[name]
         bound_ms, bound_by = _bound(name, s["kw"])
         ops_path = name in OPS
+        counts = (ops_launches if ops_path else
+                  img_launches if name in IMAGE else launches)
         kernels.append(dict(
-            name=name, **KERNELS[name],
-            launches=(ops_launches if ops_path else launches)[name],
+            name=name, **KERNELS[name], launches=counts[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=s.get("library_ms")))
@@ -1360,7 +1701,8 @@ def main() -> int:
               f"calls (a backward kernel: over the gradients it "
               f"finishes); launches in "
               + ("the ops phase's entry-point calls" if ops_path else
-                 "the train phase's last run with the fused epilogue"))
+                 "the image phase's entry-point calls" if name in IMAGE
+                 else "the train phase's last run with the fused epilogue"))
     for name, s in per_row.items():
         print(f"summary: {name} on the per-row scan of selective_scan_cl "
               f"(TPU rows 8-9) at its slowest ops-phase call, {s['at']}: "
@@ -1386,7 +1728,7 @@ def main() -> int:
     print("summary: library_ms of proj_grad (K5): its two cuBLAS products, "
           "torch.matmul on the concatenated operands, at the same call; "
           "null for the others: no single PyTorch call computes a "
-          "selective scan or its gradient (K1-K4, K8, K9), nor K6's merge "
+          "selective scan or its gradient (K1-K4, K8-K11), nor K6's merge "
           "+ LayerNorm + gate or its gradient (K7)")
     print(f"summary: command time {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -1,5 +1,6 @@
 """Build and load the Hopper kernels (`csrc/*.cu`): the grouped scan
-kernels, the channel-first scan kernels and the fused SS2D epilogue.
+kernels, the channel-first scan kernels, the image-layout SS2D scan
+kernels and the fused SS2D epilogue.
 
 At first use, nvcc compiles each source into a shared library with a plain
 C interface (`-gencode arch=compute_90a,code=sm_90a`), one nvcc process per
@@ -27,6 +28,7 @@ SOURCES = {
     "bwd": _PKG / "csrc" / "scan_g_bwd.cu",
     "mlg": _PKG / "csrc" / "merge_ln_gate.cu",
     "cf": _PKG / "csrc" / "scan_cf.cu",
+    "img": _PKG / "csrc" / "scan_img.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "sigma_tpu_torch"
 NVCC_FLAGS = (
@@ -73,11 +75,20 @@ _SIGNATURES = {
         # nl, stream
         "sigma_scan_cf_bwd": [_P] * 12 + [_I] * 6 + [_P],
     },
+    "img": {
+        # x, wdt, wb, wc, A, bias, D, y4, hck, nck, batch, H, W, dg, N,
+        # softplus, bf16, stream
+        "sigma_scan_img_fwd": [_P] * 9 + [_I] * 8 + [_P],
+        # x, wdt, wb, wc, A, bias, D, hck, dy, du4, dd, dA, dbias, dD, dBp,
+        # dCp, nck, batch, H, W, dg, N, softplus, stream
+        "sigma_scan_img_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    },
 }
 _ERROR_STRING = {"fwd": "sigma_scan_error_string",
                  "bwd": "sigma_scan_bwd_error_string",
                  "mlg": "sigma_mlg_error_string",
-                 "cf": "sigma_scan_cf_error_string"}
+                 "cf": "sigma_scan_cf_error_string",
+                 "img": "sigma_scan_img_error_string"}
 
 
 def _nvcc() -> str:

@@ -26,6 +26,16 @@ Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`):
 `LAUNCHES` counts each wrapper's launches (K5's wrapper launches its two
 products as one count).
 
+K1-K4 hold the state in registers, at most 16 states (K1_MAX_STATE). A
+call with a wider state runs on CUDA tensors as slices of at most 16
+states (`split_state`): the fused-projection entry points then take the
+streamed route (`uses_fused_projection` is false), as for calls over the
+weight budget. The raw launches keep the kernels' bound.
+
+`selective_scan_ss2d_proj` (the image-layout SS2D scan, K10 / K11) lives in
+`ops/scan_img.py` and is exported here too, as JAX exports it from
+`pallas_scan_g`.
+
 A CUDA call that needs a gradient runs as a torch.autograd.Function (the
 counterparts of the custom VJPs `_scan_core_g`, `_scan_core_gp`,
 `_scan_core_gpa`, `_scan_core_gp_ml`, `_scan_core_gp_mla`): its forward
@@ -63,6 +73,9 @@ PROJ_BUDGET_BYTES = 12 * 1024 * 1024
 CK_TOKENS = 32
 # channels per block of K3/K4: their dB/dC partials have ceil(dg / 32)
 BWD_CHANNELS = 32
+# the widest d_state K1-K4 take (kErrStateWidth in csrc/scan_g_*.cu); the
+# entry points run a wider state as slices of at most this many
+K1_MAX_STATE = 16
 
 
 def reset_launches() -> None:
@@ -70,8 +83,28 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def uses_fused_projection(G: int, dg: int) -> bool:
-    return 6 * G * dg * dg <= PROJ_BUDGET_BYTES
+def uses_fused_projection(G: int, dg: int, N: int = K1_MAX_STATE) -> bool:
+    """K2 / K4 take the call: the weights fit the budget and the state fits
+    the kernels' registers."""
+    return 6 * G * dg * dg <= PROJ_BUDGET_BYTES and N <= K1_MAX_STATE
+
+
+def split_state(scan, u, delta, A, B, C, D=None, delta_bias=None,
+                delta_softplus=False, reverse=False, y_accum=None):
+    """A grouped scan over d_state slices of at most K1_MAX_STATE. The
+    states of the recurrence are independent, so y is the sum of the
+    slices' y: the first slice adds D u and `y_accum`, each later one adds
+    onto the last through its y_accum, and autograd composes the slices'
+    backward. `scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+    reverse, y_accum)` is one scan in `selective_scan_g`'s layout
+    (A (G, n, dg), B / C (B, G, L, n))."""
+    y = y_accum
+    for n0 in range(0, A.shape[1], K1_MAX_STATE):
+        s = slice(n0, n0 + K1_MAX_STATE)
+        y = scan(u, delta, A[:, s], B[..., s], C[..., s],
+                 D if n0 == 0 else None, delta_bias, delta_softplus, reverse,
+                 y)
+    return y
 
 
 def _pair_swap(x):
@@ -494,7 +527,10 @@ class _ScanGProj(torch.autograd.Function):
 def _streamed(u, dts, A, bs, cs, D, delta_bias, softplus, reverse,
               y_accum=None):
     """K1 on CUDA tensors, through the autograd Function when a gradient is
-    needed."""
+    needed; a state wider than K1's as slices of it."""
+    if A.shape[1] > K1_MAX_STATE:
+        return split_state(_streamed, u, dts, A, bs, cs, D, delta_bias,
+                           softplus, reverse, y_accum)
     if _needs_grad(u, dts, A, bs, cs, D, delta_bias, y_accum):
         return _ScanG.apply(u, dts, A, bs, cs, D, delta_bias,
                             bool(softplus), bool(reverse), y_accum)
@@ -546,7 +582,7 @@ def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     io = _io_dtype(u)
     ui = u.to(io)
     G, dg = u.shape[1], u.shape[3]
-    if uses_fused_projection(G, dg):
+    if uses_fused_projection(G, dg, A.shape[1]):
         (y,) = _fused(
             (ui,), w_dt, w_b, w_c, A, D, delta_bias, delta_softplus,
             reverse, swap_groups_c, None if y_accum is None else (y_accum,),
@@ -578,7 +614,7 @@ def selective_scan_g_proj_ml(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             swap_groups_c, y_accum,
         )
     io = _io_dtype(u0)
-    if uses_fused_projection(2, u0.shape[-1]):
+    if uses_fused_projection(2, u0.shape[-1], A.shape[1]):
         y0, y1 = _fused(
             (u0.to(io), u1.to(io)), w_dt, w_b, w_c, A, D, delta_bias,
             delta_softplus, reverse, swap_groups_c, y_accum,
@@ -592,8 +628,19 @@ def selective_scan_g_proj_ml(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     return y[:, 0], y[:, 1]
 
 
+def __getattr__(name):
+    # the image-layout entry point, imported at first use: ops/scan_img.py
+    # imports this module
+    if name == "selective_scan_ss2d_proj":
+        from sigma_tpu_torch.ops.scan_img import selective_scan_ss2d_proj
+
+        return selective_scan_ss2d_proj
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "CK_TOKENS",
+    "K1_MAX_STATE",
     "LAUNCHES",
     "launch_proj_grad",
     "launch_scan_bwd",
@@ -608,5 +655,7 @@ __all__ = [
     "selective_scan_g_proj_ml",
     "selective_scan_g_proj_ml_plain",
     "selective_scan_g_proj_plain",
+    "selective_scan_ss2d_proj",
+    "split_state",
     "uses_fused_projection",
 ]

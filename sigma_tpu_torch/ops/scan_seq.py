@@ -13,18 +13,15 @@ needed a second kernel pair only to lay the chains on its tiles.
 
 Inputs are cast to fp32 first, as JAX does (pallas_scan_seq.py:299-311),
 so a bf16 call with a gradient runs the fp32 backward; y takes u's dtype.
-K1/K3 take d_state <= 16: a wider state raises (ROADMAP queue C). CPU
-tensors take the plain version; a CUDA tensor launches the kernels or
-raises.
+K1/K3 take d_state <= 16; a wider state runs as slices of at most 16
+states (`scan_g.split_state`, ROADMAP C6). CPU tensors take the plain
+version; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 from sigma_tpu_torch.ops import scan_g
 from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
-
-# the widest d_state K1 / K3 take (csrc/scan_g_fwd.cu, kErrStateWidth)
-SEQ_MAX_STATE = 16
 
 
 def selective_scan_seq_cl(u, delta, A, B, C, D=None, delta_bias=None,
@@ -37,9 +34,6 @@ def selective_scan_seq_cl(u, delta, A, B, C, D=None, delta_bias=None,
                                        delta_softplus)
     bg, L, dg = u.shape
     G, N, _ = A.shape
-    if N > SEQ_MAX_STATE:
-        raise ValueError(f"d_state {N}: the per-row scan runs on K1/K3, "
-                         f"which take at most {SEQ_MAX_STATE}")
     if bg % G:
         raise ValueError(f"{bg} rows are not batch-major (batch, {G}) rows")
     grouped = (bg // G, G, L)
@@ -54,4 +48,4 @@ def selective_scan_seq_cl(u, delta, A, B, C, D=None, delta_bias=None,
     return y.reshape(bg, L, dg).to(u.dtype)
 
 
-__all__ = ["SEQ_MAX_STATE", "selective_scan_seq_cl"]
+__all__ = ["selective_scan_seq_cl"]

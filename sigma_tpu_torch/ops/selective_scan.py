@@ -237,7 +237,8 @@ def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
 
     backend: as for `selective_scan`; "kernel" is the per-row scan
     `selective_scan_seq_cl` (`ops/scan_seq.py`: K1 forward, K3 backward,
-    d_state <= 16), the counterpart of JAX's "pallas" route to
+    a d_state above 16 as slices of 16), the counterpart of JAX's "pallas"
+    route to
     `pallas_scan_seq.py`. `chunk` shapes the plain version only.
     """
     if _use_kernel(backend, u):

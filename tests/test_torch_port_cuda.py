@@ -17,8 +17,13 @@ that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
 channel-first kernels (K8, K9) at one token, ragged chunks and channel
 tiles, odd dg, d_state 1-40 and above their bound, with a K9 rerun bit for
-bit, and the per-row route onto K1 + K3. Tolerances are chip_smoke's: fp32
-rtol 6e-4 / atol 2e-3 and bf16 5e-2, against max(|ref|, 1).
+bit, and the per-row route onto K1 + K3. The grouped and per-row entry
+points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
+SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
+image, odd and small images, dg not a multiple of 32, d_state 1-256 and
+above its bound, in bf16, with its counts and a K11 rerun bit for bit.
+Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
+against max(|ref|, 1).
 """
 
 import numpy as np
@@ -26,7 +31,7 @@ import pytest
 import torch
 
 from sigma_tpu_torch.ops import merge_ln_gate as mlg
-from sigma_tpu_torch.ops import scan_cf, scan_g
+from sigma_tpu_torch.ops import scan_cf, scan_g, scan_img
 from sigma_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_chunked,
@@ -179,6 +184,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(RuntimeError, match="d_state above 16"):
         scan_g.launch_scan_fwd(wide["u"], wide["dt"], wide["A"], wide["B"],
                                wide["C"])
+    # the entry point takes d_state 17 as slices of 16 and 1 on K1
+    args = (wide["u"], wide["dt"], wide["A"], wide["B"], wide["C"])
+    scan_g.reset_launches()
+    with torch.inference_mode():
+        got = scan_g.selective_scan_g(*args, delta_softplus=True)
+    assert scan_g.LAUNCHES["scan_fwd"] == 2
+    _close(got, scan_g.selective_scan_g_plain(*args, delta_softplus=True),
+           torch.float32)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -592,7 +605,8 @@ def test_per_row_scan_runs_on_k1_k3(dev, N):
 
 def test_per_row_scan_bounds(dev):
     """A bf16 call with a gradient runs in fp32 (cast first, as JAX does);
-    d_state 17 raises instead of reaching the plain version."""
+    d_state 17 runs as slices of 16 and 1 on K1 and matches the plain
+    version."""
     t = _per_row(1, 2, 16, 40, 4, dev, seed=60)
     u = t["u"].bfloat16().requires_grad_(True)
     y = selective_scan_cl(u, *(t[k] for k in ("delta", "A", "B", "C")),
@@ -601,5 +615,167 @@ def test_per_row_scan_bounds(dev):
     y.float().sum().backward()
     assert u.grad is not None and torch.isfinite(u.grad.float()).all()
     wide = _per_row(1, 2, 16, 40, 17, dev, seed=61)
-    with pytest.raises(ValueError, match="at most 16"):
-        selective_scan_cl(**wide, backend="kernel")
+    scan_g.reset_launches()
+    with torch.inference_mode():
+        got = selective_scan_cl(**wide, delta_softplus=True,
+                                backend="kernel")
+    assert scan_g.LAUNCHES["scan_fwd"] == 2
+    _close(got, selective_scan_cl_plain(**wide, delta_softplus=True),
+           torch.float32)
+
+
+@pytest.mark.parametrize("N", [17, 40])
+def test_wide_states_run_as_slices_of_16(dev, N):
+    """The grouped scan, the fused-projection entry (which takes the
+    streamed route above 16 states) and the per-row scan at d_state 17 and
+    40: y and every gradient against autograd of the plain versions, one
+    K1 and one K3 per slice of at most 16 states."""
+    slices = -(-N // 16)
+    t = _streamed(2, 2, 45, 24, N, torch.float32, dev, seed=70 + N)
+    inputs = {k: _leaf(v) for k, v in dict(
+        u=t["u"], delta=t["dt"], A=t["A"], B=t["B"], C=t["C"], D=t["D"],
+        delta_bias=t["bias"]).items()}
+    scan_g.reset_launches()
+    got_y, got = _grads(lambda **a: scan_g.selective_scan_g(
+        **a, delta_softplus=True, reverse=True), inputs)
+    launched = {k: n for k, n in scan_g.LAUNCHES.items() if n}
+    assert launched == dict(scan_fwd=slices, scan_bwd=slices), launched
+    want_y, want = _grads(lambda **a: scan_g.selective_scan_g_plain(
+        **a, delta_softplus=True, reverse=True), inputs)
+    _close(got_y[0], want_y[0], torch.float32)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+
+    p = _projected(2, 24, N, torch.float32, dev, seed=80 + N)
+    inputs = {k: _leaf(v) for k, v in dict(
+        u0=t["u"][:, 0], u1=t["u"][:, 1], ya0=t["ya"][:, 0],
+        ya1=t["ya"][:, 1], w_dt=p["w_dt"], w_b=p["w_b"], w_c=p["w_c"],
+        A=p["A"], D=p["D"], delta_bias=p["bias"]).items()}
+
+    def ml(fn):
+        def run(u0, u1, ya0, ya1, **a):
+            return fn((u0, u1), **a, y_accum=(ya0, ya1), delta_softplus=True,
+                      reverse=True, swap_groups_c=True)
+        return run
+
+    scan_g.reset_launches()
+    got_y, got = _grads(ml(scan_g.selective_scan_g_proj_ml), inputs)
+    launched = {k: n for k, n in scan_g.LAUNCHES.items() if n}
+    assert launched == dict(scan_fwd=slices, scan_bwd=slices), launched
+    want_y, want = _grads(ml(scan_g.selective_scan_g_proj_ml_plain), inputs)
+    for g_, w_ in zip(got_y, want_y):
+        _close(g_, w_, torch.float32)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+
+    rows = {k: _leaf(v) for k, v in
+            _per_row(2, 2, 24, 45, N, dev, seed=90 + N).items()}
+    got_y, got = _grads(lambda **a: selective_scan_cl(
+        **a, delta_softplus=True, backend="kernel"), rows)
+    want_y, want = _grads(lambda **a: selective_scan_cl_plain(
+        **a, delta_softplus=True), rows)
+    _close(got_y[0], want_y[0], torch.float32)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+
+
+# ------------------------------------------------------------ image scan
+def _image(b, H, W, dg, N, dev, seed, softplus=True):
+    """Inputs of selective_scan_ss2d_proj. Without the softplus, x and W_dt
+    are non-negative, so every delta is (a negative one grows the state
+    without bound, in the plain version too)."""
+    a = _arrays(seed, x=(b, H, W, dg), w_dt=(2, 2, dg, dg),
+                w_b=(2, 2, dg, N), w_c=(2, 2, dg, N), A=(2, 2, N, dg),
+                D=(2, 2, dg), delta_bias=(2, 2, dg))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    if not softplus:
+        t["x"], t["w_dt"] = t["x"].abs(), t["w_dt"].abs()
+        t["delta_bias"] = t["delta_bias"].abs()
+    t["w_dt"] = t["w_dt"] * 0.3 / dg ** 0.5
+    t["w_b"] = t["w_b"] / dg ** 0.5
+    t["w_c"] = t["w_c"] / dg ** 0.5
+    t["A"] = -torch.exp(t["A"])
+    t["delta_bias"] = t["delta_bias"] * 0.1
+    return t
+
+
+IMG_CASES = [
+    # (b, H, W, dg, N)
+    (1, 1, 1, 8, 4),       # one pixel: one partial segment per chain
+    (2, 7, 9, 40, 16),     # odd image, dg not a multiple of 32
+    (1, 15, 20, 64, 1),    # stage-3 geometry of 480x640, d_state 1
+    (2, 5, 6, 24, 40),     # d_state in three state tiles
+    (1, 3, 11, 36, 256),   # the widest state: single-buffered K11
+]
+
+
+@pytest.mark.parametrize("b,H,W,dg,N", IMG_CASES)
+@pytest.mark.parametrize("softplus", [False, True])
+def test_image_kernels_match_plain(dev, b, H, W, dg, N, softplus):
+    """K10 + K11 + K5 through selective_scan_ss2d_proj: y and all seven
+    gradients against autograd of the plain version; one K10, one K11 and
+    a K5 per direction. Without a gradient, one K10 and nothing else."""
+    inputs = {k: _leaf(v) for k, v in
+              _image(b, H, W, dg, N, dev, seed=100 + N,
+                     softplus=softplus).items()}
+    scan_g.reset_launches()
+    scan_img.reset_launches()
+    got_y, got = _grads(lambda **a: scan_g.selective_scan_ss2d_proj(
+        **a, delta_softplus=softplus), inputs)
+    assert scan_img.LAUNCHES == dict(scan_img_fwd=1, scan_img_bwd=1)
+    launched = {k: n for k, n in scan_g.LAUNCHES.items() if n}
+    assert launched == dict(proj_grad=2), launched
+    want_y, want = _grads(lambda **a: scan_img.selective_scan_ss2d_proj_plain(
+        **a, delta_softplus=softplus), inputs)
+    _close(got_y[0], want_y[0], torch.float32)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], torch.float32)
+    scan_img.reset_launches()
+    with torch.inference_mode():
+        y = scan_g.selective_scan_ss2d_proj(
+            **{k: v.detach() for k, v in inputs.items()},
+            delta_softplus=softplus)
+    assert scan_img.LAUNCHES == dict(scan_img_fwd=1, scan_img_bwd=0)
+    _close(y, want_y[0], torch.float32)
+
+
+def test_image_kernel_bf16_and_bounds(dev):
+    """bf16 io forward at 5e-2; a bf16 call with a gradient raises C2;
+    d_state 257 raises; D and delta_bias may be left out."""
+    t = _image(2, 9, 12, 48, 16, dev, seed=120)
+    for k in ("x", "w_dt", "w_b", "w_c"):
+        t[k] = t[k].bfloat16()
+    with torch.inference_mode():
+        got = scan_g.selective_scan_ss2d_proj(**t, delta_softplus=True)
+    want = scan_img.selective_scan_ss2d_proj_plain(**t, delta_softplus=True)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16)
+    bare = {k: v for k, v in t.items() if k not in ("D", "delta_bias")}
+    with torch.inference_mode():
+        got = scan_g.selective_scan_ss2d_proj(**bare, delta_softplus=True)
+    _close(got, scan_img.selective_scan_ss2d_proj_plain(
+        **bare, delta_softplus=True), torch.bfloat16)
+    x = t["x"].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
+        scan_g.selective_scan_ss2d_proj(x, *(t[k] for k in (
+            "w_dt", "w_b", "w_c", "A")))
+    wide = _image(1, 2, 3, 8, 257, dev, seed=121)
+    with pytest.raises(ValueError, match="at most 256"):
+        scan_g.selective_scan_ss2d_proj(**wide)
+
+
+def test_image_backward_reruns_bit_for_bit(dev):
+    """dB / dC are channel-tile partials and dA / dbias / dD per-batch
+    values summed in a fixed order (80 channels: three tiles): a rerun of
+    K11 gives the same bits."""
+    t = _image(2, 10, 14, 80, 16, dev, seed=130)
+    args = [t[k] for k in ("x", "w_dt", "w_b", "w_c", "A", "D",
+                           "delta_bias")]
+    _, hck = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
+                                          with_hck=True)
+    dy = torch.randn(t["x"].shape, device=dev)
+    first = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+    again = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)

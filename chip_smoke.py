@@ -14,9 +14,13 @@ its findings:
                 one process per source, all started together (timed);
                 print the card's name and power limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
-                batch 1, run K1 (streamed) / K2 (fused projection) against
-                their plain PyTorch versions on the card, fp32 and bf16 io,
-                with the S4D A and dt-bias inits; print errors and times.
+                batch 1, run K1 (streamed) / K2 (fused projection,
+                chunk-parallel) against their plain PyTorch versions on the
+                card, fp32 and bf16 io, with the S4D A and dt-bias inits;
+                print errors and times. At each K2 shape, fp32, reversed
+                with y_accum and checkpoints: a rerun gives the same bits,
+                y without checkpoints (eval) the same bits as with them,
+                and the checkpoints hold K1's sequential walk's states.
   3. backward — at every distinct scan shape of sigma_tiny's train step at
                 480x640, batch 2 (an SS2D scans batch 4), forward and
                 reversed (the reversed call with y_accum, CroMB with its C
@@ -29,7 +33,10 @@ its findings:
                 entry point's backward against the plain version's, and
                 of K3 / K4 / K5 each launched alone (K5 against its plain
                 products and against cuBLAS: torch.matmul on the
-                concatenated operands).
+                concatenated operands), and K5 run twice from the same du
+                (the same bits). Then bf16 with a gradient (ROADMAP B1) at
+                stage 1: the four scan entry points return bf16 y and
+                gradients within 5e-2 of autograd of the plain versions.
   4. epilogue — at every SS2D epilogue shape of sigma_tiny at 480x640 (eval
                 batch 1 and train batch 2), fp32 and bf16: K6 against the
                 plain forward, K7 against the plain backward formula; fp32
@@ -116,9 +123,11 @@ ARGMAX_AGREEMENT = 0.995
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 SEED = 0
-# H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, dense
+# TF32 rate of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 KERNELS = {
     "scan_fwd": dict(
@@ -345,10 +354,24 @@ def _work(kernel, kw, reverse=False):
     }[kernel]
 
 
+def _tf32_ops(kernel, kw):
+    """The operations of `_work` that run on the tensor cores (TF32): K2's
+    projections and K5's two products; the rest run on the fp32 cores."""
+    if kernel not in ("scan_proj_fwd", "proj_grad"):
+        return 0
+    G = kw.get("G", 2 if kw["ml"] else 1)
+    proj = 2 * kw["B"] * G * kw["L"] * kw["dg"] * (kw["dg"] + 2 * kw["N"])
+    return proj if kernel == "scan_proj_fwd" else 2 * proj
+
+
 def _bound(kernel, kw, reverse=False):
-    """(bound_ms, bound_by): the least time the card could take."""
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the operations over the peak rate
+    of the units that run them (TF32 tensor cores, fp32 cores)."""
     nbytes, ops = _work(kernel, kw, reverse)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    tc = _tf32_ops(kernel, kw)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max((ops - tc) / FP32_OPS_PER_S, tc / TF32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -463,10 +486,55 @@ def kernel_phase(device, cases=None, reps=5):
                 print(line, flush=True)
                 if not ok:
                     failures.append(line)
+            if kernel == "scan_proj_fwd" and dtype == torch.float32:
+                line = _k2_checks(kw, x)
+                print(f"kernel: {kernel} {tag} {line}", flush=True)
+                if "FAIL" in line:
+                    failures.append(line)
+            del x
     scan_g.reset_launches()
     if failures:
         raise AssertionError(f"{len(failures)} kernel comparisons failed")
     return summary
+
+
+def _k2_checks(kw, x):
+    """K2 reversed with y_accum and checkpoints, as the train step's second
+    direction group runs it, twice: the same bits (the carries run in a
+    fixed order); y as eval computes it (no checkpoints) has the same
+    bits; the checkpoints hold the states of K1's sequential walk over the
+    same projections (torch.matmul, fp32) at the fp32 tier. Returns the
+    line to print (FAIL in it on a failure)."""
+    import torch
+
+    from sigma_tpu_torch.ops import scan_g
+
+    ml, swap = kw["ml"], kw.get("swap", False)
+    us = (x["u"][:, 0], x["u"][:, 1]) if ml else (x["u"],)
+    yas = (x["ya"][:, 0], x["ya"][:, 1]) if ml else (x["ya"],)
+    args = (x["w_dt"], x["w_b"], x["w_c"], x["A"])
+    opts = dict(D=x["D"], delta_bias=x["bias"], delta_softplus=True,
+                reverse=True, swap_groups_c=swap, y_accum=yas)
+    with torch.inference_mode():
+        y1, h1 = scan_g.launch_scan_proj_fwd(us, *args, with_hck=True, **opts)
+        y2, h2 = scan_g.launch_scan_proj_fwd(us, *args, with_hck=True, **opts)
+        y0 = scan_g.launch_scan_proj_fwd(us, *args, **opts)
+        rerun = torch.equal(h1, h2) and all(
+            torch.equal(a, b) for a, b in zip(y1, y2))
+        same = all(torch.equal(a, b) for a, b in zip(y0, y1))
+        dts, bs, cs = (torch.matmul(x["u"], w) for w in args[:3])
+        if swap:
+            cs = scan_g._pair_swap(cs)
+        _, hk1 = scan_g.launch_scan_fwd(x["u"], dts, x["A"], bs, cs,
+                                        D=x["D"], delta_bias=x["bias"],
+                                        delta_softplus=True, reverse=True,
+                                        with_hck=True)
+    err, ok = _scaled_err(h1, hk1)
+    del y1, y2, y0, h1, h2, hk1, dts, bs, cs
+    return (f"rev=1 with checkpoints: rerun bit for bit "
+            f"{'ok' if rerun else 'FAIL'}; y as eval computes it, same bits "
+            f"{'ok' if same else 'FAIL'}; hck against K1's sequential walk "
+            f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
 
 
 def _scaled_err(got, want, tol=FP32_TOL):
@@ -538,11 +606,12 @@ def _proj_grad_library(us, dd, dB, dC, w):
 
 
 def _kernel_runs(kernel, kw, x, dy):
-    """For timing only: {kernel: closure launching it alone} on the inputs
-    of one forward main-path call (K3 after K1's checkpoints, or K4 after
+    """For timing: {kernel: closure launching it alone} on the inputs of
+    one forward main-path call (K3 after K1's checkpoints, or K4 after
     K2's and K5 on K4's cotangents), {kernel: its plain version} where
-    that is not the scan's autograd (K5), and {kernel: the PyTorch
-    library calls that compute its function} (K5's cuBLAS products)."""
+    that is not the scan's autograd (K5), {kernel: the PyTorch library
+    calls that compute its function} (K5's cuBLAS products), and whether
+    K5 run twice gave the same bits (True without K5)."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
@@ -558,7 +627,7 @@ def _kernel_runs(kernel, kw, x, dy):
                                         with_hck=True, **common)
         return {"scan_bwd": lambda: scan_g.launch_scan_bwd(
             x["u"], dts, x["A"], bs, cs, x["D"], x["bias"], hck, dy,
-            True)}, {}, {}
+            True)}, {}, {}, True
     if kw["ml"]:
         us, dys = ((t[:, 0].contiguous(), t[:, 1].contiguous())
                    for t in (x["u"], dy))
@@ -573,12 +642,20 @@ def _kernel_runs(kernel, kw, x, dy):
                                            swap)
 
     dus, dd, dB, dC = k4()[:4]
+    # K5 twice from the same du: the same bits (split partials summed in
+    # a fixed order, each du element owned by one block)
+    first, again = ([d.clone() for d in dus] for _ in range(2))
+    w1 = scan_g.launch_proj_grad(us, first, dd, dB, dC, *w)
+    w2 = scan_g.launch_proj_grad(us, again, dd, dB, dC, *w)
+    rerun = all(torch.equal(a, b) for a, b in zip(
+        [*w1, *first], [*w2, *again]))
+    del first, again, w1, w2
     return ({"scan_proj_bwd": k4,
              "proj_grad": lambda: scan_g.launch_proj_grad(
                  us, dus, dd, dB, dC, *w)},
             {"proj_grad": lambda: scan_g.proj_grad_plain(us, dd, dB, dC,
                                                           *w)},
-            {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)})
+            {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)}, rerun)
 
 
 # which kernel finishes each gradient of the fused path (K4 writes dA, dD
@@ -587,6 +664,98 @@ def _kernel_runs(kernel, kw, x, dy):
 _FUSED_OWNER = dict(A="scan_proj_bwd", D="scan_proj_bwd",
                     bias="scan_proj_bwd", u="proj_grad", w_dt="proj_grad",
                     w_b="proj_grad", w_c="proj_grad")
+
+
+def _bf16_grad_checks(device):
+    """bf16 with a gradient (ROADMAP B1) at one main-path shape: the train
+    step's stage-1 SS2D scan (4 sequences of 4,800 tokens, dg 384, d_state
+    16) through `selective_scan_g`, `selective_scan_g_proj` and
+    `selective_scan_g_proj_ml`, and trunk stage 1's image (batch 2, 60x80)
+    through `selective_scan_ss2d_proj`, with u / x and the projection
+    weights in bf16: y and every gradient must come back bf16, within 5e-2
+    of autograd of the plain version in fp32 on the same (bf16-rounded)
+    values. Returns the failed lines."""
+    import torch
+
+    from sigma_tpu_torch.ops import scan_g, scan_img
+
+    kw = dict(ml=True, B=4, L=4800, dg=384, N=16)
+    x = _inputs(kw, torch.float32, device,
+                torch.Generator().manual_seed(SEED + 50))
+    opts = dict(D=x["D"], delta_bias=x["bias"], delta_softplus=True,
+                reverse=True)
+    A = x["A"]
+    img = _img_inputs(dict(B=2, H=60, W=80, dg=384, N=16), torch.float32,
+                      device, SEED + 51)
+
+    def streamed(u, ws, plain):
+        fn = scan_g.selective_scan_g_plain if plain else scan_g.selective_scan_g
+        extra = dict(remat_chunks=True) if plain else {}
+        return fn(u, u @ ws[0], A, u @ ws[1], u @ ws[2], **opts, **extra)
+
+    def proj(u, ws, plain):
+        if plain:
+            return scan_g.selective_scan_g_proj_plain(
+                u, *ws, A, swap_groups_c=True, remat_chunks=True, **opts)
+        return scan_g.selective_scan_g_proj(u, *ws, A, swap_groups_c=True,
+                                            **opts)
+
+    def proj_ml(u, ws, plain):
+        if plain:
+            return scan_g.selective_scan_g_proj_plain(u, *ws, A,
+                                                      remat_chunks=True,
+                                                      **opts)
+        return torch.stack(scan_g.selective_scan_g_proj_ml(
+            (u[:, 0], u[:, 1]), *ws, A, **opts), 1)
+
+    def image(u, ws, plain):
+        rest = dict(A=img["A"], D=img["D"], delta_bias=img["delta_bias"],
+                    delta_softplus=True)
+        if plain:
+            return scan_img.selective_scan_ss2d_proj_plain(
+                u, *ws, remat_chunks=True, **rest)
+        return scan_g.selective_scan_ss2d_proj(u, *ws, **rest)
+
+    failures = []
+    wx = [x["w_dt"], x["w_b"], x["w_c"]]
+    wi = [img["w_dt"], img["w_b"], img["w_c"]]
+    for name, fn, u, ws in (
+            ("selective_scan_g", streamed, x["u"], wx),
+            ("selective_scan_g_proj", proj, x["u"], wx),
+            ("selective_scan_g_proj_ml", proj_ml, x["u"], wx),
+            ("selective_scan_ss2d_proj", image, img["x"], wi)):
+        dy = torch.randn(u.shape, device=device, generator=torch.Generator(
+            device=device).manual_seed(SEED + 52))
+        grads = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            leaves = [t.to(torch.bfloat16).to(dtype).requires_grad_(True)
+                      for t in (u, *ws)]
+            _reset_launches()
+            y = fn(leaves[0], leaves[1:], plain=dtype == torch.float32)
+            grads[dtype] = (y.dtype, torch.autograd.grad(y.float(), leaves,
+                                                         dy))
+            if dtype == torch.bfloat16:
+                torch.cuda.synchronize()
+                ran = {k: n for k, n in _launches().items() if n}
+            del y, leaves
+        (ydt, got), (_, want) = grads[torch.bfloat16], grads[torch.float32]
+        errs, bad = [], []
+        for k, g, w in zip(("du", "dW_dt", "dW_B", "dW_C"), got, want):
+            err, ok = _scaled_err(g, w, BF16_TOL)
+            errs.append(f"{k}={err:.2e}")
+            if not ok or g.dtype != torch.bfloat16:
+                bad.append(f"{k} {g.dtype}")
+        if ydt != torch.bfloat16:
+            bad.append(f"y {ydt}")
+        line = (f"backward: bf16 with a gradient {name} " + " ".join(errs)
+                + f" launched {ran} " + ("ok" if not bad else f"FAIL {bad}"))
+        print(line, flush=True)
+        if bad:
+            failures.append(line)
+        del grads, got, want, dy
+        torch.cuda.empty_cache()
+    _reset_launches()
+    return failures
 
 
 def backward_phase(device, reps=3):
@@ -637,12 +806,18 @@ def backward_phase(device, reps=3):
                             - _time_ms(lambda: fn(False), 1, warm=False))
 
                 entry, plain = bwd_ms(run), bwd_ms(plain_run)
-                runs, plain_runs, lib_runs = _kernel_runs(ran[1], kw, x, dy)
+                runs, plain_runs, lib_runs, rerun = _kernel_runs(
+                    ran[1], kw, x, dy)
+                if not rerun:
+                    bad.append("K5 rerun changed bits")
                 times = {k: _time_ms(fn, reps) for k, fn in runs.items()}
                 plain_ms = {k: _time_ms(fn, reps)
                             for k, fn in plain_runs.items()}
                 lib_ms = {k: _time_ms(fn, reps) for k, fn in lib_runs.items()}
-                line += (f" entry_bwd_ms={entry:.4f}"
+                line += ((" K5 rerun bit for bit "
+                          + ("ok" if rerun else "FAIL")
+                          if not streamed else "")
+                         + f" entry_bwd_ms={entry:.4f}"
                          f" plain_bwd_ms={plain:.4f} " + " ".join(
                              f"{k}_ms={v:.4f}" for k, v in times.items())
                          + "".join(f" plain_{k}_ms={v:.4f}"
@@ -662,6 +837,7 @@ def backward_phase(device, reps=3):
             del want, got, run, plain_run
             torch.cuda.empty_cache()
     scan_g.reset_launches()
+    failures += _bf16_grad_checks(device)
     if failures:
         raise AssertionError(f"{len(failures)} backward comparisons failed")
     return summary

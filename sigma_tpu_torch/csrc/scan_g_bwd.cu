@@ -44,19 +44,33 @@
 //   the TPU kernel runs in its own body (:594-622): per chain
 //   [dW_dt | dW_B | dW_C] = u^T [dd | dB | dC], and
 //   du += [dd | dB | dC] [W_dt | W_B | W_C]^T.
-//   Bound: fp32 operations, 4 dg (dg + 2N) flops per token and chain on the
-//   CUDA cores (no tensor cores yet: wgmma is later work).
-//   Design: 64 x 64 output tiles in shared memory, 16-deep K steps, 4 x 4
-//   outputs per thread. The weight gradient contracts over all batch*L
-//   tokens, so it is split along them into partials (nsplit, G, dg,
-//   dg + 2N) that the caller sums; each du element is owned by one block.
-//
+//   Bound: 4 dg (dg + 2N) flops per token and chain on the tensor cores
+//   (TF32), against ~16 dg bytes per token (u and dd read, du read and
+//   written): device memory at these shapes.
+//   Design (csrc/tc_gemm.cuh): 64 x 64 output tiles on the tensor cores,
+//   mma.sync m16n8k8 on 1xTF32 operands with fp32 accumulation, k-tiles
+//   of 32 copied by cp.async into two shared buffers, one tile ahead of
+//   the MMAs, 16-byte copies along each operand's contiguous axis. [dB | dC] and [W_B | W_C]
+//   arrive concatenated (the wrapper's copies, 2N columns), so the three
+//   parts are two operands chosen per tile or per k-tile, never per
+//   element. The weight gradient contracts over all batch * L tokens: each
+//   block takes one batch element's split of whole k-tiles, and the
+//   partials (n_l * batch, G, dg, dg + 2N) are summed by the caller in a
+//   fixed order, so a rerun gives the same bits; each du element is owned
+//   by one block. Number format: 3xTF32 (fp32's accuracy) runs three
+//   MMAs per product and lost to cuBLAS's fp32 products at the ConMB
+//   shapes on the H100; 1xTF32 keeps the weight gradient within about 3e-4
+//   of max(|ref|, 1) over 76,800 tokens (tests/test_torch_port_tf32.py), a
+//   seventh of the fp32 tier's 2e-3.
+
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -360,135 +374,105 @@ int dispatch_bwd(const BwdArgs& p, int batch, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------- K5
-constexpr int kTile = 64;   // output tile edge
-constexpr int kDepth = 16;  // K step
-constexpr int kLdT = kTile + 4;  // padded smem row, 16-byte aligned
+// 1xTF32 (csrc/tc_gemm.cuh): admitted by tests/test_torch_port_tf32.py,
+// inside the fp32 gradient tier at the longest contraction
+constexpr bool kSplitK5 = false;
 
 struct GradArgs {
   const float* u[2];  // as BwdArgs
   float* du[2];
   const float* dd;    // (batch, G, L, dg)
-  const float* dB;    // (batch, G, L, N)
-  const float* dC;    // (batch, G, L, N), already routed to its chain
+  const float* dbc;   // (batch, G, L, 2N): [dB | dC], dC routed to its chain
   const float* wdt;   // (G, dg, dg)
-  const float* wb;    // (G, dg, N)
-  const float* wc;    // (G, dg, N)
-  float* dW;          // (nsplit, G, dg, dg + 2N)
-  int batch, G, L, dg, N, n_u, nsplit;
+  const float* wbc;   // (G, dg, 2N): [W_B | W_C]
+  float* dW;          // (nsplit, G, dg, dg + 2N), nsplit = n_l * batch
+  int batch, G, L, dg, N, n_u, n_l;
 };
 
-// row r = b L + t of chain g's u / du
-__device__ __forceinline__ size_t u_row(const GradArgs& p, int g, int r) {
-  const int b = r / p.L, t = r % p.L;
-  return (p.n_u == 2 ? (size_t)b * p.L + t
-                     : ((size_t)b * p.G + g) * p.L + t) * p.dg;
+// chain g of batch b in u / du: n_u == 2 holds one layout per chain
+__device__ __forceinline__ size_t u_base(int n_u, int G, int L, int dg, int b,
+                                         int g) {
+  return (n_u == 2 ? (size_t)b : (size_t)b * G + g) * L * dg;
 }
 
-// Z[r, k] = [dd | dB | dC] of chain g
-__device__ __forceinline__ float z_at(const GradArgs& p, int g, int r,
-                                      int k) {
-  const int b = r / p.L, t = r % p.L;
-  const size_t tok = ((size_t)b * p.G + g) * p.L + t;
-  if (k < p.dg) return p.dd[tok * p.dg + k];
-  k -= p.dg;
-  if (k < p.N) return p.dB[tok * p.N + k];
-  return p.dC[tok * p.N + k - p.N];
+// dW[s * batch + b, g, d, k] = sum over the tokens t of split s of
+// u[b, g, t, d] Z[b, g, t, k], Z = [dd | dB | dC]: a 64 x 64 tile of
+// (d, k) per block, k-tiles of 32 tokens; the tile's columns lie in dd
+// (tiles below ceil(dg / 64)) or in [dB | dC] (the rest), decided once.
+__global__ void __launch_bounds__(tc::kGemmThreads)
+weight_grad_kernel(const GradArgs p) {
+  using namespace tc;
+  const int g = blockIdx.z % p.G;
+  const int b = (blockIdx.z / p.G) % p.batch;
+  const int s = blockIdx.z / (p.G * p.batch);
+  const int dg = p.dg, m0 = blockIdx.x * kBM;
+  const int ntd = (dg + kBN - 1) / kBN;
+  const bool in_dd = blockIdx.y < ntd;
+  const int n0 = (in_dd ? blockIdx.y : blockIdx.y - ntd) * kBN;
+  const int nz = in_dd ? dg : 2 * p.N;  // columns of this tile's source
+  const int col0 = in_dd ? 0 : dg;      // its first column in Z
+  // split s of batch b: tokens [t0, t1), a whole number of k-tiles
+  const int per = ((p.L + p.n_l - 1) / p.n_l + kBK - 1) / kBK * kBK;
+  const int t0 = min(p.L, s * per), t1 = min(p.L, t0 + per);
+  const size_t tok = ((size_t)b * p.G + g) * p.L;
+  const float* ub =
+      p.u[p.n_u == 2 ? g : 0] + u_base(p.n_u, p.G, p.L, dg, b, g);
+  const float* zb = in_dd ? p.dd + tok * dg : p.dbc + tok * 2 * p.N;
+  const bool vu = vec_ok(ub, dg), vz = vec_ok(zb, nz);
+  float acc[2][4][4];
+  gemm_loop_async<true, true, kSplitK5>(
+      (t1 - t0 + kBK - 1) / kBK, dg - m0, nz - n0,
+      [=](int kt, float* sa, float* sb) {
+        k_tile_async(sa, ub, dg, t0 + kt * kBK, t1, m0, dg, vu);
+        k_tile_async(sb, zb, nz, t0 + kt * kBK, t1, n0, nz, vz);
+      },
+      [=](int kt) { return t1 - t0 - kt * kBK; }, acc);
+  const int kz = dg + 2 * p.N;
+  float* out = p.dW + ((size_t)(s * p.batch + b) * p.G + g) * dg * kz;
+  for_each_out(acc, [&](int r, int c, float v) {
+    if (m0 + r < dg && n0 + c < nz)
+      out[(size_t)(m0 + r) * kz + col0 + n0 + c] = v;
+  });
 }
 
-// W[d, k] = [W_dt | W_B | W_C] of chain g, row d
-__device__ __forceinline__ float w_at(const GradArgs& p, int g, int d,
-                                      int k) {
-  if (k < p.dg) return p.wdt[((size_t)g * p.dg + d) * p.dg + k];
-  k -= p.dg;
-  if (k < p.N) return p.wb[((size_t)g * p.dg + d) * p.N + k];
-  return p.wc[((size_t)g * p.dg + d) * p.N + k - p.N];
-}
-
-// acc[i][j] += sum_kk As[kk][ty*4+i] Bs[kk][tx*4+j]
-__device__ __forceinline__ void tile_fma(float (*As)[kLdT],
-                                         float (*Bs)[kLdT], int ty, int tx,
-                                         float (&acc)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kDepth; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[i][jj] += av[i] * bv[jj];
-  }
-}
-
-// dW[s, g, d, k] = sum over split s's rows r of u[r, d] Z[r, k]
-__global__ void __launch_bounds__(256) weight_grad_kernel(const GradArgs p) {
-  __shared__ __align__(16) float As[kDepth][kLdT];
-  __shared__ __align__(16) float Bs[kDepth][kLdT];
-  const int g = blockIdx.z % p.G, s = blockIdx.z / p.G;
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int kz = p.dg + 2 * p.N, R = p.batch * p.L;
-  const int rows = (R + p.nsplit - 1) / p.nsplit;
-  const int r_begin = s * rows, r_end = min(R, r_begin + rows);
-  const float* u = p.u[p.n_u == 2 ? g : 0];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int r0 = r_begin; r0 < r_end; r0 += kDepth) {
-    for (int i = threadIdx.x; i < kDepth * kTile; i += 256) {
-      const int kk = i / kTile, m = i % kTile;
-      const int r = r0 + kk;
-      const bool row_ok = r < r_end;
-      As[kk][m] = row_ok && m0 + m < p.dg ? u[u_row(p, g, r) + m0 + m] : 0.f;
-      Bs[kk][m] = row_ok && n0 + m < kz ? z_at(p, g, r, n0 + m) : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-  float* out = p.dW + ((size_t)s * p.G + g) * p.dg * kz;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int d = m0 + ty * 4 + i;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int k = n0 + tx * 4 + jj;
-      if (d < p.dg && k < kz) out[(size_t)d * kz + k] = acc[i][jj];
-    }
-  }
-}
-
-// du[r, d] += sum_k Z[r, k] W[d, k]
-__global__ void __launch_bounds__(256) du_chain_kernel(const GradArgs p) {
-  __shared__ __align__(16) float As[kDepth][kLdT];
-  __shared__ __align__(16) float Bs[kDepth][kLdT];
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int kz = p.dg + 2 * p.N, R = p.batch * p.L;
-  float* du = p.du[p.n_u == 2 ? g : 0];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < kz; k0 += kDepth) {
-    for (int i = threadIdx.x; i < kDepth * kTile; i += 256) {
-      const int kk = i % kDepth, m = i / kDepth;  // k fastest: row reads
-      const int k = k0 + kk;
-      As[kk][m] = m0 + m < R && k < kz ? z_at(p, g, m0 + m, k) : 0.f;
-      Bs[kk][m] = n0 + m < p.dg && k < kz ? w_at(p, g, n0 + m, k) : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= R) continue;
-    float* row = du + u_row(p, g, r);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int d = n0 + tx * 4 + jj;
-      if (d < p.dg) row[d] += acc[i][jj];
-    }
-  }
+// du[b, g, t, d] += sum_k Z[b, g, t, k] W[g, d, k]: a 64 x 64 tile of
+// (t, d) per block, the column tiles of one row tile launched together
+// (so the row tile's dd is read from L2 after the first); the k-tiles run
+// over dd against W_dt, then over [dB | dC] against [W_B | W_C], each part
+// masked at its own width.
+__global__ void __launch_bounds__(tc::kGemmThreads)
+du_chain_kernel(const GradArgs p) {
+  using namespace tc;
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int dg = p.dg, L = p.L, n2 = 2 * p.N;
+  const size_t tok = ((size_t)b * p.G + g) * L;
+  const float* zd = p.dd + tok * dg;
+  const float* zbc = p.dbc + tok * n2;
+  const float* wd = p.wdt + (size_t)g * dg * dg;
+  const float* wbc = p.wbc + (size_t)g * dg * n2;
+  const bool v1 = vec_ok(zd, dg) && vec_ok(wd, dg);
+  const bool v2 = vec_ok(zbc, n2) && vec_ok(wbc, n2);
+  const int nt1 = (dg + kBK - 1) / kBK, nt2 = (n2 + kBK - 1) / kBK;
+  float acc[2][4][4];
+  gemm_loop_async<false, false, kSplitK5>(
+      nt1 + nt2, L - m0, dg - n0,
+      [=](int kt, float* sa, float* sb) {
+        if (kt < nt1) {
+          row_tile_async(sa, zd, dg, m0, L, kt * kBK, dg, v1);
+          row_tile_async(sb, wd, dg, n0, dg, kt * kBK, dg, v1);
+        } else {
+          row_tile_async(sa, zbc, n2, m0, L, (kt - nt1) * kBK, n2, v2);
+          row_tile_async(sb, wbc, n2, n0, dg, (kt - nt1) * kBK, n2, v2);
+        }
+      },
+      [=](int kt) { return kt < nt1 ? dg - kt * kBK : n2 - (kt - nt1) * kBK; },
+      acc);
+  float* du = p.du[p.n_u == 2 ? g : 0] + u_base(p.n_u, p.G, L, dg, b, g);
+  for_each_out(acc, [&](int r, int c, float v) {
+    if (m0 + r < L && n0 + c < dg)
+      du[(size_t)(m0 + r) * dg + n0 + c] += v;
+  });
 }
 
 bool bad_shape(int batch, int G, int L, int dg, int N, int n_u) {
@@ -590,16 +574,17 @@ int sigma_scan_proj_bwd(const float* u0, const float* u1, const float* wdt,
   return dispatch_bwd<true>(p, batch, static_cast<cudaStream_t>(stream));
 }
 
-// K5. u / du as for sigma_scan_proj_bwd (du is added to); dd: (batch, G, L,
-// dg); dB, dC: (batch, G, L, N) summed over channel blocks, dC routed;
-// weights as there; dW: (nsplit, G, dg, dg + 2N) partials.
+// K5. u / du as for sigma_scan_proj_bwd (du is added to); dd: (batch, G,
+// L, dg); dbc: (batch, G, L, 2N), [dB | dC] summed over channel blocks, dC
+// routed; wdt: (G, dg, dg); wbc: (G, dg, 2N), [W_B | W_C]; dW: (n_l *
+// batch, G, dg, dg + 2N) partials, n_l token splits per batch element.
 int sigma_proj_grad(const float* u0, const float* u1, float* du0, float* du1,
-                    const float* dd, const float* dB, const float* dC,
-                    const float* wdt, const float* wb, const float* wc,
-                    float* dW, int batch, int G, int L, int dg, int N,
-                    int n_u, int nsplit, void* stream) {
-  if (bad_shape(batch, G, L, dg, N, n_u) || nsplit <= 0 || nsplit > 65535 ||
-      (size_t)G * nsplit > 65535 || (size_t)batch * L > 2147483647u)
+                    const float* dd, const float* dbc, const float* wdt,
+                    const float* wbc, float* dW, int batch, int G, int L,
+                    int dg, int N, int n_u, int n_l, void* stream) {
+  if (bad_shape(batch, G, L, dg, N, n_u) || n_l <= 0 ||
+      (size_t)G * batch * n_l > 65535 ||
+      (L + tc::kBM - 1) / tc::kBM > 65535)
     return kErrArguments;
   GradArgs p = {};
   p.u[0] = u0;
@@ -607,11 +592,9 @@ int sigma_proj_grad(const float* u0, const float* u1, float* du0, float* du1,
   p.du[0] = du0;
   p.du[1] = du1;
   p.dd = dd;
-  p.dB = dB;
-  p.dC = dC;
+  p.dbc = dbc;
   p.wdt = wdt;
-  p.wb = wb;
-  p.wc = wc;
+  p.wbc = wbc;
   p.dW = dW;
   p.batch = batch;
   p.G = G;
@@ -619,16 +602,16 @@ int sigma_proj_grad(const float* u0, const float* u1, float* du0, float* du1,
   p.dg = dg;
   p.N = N;
   p.n_u = n_u;
-  p.nsplit = nsplit;
+  p.n_l = n_l;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kz = dg + 2 * N, R = batch * L;
-  const dim3 gw((dg + kTile - 1) / kTile, (kz + kTile - 1) / kTile,
-                G * nsplit);
-  weight_grad_kernel<<<gw, 256, 0, s>>>(p);
+  const int tiles_d = (dg + tc::kBM - 1) / tc::kBM;
+  const dim3 gw(tiles_d, tiles_d + (2 * N + tc::kBN - 1) / tc::kBN,
+                G * batch * n_l);
+  weight_grad_kernel<<<gw, tc::kGemmThreads, tc::kAsyncSmem, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 gu((R + kTile - 1) / kTile, (dg + kTile - 1) / kTile, G);
-  du_chain_kernel<<<gu, 256, 0, s>>>(p);
+  const dim3 gu(tiles_d, (L + tc::kBM - 1) / tc::kBM, G * batch);
+  du_chain_kernel<<<gu, tc::kGemmThreads, tc::kAsyncSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,62 +20,78 @@
 //   per 64-token tile in shared memory with coalesced loads. Bias,
 //   softplus, the D skip and the y_accum add are fused.
 //
-// K2 scan_proj_fwd_kernel — fused projection: dt = u W_dt, B = u W_B and
-//   C = u W_C are computed inside the kernel from a token tile of u staged
-//   in shared memory, so the three projection streams never reach device
-//   memory (on the TPU they cost ~550 MB of traffic per stage-1 SS2D).
-//   Bound: the in-kernel dt projection, 2 dg^2 flops per token and chain on
-//   the fp32 CUDA cores (no tensor cores yet), then the sequential scan.
-//   Design: a block of 256 threads owns one (batch, chain, 32-channel
-//   tile). Per tile of 32 tokens it stages the u tile (and, under swap_c,
-//   the partner chain's u tile: CroMB's chain pair (2k, 2k+1) reads C
-//   projected from the partner's u with the partner's W_C) in shared
-//   memory; all 8 warps then project: B/C cooperatively, dt with each warp
-//   one token group over the block's 32 channels (its u reads are
-//   shared-memory broadcasts, its W_dt reads one coalesced row segment
-//   through L2: W_dt, 2.4 MB at dg = 768, does not fit in shared memory).
-//   Warp 0 then runs the recurrence for the 32 channels. The sequential
-//   chain is short of parallel work at stage 0 (B*G*dg/32 blocks, 24 for a
-//   trunk SS2D), so the projections are spread over 8 warps rather than
-//   the one that scans. The B/C projections are recomputed by every
-//   channel-tile block of a chain; that redundancy (dg/32 times) is
-//   accepted in this first version. The u tile is 32 tokens, halved until
-//   the tiles fit the 227 KB of shared memory a block may use (above 48 KB
-//   via cudaFuncAttributeMaxDynamicSharedMemorySize).
+// K2 — fused projection: dt = u W_dt, B = u W_B and C = u W_C (under
+//   swap_c, chain pair (2k, 2k+1) reads C projected from the partner's u
+//   with the partner's W_C: CroMB), then the scan. Four launches, counted
+//   as one call by the wrapper:
+//   K2a proj_gemm_kernel — [dt | B | C] for every token, once per chain,
+//     on the tensor cores (csrc/tc_gemm.cuh), into an fp32 scratch stream
+//     P (batch, G, L, dg + 2N) that the wrapper allocates. On the TPU the
+//     projections stayed in VMEM to save ~550 MB of traffic per stage-1
+//     SS2D; on the card that traffic is about 0.16 ms at 3.35 TB/s, and
+//     projecting once per chain instead of once per channel tile (dg / 32
+//     times over in the sequential design this replaces) is what counts.
+//   K2b chunk_scan_kernel<EMIT = false> — the sequence is cut into chunks
+//     of kChunk = 128 tokens (a multiple of the checkpoint segment, the
+//     last one ragged); one block per (chunk, 32 channels, chain) scans its
+//     chunk from a zero state: each lane folds kItems consecutive tokens
+//     into one (a, b) pair of h -> a h + b, a warp-shuffle scan composes
+//     the 32 lanes (K8's design, csrc/scan_cf.cu). It writes the chunk's
+//     end state (hloc) and its sum of d per channel (sd): the decay across
+//     a chunk is exp(A_ne sum_t d_t), so only sd crosses chunks.
+//   K2c carry_kernel — one thread per (batch, chain, state, channel) walks
+//     the chunks in the walk's order and replaces hloc with the state
+//     entering each chunk: a fixed order, no atomics, so y and hck are
+//     bit-identical on a rerun.
+//   K2d chunk_scan_kernel<EMIT = true> — scans each chunk again from its
+//     true carry and writes y (+ D u, + y_accum) and, under CK, every
+//     checkpoint entry of the chunk.
+//   Bound: operations. The projection is 2 dg (dg + 2N) flops per token and
+//   chain (tensor cores; 3xTF32, fp32's accuracy, at fp32 io); the scan ~9N
+//   per token,
+//   channel and state, twice (K2b, K2d), on the CUDA cores.
+//   Work spreads over (chunk, channel tile, chain, batch): about 1,800
+//   blocks at trunk stage 0 of an eval SS2D where the sequential design
+//   had 24. u, d, B, C and y pass through shared memory in walk order, so
+//   every global access is a row of 32 channels (or N states) of one token.
 //
-// Both kernels: io fp32 or bf16, state and arithmetic fp32. They launch on
-// the caller's stream, allocate nothing, and return cudaGetLastError().
+// K1 and K2: io fp32 or bf16, state and arithmetic fp32. They launch on the
+// caller's stream, allocate nothing, and return cudaGetLastError().
 //
 // State checkpoints for the backward kernels (csrc/scan_g_bwd.cu): given a
 // non-null `hck`, (batch, G, n_ck, N, dg) fp32 with n_ck = ceil(L / kSeg),
-// each thread that scans a channel stores its h[N] as it enters checkpoint
-// segment j (physical tokens [j*kSeg, (j+1)*kSeg)) in the walk's own
-// order: hck[j] is the state before the segment's first token walked
-// (token j*kSeg forward, its last token reversed). Checkpointing is a
-// template parameter (CK): a null `hck` (eval) launches the instantiation
-// without it, so serving pays nothing for checkpoints (a test inside the
-// token loop, even never taken, slowed K2's N = 4 walk 1.5-2x).
+// hck[j] is h as the walk enters checkpoint segment j (physical tokens
+// [j*kSeg, (j+1)*kSeg)): the state before token j*kSeg forward, before its
+// last token (or L - 1) reversed. Checkpointing is a template parameter
+// (CK): a null `hck` (eval) launches the instantiation without it, so
+// serving pays nothing for checkpoints (a test inside the token loop, even
+// never taken, slowed the sequential K2's N = 4 walk 1.5-2x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 64;     // K1: channels per block, one thread each
 constexpr int kTile1 = 64;       // K1 token tile
-constexpr int kChan2 = 32;       // K2: channels per block (warp 0 scans them)
-constexpr int kThreads2 = 256;   // K2: threads per block, all project
-constexpr int kGroups2 = kThreads2 / kChan2;  // token groups in dt projection
-constexpr int kTile2 = 32;       // K2 largest token tile
-constexpr int kTokPerGroup = kTile2 / kGroups2;
-constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block
+constexpr int kChan2 = 32;       // K2 scan: channels per block
+constexpr int kScanThreads = 256;  // K2 scan: threads per block
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kItems = 4;        // K2 scan: consecutive tokens per lane
+constexpr int kChunk = 32 * kItems;  // K2 scan: tokens per chunk
+constexpr int kIlp = 2;          // K2 scan: states scanned together
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSeg = 32;  // hck spacing in tokens; scan_g_bwd.cu's segment
-static_assert(kSeg % kTile2 == 0, "K2's tiles must align with hck segments");
+static_assert(kChunk % kSeg == 0, "K2's chunks must align with hck segments");
+static_assert(kSeg % kItems == 0, "a segment entry starts a lane's run");
+static_assert(4 % kIlp == 0, "the state widths (4, 8, 16) hold whole groups");
 
 constexpr int kErrStateWidth = 10001;
-constexpr int kErrSharedMemory = 10002;
 constexpr int kErrArguments = 10003;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -187,15 +203,17 @@ struct ProjArgs {
   // n_u == 1: u[0] is (batch, G, L, dg). ya / y follow u; ya may be null.
   const T* u[2];
   const T* wdt;  // (G, dg, dg)   dt = u @ wdt[g]
-  const T* wb;   // (G, dg, N)
-  const T* wc;   // (G, dg, N)
+  const T* wbc;  // (G, dg, 2N)   [B | C] = u @ wbc[g]
   const float* A;     // (G, N, dg)
   const float* bias;  // (G, dg)
   const float* Dk;    // (G, dg)
   const T* ya[2];
   T* y[2];
-  float* hck;  // (batch, G, n_ck, N, dg) or null
-  int G, L, dg, N, n_u, tl, softplus, reverse, swap_c;
+  float* P;     // (batch, G, L, dg + 2N) scratch: [dt | B | C] per token
+  float* hloc;  // (batch, G, n_chunk, N, dg) scratch: chunk states, carries
+  float* sd;    // (batch, G, n_chunk, dg) scratch: sum of d per chunk
+  float* hck;   // (batch, G, n_ck, N, dg) or null
+  int G, L, dg, N, n_u, softplus, reverse, swap_c, n_chunk;
 };
 
 template <typename T>
@@ -205,121 +223,290 @@ __device__ __forceinline__ size_t chain_offset(const ProjArgs<T>& p, int b,
                     : ((size_t)b * p.G + g) * p.L * p.dg;
 }
 
-template <typename T, int NT, bool CK>
-__global__ void __launch_bounds__(kThreads2)
-scan_proj_fwd_kernel(const ProjArgs<T> p) {
-  extern __shared__ float smem[];
-  const int dg = p.dg, N = p.N, L = p.L, tl_max = p.tl;
-  const int ld = dg + 1;  // padded row: B/C dot products hit distinct banks
-  float* us = smem;                                      // tl x ld
-  float* up = us + (size_t)tl_max * ld;                  // tl x ld (swap_c)
-  float* Bs = up + (p.swap_c ? (size_t)tl_max * ld : 0);  // tl x NT
-  float* Cs = Bs + tl_max * NT;                          // tl x NT
-  float* dts = Cs + tl_max * NT;                         // tl x kChan2
-
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int gp = p.swap_c ? (g ^ 1) : g;
-  const int jg = p.n_u == 2 ? g : 0, jp = p.n_u == 2 ? gp : 0;
-  const int lane = threadIdx.x % kChan2;  // channel within the block
-  const int q = threadIdx.x / kChan2;     // token group of the dt projection
-  const int e = blockIdx.x * kChan2 + lane;
-  const bool active = e < dg;
-  const bool scanner = threadIdx.x < kChan2;  // warp 0 runs the recurrence
-  const int ec = active ? e : 0;
-  const T* u_c = p.u[jg] + chain_offset(p, b, g);
-  const T* u_p = p.u[jp] + chain_offset(p, b, gp);
-  const T* ya_c = p.ya[jg] ? p.ya[jg] + chain_offset(p, b, g) : nullptr;
-  T* y_c = p.y[jg] + chain_offset(p, b, g);
-  const T* wdt_g = p.wdt + (size_t)g * dg * dg;
-  const T* wb_g = p.wb + (size_t)g * dg * N;
-  const T* wc_g = p.wc + (size_t)gp * dg * N;
-  const float* c_src = p.swap_c ? up : us;
-  float* hck_c = p.hck ? p.hck + ((size_t)b * p.G + g) *
-                             ((L + kSeg - 1) / kSeg) * N * dg
-                       : nullptr;
-
-  float a[NT], h[NT];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    a[n] = n < N ? p.A[((size_t)g * N + n) * dg + ec] : 0.f;
-    h[n] = 0.f;
+// K2a: P[b, g, t] = u[b, g, t] [W_dt | W_B | W_C][g], a 64 x 64 tile of
+// (token, column) per block on the tensor cores (csrc/tc_gemm.cuh; 3xTF32
+// at fp32 io, exact 1xTF32 at bf16). The tile's columns lie in W_dt
+// (tiles below ceil(dg / 64)) or in [W_B | W_C] (the rest), decided once.
+template <typename T>
+__global__ void __launch_bounds__(tc::kGemmThreads)
+proj_gemm_kernel(const ProjArgs<T> p) {
+  using namespace tc;
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
+  const int dg = p.dg, L = p.L, m0 = blockIdx.x * kBM;
+  const int ntd = (dg + kBN - 1) / kBN;
+  const bool in_dt = blockIdx.y < ntd;
+  const int n0 = (in_dt ? blockIdx.y : blockIdx.y - ntd) * kBN;
+  const int nw = in_dt ? dg : 2 * p.N;
+  const int col0 = in_dt ? 0 : dg;
+  const T* ub = p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  const T* wb = in_dt ? p.wdt + (size_t)g * dg * dg
+                      : p.wbc + (size_t)g * dg * 2 * p.N;
+  const bool vu = vec_ok(ub, dg), vw = vec_ok(wb, nw);
+  const int ntiles = (dg + kBK - 1) / kBK;
+  float acc[2][4][4];
+  if constexpr (std::is_same<T, float>::value) {
+    // fp32: 3xTF32, operands copied by cp.async
+    gemm_loop_async<false, true, true>(
+        ntiles, L - m0, nw - n0,
+        [=](int kt, float* sa, float* sb) {
+          row_tile_async(sa, ub, dg, m0, L, kt * kBK, dg, vu);
+          k_tile_async(sb, wb, nw, kt * kBK, dg, n0, nw, vw);
+        },
+        [=](int kt) { return dg - kt * kBK; }, acc);
+  } else {
+    // bf16: exact in TF32, converted on the way into shared memory
+    gemm_loop<false, true, false, RowTile<T>, KTile<T>>(
+        ntiles, L - m0, nw - n0,
+        [=](int kt, RowTile<T>& ta, KTile<T>& tb) {
+          ta.load(ub, dg, m0, L, kt * kBK, dg, vu);
+          tb.load(wb, nw, kt * kBK, dg, n0, nw, vw);
+          return dg - kt * kBK;
+        },
+        acc);
   }
-  const float bias_e = p.bias[(size_t)g * dg + ec];
-  const float d_e = p.Dk[(size_t)g * dg + ec];
+  const int kz = dg + 2 * p.N;
+  float* out = p.P + ((size_t)b * p.G + g) * L * kz;
+  for_each_out(acc, [&](int r, int c, float v) {
+    if (m0 + r < L && n0 + c < nw)
+      out[(size_t)(m0 + r) * kz + col0 + n0 + c] = v;
+  });
+}
 
-  const int ntiles = (L + tl_max - 1) / tl_max;
-  for (int it = 0; it < ntiles; ++it) {
-    const int t0 = (p.reverse ? ntiles - 1 - it : it) * tl_max;
-    const int tl = min(tl_max, L - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < tl * dg; i += kThreads2) {
-      const int t = i / dg, d = i % dg;
-      us[t * ld + d] = to_f(u_c[(size_t)t0 * dg + i]);
-      if (p.swap_c) up[t * ld + d] = to_f(u_p[(size_t)t0 * dg + i]);
-    }
-    __syncthreads();
+// chunk-local walk position k of chunk c is physical token phys(c, k)
+__device__ __forceinline__ int phys(int c, int k, int reverse) {
+  return reverse ? c * kChunk + kChunk - 1 - k : c * kChunk + k;
+}
 
-    // B_t, C_t for every token of the tile, shared by the block's channels
-    for (int i = threadIdx.x; i < tl * NT; i += kThreads2) {
-      const int t = i / NT, n = i % NT;
-      float sb = 0.f, sc = 0.f;
-      if (n < N) {
-        const float* ub = us + t * ld;
-        const float* uc = c_src + t * ld;
-        for (int d = 0; d < dg; ++d) {
-          sb += ub[d] * to_f(wb_g[(size_t)d * N + n]);
-          sc += uc[d] * to_f(wc_g[(size_t)d * N + n]);
-        }
-      }
-      Bs[i] = sb;
-      Cs[i] = sc;
+// staging slot of walk position k: lane l's run of kItems starts at
+// l * (kItems + 1), so 32 lanes reading item j of their runs from rows of
+// odd pitch hit 32 banks
+__device__ __forceinline__ int slot(int k) { return k + k / kItems; }
+
+// inclusive scans over the lanes, lane 0 first, of h -> a h + b, for Q
+// independent states at once (their shuffles interleave)
+template <int Q>
+__device__ __forceinline__ void scan_up(float (&a)[Q], float (&b)[Q],
+                                        int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    float qa[Q], qb[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      qa[q] = __shfl_up_sync(kFull, a[q], off);
+      qb[q] = __shfl_up_sync(kFull, b[q], off);
     }
-    // dt for channel e at tokens q, q + kGroups2, ...: a warp is one token
-    // group, so its u reads are shared-memory broadcasts and its W_dt
-    // reads one coalesced row segment
-    if (active) {
-      float acc[kTokPerGroup];
+    if (lane >= off) {
 #pragma unroll
-      for (int k = 0; k < kTokPerGroup; ++k) acc[k] = 0.f;
-      for (int d = 0; d < dg; ++d) {
-        const float w = to_f(wdt_g[(size_t)d * dg + e]);
-#pragma unroll
-        for (int k = 0; k < kTokPerGroup; ++k) {
-          const int t = q + kGroups2 * k;
-          if (t < tl) acc[k] += us[t * ld + d] * w;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kTokPerGroup; ++k) {
-        const int t = q + kGroups2 * k;
-        if (t < tl) dts[t * kChan2 + lane] = acc[k];
+      for (int q = 0; q < Q; ++q) {
+        b[q] = fmaf(a[q], qb[q], b[q]);
+        a[q] *= qa[q];
       }
     }
-    __syncthreads();  // B/C/dt complete
+  }
+}
 
-    if (!scanner || !active) continue;
-    // the tile (a divisor of kSeg tokens, aligned) is entered at a
-    // checkpoint segment's entry or inside one: test once per tile, out of
-    // the sequential loop
-    const int entry = p.reverse ? t0 + tl - 1 : t0;
-    if (CK && seg_entry(entry, L, p.reverse))
-      store_ck<NT>(hck_c, entry, N, dg, e, h);
-    for (int k = 0; k < tl; ++k) {
-      const int t = p.reverse ? tl - 1 - k : k;
-      const size_t off = (size_t)(t0 + t) * dg + e;
-      const float uv = us[t * ld + e];
-      float dv = dts[t * kChan2 + lane] + bias_e;
+// K2b (EMIT false) / K2d (EMIT true): one block per (chunk, 32 channels,
+// chain); warp w walks channels w, w + 8, w + 16, w + 24 of the tile.
+// Both stage the chunk's u, d = softplus(dt + bias), B and C in shared
+// memory in walk order, then per channel and state each lane folds its
+// kItems tokens into one (a, b) pair and a warp-shuffle scan composes them.
+// K2b writes the chunk's state from zero (hloc) and its sum of d (sd).
+// K2d starts from the true carry (hloc after K2c), forms h and y for
+// every token, stores hck at every 32-token segment entry (CK) and writes
+// y (+ y_accum). Tokens past L walk as identities (d = 0: a = 1, b = 0).
+template <typename T, int NT, bool EMIT, bool CK>
+__global__ void __launch_bounds__(kScanThreads)
+chunk_scan_kernel(const ProjArgs<T> p) {
+  extern __shared__ float smem[];
+  constexpr int kRows = kChunk + kChunk / kItems;  // staged walk slots
+  constexpr int kLdC = kChan2 + 1;                  // u / d row pitch
+  constexpr int kLdN = NT + 1;                      // B / C row pitch
+  float* us = smem;                  // kRows x kLdC: u, then y
+  float* ds = us + kRows * kLdC;     // kRows x kLdC: d
+  float* bs = ds + kRows * kLdC;     // kRows x kLdN
+  float* cs = bs + kRows * kLdN;     // kRows x kLdN
+  float* hs = cs + kRows * kLdN;     // NT x kChan2: carry in / state out
+  float* hk = hs + NT * kChan2;      // (kChunk / kSeg) x NT x kChan2 (CK)
+  const int c = blockIdx.x, e0 = blockIdx.y * kChan2;
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
+  const int gp = p.swap_c ? (g ^ 1) : g;
+  const int dg = p.dg, N = p.N, L = p.L, kz = dg + 2 * N;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t bg = (size_t)b * p.G + g;
+  const float* P_c = p.P + bg * L * kz;
+  const float* P_p = p.P + ((size_t)b * p.G + gp) * L * kz;
+  const size_t slab = (bg * p.n_chunk + c) * N * dg;  // hloc of this chunk
+
+  // stage the chunk in walk order
+  const T* u_c = p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  for (int i = threadIdx.x; i < kChunk * kChan2; i += kScanThreads) {
+    const int k = i / kChan2, ch = i % kChan2, e = e0 + ch;
+    const int t = phys(c, k, p.reverse);
+    float uv = 0.f, dv = 0.f;
+    if (t < L && e < dg) {
+      uv = to_f(u_c[(size_t)t * dg + e]);
+      dv = P_c[(size_t)t * kz + e] + p.bias[(size_t)g * dg + e];
       if (p.softplus) dv = softplus_f(dv);
-      const float du = dv * uv;
-      float acc = 0.f;
+    }
+    us[slot(k) * kLdC + ch] = uv;
+    ds[slot(k) * kLdC + ch] = dv;
+  }
+  for (int i = threadIdx.x; i < kChunk * NT; i += kScanThreads) {
+    const int k = i / NT, n = i % NT;
+    const int t = phys(c, k, p.reverse);
+    const bool ok = t < L && n < N;
+    bs[slot(k) * kLdN + n] = ok ? P_c[(size_t)t * kz + dg + n] : 0.f;
+    if (EMIT)
+      cs[slot(k) * kLdN + n] = ok ? P_p[(size_t)t * kz + dg + N + n] : 0.f;
+  }
+  if (EMIT)
+    for (int i = threadIdx.x; i < NT * kChan2; i += kScanThreads) {
+      const int n = i / kChan2, e = e0 + i % kChan2;
+      hs[i] = n < N && e < dg ? p.hloc[slab + (size_t)n * dg + e] : 0.f;
+    }
+  __syncthreads();
+
+  for (int ch = warp; ch < kChan2; ch += kScanWarps) {
+    const int e = e0 + ch;
+    if (e >= dg) break;
+    float dk[kItems], uk[kItems], yk[kItems];
+    float dsum = 0.f;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        h[n] = __expf(dv * a[n]) * h[n] + du * Bs[t * NT + n];
-        acc += Cs[t * NT + n] * h[n];
+    for (int j = 0; j < kItems; ++j) {
+      const int r = slot(lane * kItems + j) * kLdC + ch;
+      dk[j] = ds[r];
+      uk[j] = us[r];
+      yk[j] = 0.f;
+      dsum += dk[j];
+    }
+    // kIlp states at a time, their scans interleaved; a state past N
+    // (odd N) has A = 0 and B = C = 0, so it stays zero and adds nothing
+    for (int n0 = 0; n0 < N; n0 += kIlp) {
+      float ak[kIlp][kItems], bk[kIlp][kItems], fa[kIlp], fb[kIlp];
+#pragma unroll
+      for (int q = 0; q < kIlp; ++q) {
+        const int n = n0 + q;
+        const float an = n < N ? p.A[((size_t)g * N + n) * dg + e] : 0.f;
+        fa[q] = 1.f;
+        fb[q] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int r = slot(lane * kItems + j) * kLdN + n;
+          ak[q][j] = __expf(dk[j] * an);
+          bk[q][j] = dk[j] * uk[j] * bs[r];
+          fb[q] = fmaf(ak[q][j], fb[q], bk[q][j]);
+          fa[q] *= ak[q][j];
+        }
       }
-      acc += d_e * uv;
-      if (ya_c) acc += to_f(ya_c[off]);
-      y_c[off] = from_f<T>(acc);
+      scan_up<kIlp>(fa, fb, lane);
+#pragma unroll
+      for (int q = 0; q < kIlp; ++q) {
+        const int n = n0 + q;
+        if (!EMIT) {
+          if (lane == 31) hs[n * kChan2 + ch] = fb[q];
+          continue;
+        }
+        // exclusive prefix: the state before this lane's first token
+        float xa = __shfl_up_sync(kFull, fa[q], 1);
+        float xb = __shfl_up_sync(kFull, fb[q], 1);
+        if (lane == 0) {
+          xa = 1.f;
+          xb = 0.f;
+        }
+        float h = fmaf(xa, hs[n * kChan2 + ch], xb);
+        if (CK && (lane * kItems) % kSeg == 0)
+          hk[((lane * kItems / kSeg) * NT + n) * kChan2 + ch] = h;
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          h = fmaf(ak[q][j], h, bk[q][j]);
+          yk[j] = fmaf(cs[slot(lane * kItems + j) * kLdN + n], h, yk[j]);
+        }
+      }
+    }
+    if (EMIT) {
+      const float d_e = p.Dk[(size_t)g * dg + e];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        us[slot(lane * kItems + j) * kLdC + ch] = fmaf(d_e, uk[j], yk[j]);
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        dsum += __shfl_xor_sync(kFull, dsum, off);
+      if (lane == 0) p.sd[(bg * p.n_chunk + c) * dg + e] = dsum;
+    }
+  }
+  __syncthreads();
+
+  if (!EMIT) {
+    for (int i = threadIdx.x; i < N * kChan2; i += kScanThreads) {
+      const int n = i / kChan2, e = e0 + i % kChan2;
+      if (e < dg) p.hloc[slab + (size_t)n * dg + e] = hs[i];
+    }
+    return;
+  }
+  const T* ya_c = p.ya[p.n_u == 2 ? g : 0];
+  if (ya_c) ya_c += chain_offset(p, b, g);
+  T* y_c = p.y[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  for (int i = threadIdx.x; i < kChunk * kChan2; i += kScanThreads) {
+    const int k = i / kChan2, ch = i % kChan2, e = e0 + ch;
+    const int t = phys(c, k, p.reverse);
+    if (t >= L || e >= dg) continue;
+    float v = us[slot(k) * kLdC + ch];
+    if (ya_c) v += to_f(ya_c[(size_t)t * dg + e]);
+    y_c[(size_t)t * dg + e] = from_f<T>(v);
+  }
+  if (CK) {
+    // segment entries at walk positions 0, kSeg, ...: physical token
+    // phys(c, k) starts segment phys / kSeg in the walk's order (reversed,
+    // a segment past L - 1 is entered at L - 1 with the same state, and
+    // one wholly past L does not exist)
+    const int n_ck = (L + kSeg - 1) / kSeg;
+    float* hck_c = p.hck + bg * n_ck * N * dg;
+    for (int i = threadIdx.x; i < (kChunk / kSeg) * N * kChan2;
+         i += kScanThreads) {
+      const int s = i / (N * kChan2), n = (i / kChan2) % N;
+      const int ch = i % kChan2, e = e0 + ch;
+      const int j = phys(c, s * kSeg, p.reverse) / kSeg;
+      if (j < n_ck && e < dg)
+        hck_c[((size_t)j * N + n) * dg + e] = hk[(s * NT + n) * kChan2 + ch];
+    }
+  }
+}
+
+// K2c: the carry into every chunk, in the walk's order: thread (b, g, n, e)
+// replaces hloc[c] (the chunk's state from zero) with the state entering
+// chunk c, carry' = exp(A_ne sd[c]) carry + hloc[c], a fixed order.
+template <typename T>
+__global__ void carry_kernel(const ProjArgs<T> p, int batch) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int dg = p.dg, N = p.N;
+  if (i >= (size_t)batch * p.G * N * dg) return;
+  const int e = i % dg, n = (i / dg) % N;
+  const size_t bg = i / ((size_t)N * dg);
+  const float an = p.A[((size_t)(bg % p.G) * N + n) * dg + e];
+  float* h = p.hloc + (bg * p.n_chunk * N + n) * dg + e;  // chunk 0
+  const float* sd = p.sd + bg * p.n_chunk * dg + e;
+  const size_t hstep = (size_t)N * dg;
+  float carry = 0.f;
+  // kBatch chunks' loads in flight at a time, then their sequential carry
+  constexpr int kBatch = 8;
+  for (int w0 = 0; w0 < p.n_chunk; w0 += kBatch) {
+    float local[kBatch], decay[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int w = w0 + j, c = p.reverse ? p.n_chunk - 1 - w : w;
+      if (w < p.n_chunk) {
+        local[j] = h[c * hstep];
+        decay[j] = __expf(an * sd[(size_t)c * dg]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int w = w0 + j, c = p.reverse ? p.n_chunk - 1 - w : w;
+      if (w < p.n_chunk) {
+        h[c * hstep] = carry;
+        carry = fmaf(decay[j], carry, local[j]);
+      }
     }
   }
 }
@@ -341,55 +528,40 @@ int launch_scan(const void* u, const void* dt, const float* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NT>
-int launch_proj(const void* u0, const void* u1, const void* wdt,
-                const void* wb, const void* wc, const float* A,
-                const float* bias, const float* Dk, const void* ya0,
-                const void* ya1, void* y0, void* y1, float* hck, int batch,
-                int G, int L, int dg, int N, int n_u, int softplus,
-                int reverse, int swap_c, cudaStream_t stream) {
-  const size_t n_tiles_u = swap_c ? 2 : 1;
-  auto smem_bytes = [&](int tl) {
-    return sizeof(float) * (n_tiles_u * tl * (size_t)(dg + 1) +
-                            2 * (size_t)tl * NT + (size_t)tl * kChan2);
-  };
-  int tl = kTile2;
-  while (tl > 1 && smem_bytes(tl) > kMaxSmem) tl /= 2;
-  const size_t smem = smem_bytes(tl);
-  if (smem > kMaxSmem) return kErrSharedMemory;
-  auto kernel = hck ? scan_proj_fwd_kernel<T, NT, true>
-                    : scan_proj_fwd_kernel<T, NT, false>;
+template <typename T, int NT, bool EMIT, bool CK>
+int launch_chunks(const ProjArgs<T>& p, int batch, cudaStream_t stream) {
+  constexpr int kRows = kChunk + kChunk / kItems;
+  const size_t smem =
+      sizeof(float) * (2 * kRows * (kChan2 + 1) + 2 * kRows * (NT + 1) +
+                       NT * kChan2 + (CK ? kChunk / kSeg * NT * kChan2 : 0));
+  auto kernel = chunk_scan_kernel<T, NT, EMIT, CK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  ProjArgs<T> p;
-  p.u[0] = static_cast<const T*>(u0);
-  p.u[1] = static_cast<const T*>(u1);
-  p.wdt = static_cast<const T*>(wdt);
-  p.wb = static_cast<const T*>(wb);
-  p.wc = static_cast<const T*>(wc);
-  p.A = A;
-  p.bias = bias;
-  p.Dk = Dk;
-  p.ya[0] = static_cast<const T*>(ya0);
-  p.ya[1] = static_cast<const T*>(ya1);
-  p.y[0] = static_cast<T*>(y0);
-  p.y[1] = static_cast<T*>(y1);
-  p.hck = hck;
-  p.G = G;
-  p.L = L;
-  p.dg = dg;
-  p.N = N;
-  p.n_u = n_u;
-  p.tl = tl;
-  p.softplus = softplus;
-  p.reverse = reverse;
-  p.swap_c = swap_c;
-  const dim3 grid((dg + kChan2 - 1) / kChan2, G, batch);
-  kernel<<<grid, kThreads2, smem, stream>>>(p);
+  const dim3 grid(p.n_chunk, (p.dg + kChan2 - 1) / kChan2, batch * p.G);
+  kernel<<<grid, kScanThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2: the projection GEMM, the chunk states, the carries, the emission
+template <typename T, int NT>
+int launch_proj(const ProjArgs<T>& p, int batch, cudaStream_t stream) {
+  const int tiles_d = (p.dg + tc::kBN - 1) / tc::kBN;
+  const dim3 gp((p.L + tc::kBM - 1) / tc::kBM,
+                tiles_d + (2 * p.N + tc::kBN - 1) / tc::kBN, batch * p.G);
+  const size_t smem = std::is_same<T, float>::value ? tc::kAsyncSmem : 0;
+  proj_gemm_kernel<T><<<gp, tc::kGemmThreads, smem, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int code = launch_chunks<T, NT, false, false>(p, batch, stream);
+  if (code) return code;
+  const size_t threads = (size_t)batch * p.G * p.N * p.dg;
+  carry_kernel<T><<<(threads + 255) / 256, 256, 0, stream>>>(p, batch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return p.hck ? launch_chunks<T, NT, true, true>(p, batch, stream)
+               : launch_chunks<T, NT, true, false>(p, batch, stream);
 }
 
 }  // namespace
@@ -428,29 +600,58 @@ int sigma_scan_fwd(const void* u, const void* dt, const float* A,
 
 // n_u == 2: u0/u1, ya0/ya1, y0/y1 are the two layouts, (batch, L, dg) each,
 // and G must be 2; n_u == 1: u0, ya0, y0 are (batch, G, L, dg).
-// wdt: (G, dg, dg); wb, wc: (G, dg, N) in the io type; A: (G, N, dg),
-// bias, Dk: (G, dg) fp32. swap_c needs G even (chain pairs 2k, 2k+1).
+// wdt: (G, dg, dg); wbc: (G, dg, 2N) ([W_B | W_C]) in the io type; A: (G,
+// N, dg), bias, Dk: (G, dg) fp32. swap_c needs G even (chain pairs 2k,
+// 2k+1). Scratch, fp32: P (batch, G, L, dg + 2N), hloc (batch, G, n_chunk,
+// N, dg), sd (batch, G, n_chunk, dg) with n_chunk = ceil(L / kChunk).
 // hck as for sigma_scan_fwd.
 int sigma_scan_proj_fwd(const void* u0, const void* u1, const void* wdt,
-                        const void* wb, const void* wc, const float* A,
-                        const float* bias, const float* Dk, const void* ya0,
-                        const void* ya1, void* y0, void* y1, float* hck,
-                        int nck, int batch, int G, int L, int dg, int N,
-                        int n_u, int softplus, int reverse, int swap_c,
-                        int bf16, void* stream) {
+                        const void* wbc, const float* A, const float* bias,
+                        const float* Dk, const void* ya0, const void* ya1,
+                        void* y0, void* y1, float* P, float* hloc, float* sd,
+                        int n_chunk, float* hck, int nck, int batch, int G,
+                        int L, int dg, int N, int n_u, int softplus,
+                        int reverse, int swap_c, int bf16, void* stream) {
   if (batch <= 0 || G <= 0 || L <= 0 || dg <= 0 || N <= 0 || G > 65535 ||
-      batch > 65535 || (n_u != 1 && n_u != 2) || (n_u == 2 && G != 2) ||
-      (swap_c && G % 2) || (hck && nck != (L + kSeg - 1) / kSeg))
+      (size_t)batch * G > 65535 || (n_u != 1 && n_u != 2) ||
+      (n_u == 2 && G != 2) || (swap_c && G % 2) ||
+      n_chunk != (L + kChunk - 1) / kChunk ||
+      (hck && nck != (L + kSeg - 1) / kSeg))
     return kErrArguments;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SIGMA_PROJ(T, NT)                                                   \
-  return launch_proj<T, NT>(u0, u1, wdt, wb, wc, A, bias, Dk, ya0, ya1, y0, \
-                            y1, hck, batch, G, L, dg, N, n_u, softplus,      \
-                            reverse, swap_c, s)
-#define SIGMA_PROJ_N(T)       \
-  if (N <= 4) SIGMA_PROJ(T, 4); \
-  if (N <= 8) SIGMA_PROJ(T, 8); \
-  if (N <= 16) SIGMA_PROJ(T, 16);
+#define SIGMA_PROJ(T, NT)                                        \
+  {                                                              \
+    ProjArgs<T> p;                                               \
+    p.u[0] = static_cast<const T*>(u0);                          \
+    p.u[1] = static_cast<const T*>(u1);                          \
+    p.wdt = static_cast<const T*>(wdt);                          \
+    p.wbc = static_cast<const T*>(wbc);                          \
+    p.A = A;                                                     \
+    p.bias = bias;                                               \
+    p.Dk = Dk;                                                   \
+    p.ya[0] = static_cast<const T*>(ya0);                        \
+    p.ya[1] = static_cast<const T*>(ya1);                        \
+    p.y[0] = static_cast<T*>(y0);                                \
+    p.y[1] = static_cast<T*>(y1);                                \
+    p.P = P;                                                     \
+    p.hloc = hloc;                                               \
+    p.sd = sd;                                                   \
+    p.hck = hck;                                                 \
+    p.G = G;                                                     \
+    p.L = L;                                                     \
+    p.dg = dg;                                                   \
+    p.N = N;                                                     \
+    p.n_u = n_u;                                                 \
+    p.softplus = softplus;                                       \
+    p.reverse = reverse;                                         \
+    p.swap_c = swap_c;                                           \
+    p.n_chunk = n_chunk;                                         \
+    return launch_proj<T, NT>(p, batch, s);                      \
+  }
+#define SIGMA_PROJ_N(T)         \
+  if (N <= 4) SIGMA_PROJ(T, 4)  \
+  if (N <= 8) SIGMA_PROJ(T, 8)  \
+  if (N <= 16) SIGMA_PROJ(T, 16)
   if (bf16) {
     SIGMA_PROJ_N(__nv_bfloat16)
   } else {
@@ -465,8 +666,6 @@ const char* sigma_scan_error_string(int code) {
   switch (code) {
     case kErrStateWidth:
       return "d_state above 16 is not supported by the scan kernels";
-    case kErrSharedMemory:
-      return "the u tile does not fit in shared memory at this dg";
     case kErrArguments:
       return "invalid scan arguments";
     default:

@@ -6,8 +6,9 @@ At first use, nvcc compiles each source into a shared library with a plain
 C interface (`-gencode arch=compute_90a,code=sm_90a`), one nvcc process per
 source, all started together. The libraries are written under
 `build/sigma_tpu_torch/` at the root of the checkout (listed in
-.gitignore) and named by a hash of their source and flags, so a changed
-source rebuilds and an unchanged one is reused. Each is loaded with ctypes.
+.gitignore) and named by a hash of their source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source rebuilds and an
+unchanged one is reused. Each is loaded with ctypes.
 A failed build raises; nothing falls back.
 """
 
@@ -44,9 +45,10 @@ _SIGNATURES = {
         # u, dt, A, B, C, bias, D, y_accum, y, hck, nck, batch, G, L, dg,
         # N, softplus, reverse, bf16, stream
         "sigma_scan_fwd": [_P] * 10 + [_I] * 9 + [_P],
-        # u0, u1, wdt, wb, wc, A, bias, D, ya0, ya1, y0, y1, hck, nck,
-        # batch, G, L, dg, N, n_u, softplus, reverse, swap_c, bf16, stream
-        "sigma_scan_proj_fwd": [_P] * 13 + [_I] * 11 + [_P],
+        # u0, u1, wdt, wbc, A, bias, D, ya0, ya1, y0, y1, P, hloc, sd,
+        # n_chunk, hck, nck, batch, G, L, dg, N, n_u, softplus, reverse,
+        # swap_c, bf16, stream
+        "sigma_scan_proj_fwd": [_P] * 14 + [_I] + [_P] + [_I] * 11 + [_P],
     },
     "bwd": {
         # u, dt, A, B, C, bias, D, hck, dy, du, dd, dA, dbias, dD, dBp,
@@ -56,9 +58,9 @@ _SIGNATURES = {
         # dbias, dD, dBp, dCp, batch, G, L, dg, N, nck, n_u, softplus,
         # reverse, swap_c, stream
         "sigma_scan_proj_bwd": [_P] * 19 + [_I] * 10 + [_P],
-        # u0, u1, du0, du1, dd, dB, dC, wdt, wb, wc, dW, batch, G, L, dg,
-        # N, n_u, nsplit, stream
-        "sigma_proj_grad": [_P] * 11 + [_I] * 7 + [_P],
+        # u0, u1, du0, du1, dd, dbc, wdt, wbc, dW, batch, G, L, dg, N,
+        # n_u, n_l, stream
+        "sigma_proj_grad": [_P] * 9 + [_I] * 7 + [_P],
     },
     "mlg": {
         # yhw, ywh, z, gamma, beta, out, B, H, W, C, ld_hw, ld_wh, ld_z,
@@ -105,8 +107,11 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
+    # the shared headers (csrc/*.cuh) count as part of every source
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 

@@ -17,14 +17,16 @@ the device of `u`: a CPU tensor takes the plain version (differentiated by
 autograd); a CUDA tensor launches the kernels or raises — there is no
 fallback.
 
-Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`):
+Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`):
     K1 scan_fwd       streamed forward
-    K2 scan_proj_fwd  forward with dt/B/C projected in-kernel
+    K2 scan_proj_fwd  forward that projects its own dt/B/C (tensor cores,
+                      into a scratch stream), then a chunk-parallel scan
     K3 scan_bwd       streamed backward
     K4 scan_proj_bwd  backward with dt/B/C re-projected in-kernel
     K5 proj_grad      weight gradients and the du chain term of K4
-`LAUNCHES` counts each wrapper's launches (K5's wrapper launches its two
-products as one count).
+                      (tensor cores, TF32)
+`LAUNCHES` counts each wrapper's calls: K2's four launches and K5's two
+count once per call.
 
 K1-K4 hold the state in registers, at most 16 states (K1_MAX_STATE). A
 call with a wider state runs on CUDA tensors as slices of at most 16
@@ -41,8 +43,10 @@ counterparts of the custom VJPs `_scan_core_g`, `_scan_core_gp`,
 `_scan_core_gpa`, `_scan_core_gp_ml`, `_scan_core_gp_mla`): its forward
 kernel also writes the state checkpoints `hck` (h every CK_TOKENS tokens)
 and its backward runs K3, or K4 then K5. Without a gradient (eval) no
-`hck` is written. The backward kernels are fp32: bf16 io with a gradient
-raises (ROADMAP C2). y_accum's cotangent is dy itself.
+`hck` is written. The backward kernels are fp32: a bf16 call with a
+gradient runs in fp32 from the entry on and returns bf16 y and gradients
+(`_entry_io`); eval keeps bf16 io in the kernels. `hck` is fp32 (ROADMAP
+C2). y_accum's cotangent is dy itself.
 
 Not ported (TPU layout mechanics with no meaning on Hopper): batch fold,
 dg tiling planners, N padding to 8, the VMEM planners, `_LOG2E`
@@ -71,6 +75,8 @@ PROJ_BUDGET_BYTES = 12 * 1024 * 1024
 # state checkpoint spacing of the forward kernels (kSeg in csrc/*.cu); every
 # kernel entry takes n_ck = ceil(L / CK_TOKENS) and refuses another value
 CK_TOKENS = 32
+# tokens per chunk of K2's chunk-parallel scan (kChunk in csrc/scan_g_fwd.cu)
+PROJ_CHUNK = 128
 # channels per block of K3/K4: their dB/dC partials have ceil(dg / 32)
 BWD_CHANNELS = 32
 # the widest d_state K1-K4 take (kErrStateWidth in csrc/scan_g_*.cu); the
@@ -197,16 +203,26 @@ def _on_cuda(*tensors):
 
 
 def _needs_grad(*tensors):
-    """True when autograd records this call; its io must then be fp32."""
-    if not torch.is_grad_enabled() or not any(
-            t is not None and t.requires_grad for t in tensors):
-        return False
-    for t in tensors:
-        if t is not None and t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "the backward scan kernels are fp32; a bf16 scan with a "
-                "gradient waits for the bf16 backward (ROADMAP C2)")
-    return True
+    """True when autograd records this call."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _entry_io(u, *tensors):
+    """The io type of a CUDA call: bf16 for bf16 u, else fp32. A bf16 call
+    that needs a gradient runs in fp32 from the entry on, as
+    `ops/scan_seq.py` does, because the backward kernels are fp32; the
+    casts are part of autograd's graph, so the gradients come back in
+    their inputs' dtypes. The checkpoints `hck` are fp32 either way
+    (ROADMAP C2)."""
+    io = _io_dtype(u)
+    if io == torch.bfloat16 and _needs_grad(u, *tensors):
+        return torch.float32
+    return io
+
+
+def _cast(io, *tensors):
+    return [None if t is None else t.to(io) for t in tensors]
 
 
 def _param(t, shape, like):
@@ -296,7 +312,8 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
                          swap_groups_c=False, y_accum=None, with_hck=False):
     """K2 on CUDA tensors. `us`: one (B, G, L, dg) operand, or two
     (B, L, dg) layout operands (G = 2). Returns a list like `us`, and with
-    `with_hck` also the state checkpoints."""
+    `with_hck` also the state checkpoints. Its four launches (projection,
+    chunk states, carries, emission) count as one."""
     n_u = len(us)
     io = us[0].dtype
     if io not in (torch.float32, torch.bfloat16):
@@ -310,7 +327,8 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     _expect(w_c, (G, dg, N), "w_c")
     _expect(A, (G, N, dg), "A")
     us = [u.to(io).contiguous() for u in us]
-    ws = [w.to(io).contiguous() for w in (w_dt, w_b, w_c)]
+    wdt = w_dt.to(io).contiguous()
+    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
     yas = [None] * n_u
     if y_accum is not None:
         for ya in y_accum:
@@ -321,15 +339,22 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     dk = _param(D, (G, dg), us[0])
     ys = [torch.empty_like(u) for u in us]
     hck = _hck(batch, G, L, N, dg, us[0]) if with_hck else None
+    # scratch: the projected [dt | B | C] stream, the chunk states (then
+    # carries) and the chunks' sums of d
+    n_chunk = -(-L // PROJ_CHUNK)
+    f32 = dict(dtype=torch.float32, device=us[0].device)
+    proj = torch.empty((batch, G, L, dg + 2 * N), **f32)
+    hloc = torch.empty((batch, G, n_chunk, N, dg), **f32)
+    sd = torch.empty((batch, G, n_chunk, dg), **f32)
     pad = [None] * (2 - n_u)  # the second layout pointers are null at n_u 1
     lib = _build.library("fwd")
     with torch.cuda.device(us[0].device):
         code = lib.sigma_scan_proj_fwd(
-            *[_ptr(u) for u in us], *pad,
-            ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr(),
+            *[_ptr(u) for u in us], *pad, wdt.data_ptr(), wbc.data_ptr(),
             a32.data_ptr(), bias.data_ptr(), dk.data_ptr(),
             *[_ptr(ya) for ya in yas], *pad,
-            *[_ptr(y) for y in ys], *pad, _ptr(hck), _n_ck(L),
+            *[_ptr(y) for y in ys], *pad, proj.data_ptr(), hloc.data_ptr(),
+            sd.data_ptr(), n_chunk, _ptr(hck), _n_ck(L),
             batch, G, L, dg, N, n_u, int(bool(delta_softplus)),
             int(bool(reverse)), int(bool(swap_groups_c)),
             int(io == torch.bfloat16), _stream(us[0]),
@@ -428,22 +453,32 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
             dD.sum(0))
 
 
+def _proj_grad_splits(batch, G, L, dg, N):
+    """Token splits per batch element of K5's weight gradient: enough
+    64 x 64 tiles to fill the card about four blocks per SM (132 SMs),
+    each split at least 256 tokens."""
+    tiles_d = -(-dg // 64)
+    tiles = G * batch * tiles_d * (tiles_d + -(-2 * N // 64))
+    return max(1, min(-(-4 * 132 // tiles), -(-L // 256)))
+
+
 def launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b, w_c):
     """K5 on fp32 CUDA tensors: adds the chain term [dd | dB | dC] W^T into
     `dus` in place and returns (dW_dt, dW_B, dW_C), K4's cotangents
     contracted with u over every token (split over tokens into partials
-    that are summed here)."""
+    that are summed here, in a fixed order)."""
     n_u = len(us)
     batch, G, L, dg = _layouts(us)
     N = w_b.shape[-1]
     kz = dg + 2 * N
-    tiles = G * -(-dg // 64) * -(-kz // 64)
-    nsplit = max(1, min(-(-2 * 132 // tiles), -(-batch * L // 512)))
-    dW = torch.empty((nsplit, G, dg, kz), dtype=torch.float32,
+    n_l = _proj_grad_splits(batch, G, L, dg, N)
+    dW = torch.empty((n_l * batch, G, dg, kz), dtype=torch.float32,
                      device=us[0].device)
     us = [_f32(u) for u in us]
-    dd, dB, dC = (_f32(t) for t in (dd, dB, dC))
-    ws = [_f32(w) for w in (w_dt, w_b, w_c)]
+    dd = _f32(dd)
+    dbc = torch.cat([_f32(dB), _f32(dC)], -1)
+    wdt = _f32(w_dt)
+    wbc = torch.cat([_f32(w_b), _f32(w_c)], -1)
     for du in dus:
         if not du.is_contiguous() or du.dtype != torch.float32:
             raise ValueError("du must be contiguous fp32 (updated in place)")
@@ -452,9 +487,8 @@ def launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b, w_c):
     with torch.cuda.device(us[0].device):
         code = lib.sigma_proj_grad(
             *[_ptr(u) for u in us], *pad, *[_ptr(du) for du in dus], *pad,
-            dd.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr(),
-            dW.data_ptr(), batch, G, L, dg, N, n_u, nsplit, _stream(us[0]),
+            dd.data_ptr(), dbc.data_ptr(), wdt.data_ptr(), wbc.data_ptr(),
+            dW.data_ptr(), batch, G, L, dg, N, n_u, n_l, _stream(us[0]),
         )
         LAUNCHES["proj_grad"] += 1
     _build.check(code, "proj_grad", "bwd")
@@ -562,9 +596,9 @@ def selective_scan_g(u, delta, A, B, C, D=None, delta_bias=None,
     if not _on_cuda(u, delta, A, B, C, D, delta_bias):
         return selective_scan_g_plain(u, delta, A, B, C, D, delta_bias,
                                       delta_softplus, reverse)
-    io = _io_dtype(u)
-    y = _streamed(u.to(io), delta, A, B, C, D, delta_bias, delta_softplus,
-                  reverse)
+    io = _entry_io(u, delta, A, B, C, D, delta_bias)
+    y = _streamed(*_cast(io, u, delta), A, *_cast(io, B, C), D, delta_bias,
+                  delta_softplus, reverse)
     return y.to(u.dtype)
 
 
@@ -579,8 +613,8 @@ def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             u, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
             swap_groups_c, y_accum,
         )
-    io = _io_dtype(u)
-    ui = u.to(io)
+    io = _entry_io(u, w_dt, w_b, w_c, A, D, delta_bias, y_accum)
+    ui, w_dt, w_b, w_c, y_accum = _cast(io, u, w_dt, w_b, w_c, y_accum)
     G, dg = u.shape[1], u.shape[3]
     if uses_fused_projection(G, dg, A.shape[1]):
         (y,) = _fused(
@@ -590,9 +624,9 @@ def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     else:
         # projections outside the kernel, as the JAX package leaves them
         # to XLA (pallas_scan_g.py:1616-1629); autograd differentiates them
-        dts = torch.matmul(ui, w_dt.to(io))
-        bs = torch.matmul(ui, w_b.to(io))
-        cs = torch.matmul(ui, w_c.to(io))
+        dts = torch.matmul(ui, w_dt)
+        bs = torch.matmul(ui, w_b)
+        cs = torch.matmul(ui, w_c)
         if swap_groups_c:
             cs = _pair_swap(cs)
         y = _streamed(ui, dts, A, bs, cs, D, delta_bias, delta_softplus,
@@ -613,11 +647,12 @@ def selective_scan_g_proj_ml(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             us, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
             swap_groups_c, y_accum,
         )
-    io = _io_dtype(u0)
+    io = _entry_io(u0, u1, w_dt, w_b, w_c, A, D, delta_bias, *yas)
     if uses_fused_projection(2, u0.shape[-1], A.shape[1]):
         y0, y1 = _fused(
-            (u0.to(io), u1.to(io)), w_dt, w_b, w_c, A, D, delta_bias,
-            delta_softplus, reverse, swap_groups_c, y_accum,
+            _cast(io, u0, u1), *_cast(io, w_dt, w_b, w_c), A, D, delta_bias,
+            delta_softplus, reverse, swap_groups_c,
+            None if y_accum is None else _cast(io, *yas),
         )
         return y0.to(u0.dtype), y1.to(u0.dtype)
     ya = None if y_accum is None else torch.stack(yas, 1)
@@ -642,6 +677,7 @@ __all__ = [
     "CK_TOKENS",
     "K1_MAX_STATE",
     "LAUNCHES",
+    "PROJ_CHUNK",
     "launch_proj_grad",
     "launch_scan_bwd",
     "launch_scan_fwd",

@@ -22,7 +22,9 @@ K10 / K11; K5's launches count in `scan_g.LAUNCHES`.
 Dispatch goes by the device of `x`: a CPU tensor takes the plain version
 (`selective_scan_ss2d_proj_plain`, differentiated by autograd); a CUDA
 tensor launches the kernels or raises — there is no fallback. The
-backward is fp32: bf16 io with a gradient raises (ROADMAP C2).
+backward is fp32: a bf16 call with a gradient runs in fp32 from the entry
+on (`scan_g._entry_io`) and returns bf16 y and gradients; the checkpoints
+are fp32 (ROADMAP C2).
 
 Decided difference (ROADMAP C7): JAX returns None where its planner
 (`_plan_img`) finds no VMEM tiling and its caller falls back to the
@@ -229,10 +231,11 @@ def selective_scan_ss2d_proj(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     if not scan_g._on_cuda(x, w_dt, w_b, w_c, A, D, delta_bias):
         return selective_scan_ss2d_proj_plain(x, w_dt, w_b, w_c, A, D,
                                               delta_bias, delta_softplus)
-    xi = x.to(scan_g._io_dtype(x))
+    io = scan_g._entry_io(x, w_dt, w_b, w_c, A, D, delta_bias)
+    xi = x.to(io)
     if scan_g._needs_grad(xi, w_dt, w_b, w_c, A, D, delta_bias):
-        y = _ScanImg.apply(xi, w_dt, w_b, w_c, A, D, delta_bias,
-                           bool(delta_softplus))
+        y = _ScanImg.apply(xi, *scan_g._cast(io, w_dt, w_b, w_c), A, D,
+                           delta_bias, bool(delta_softplus))
     else:
         y = launch_scan_img_fwd(xi, w_dt, w_b, w_c, A, D, delta_bias,
                                 delta_softplus)

@@ -32,7 +32,8 @@ GROUPS = (
     ("K4 scan_proj_bwd", tuple(f"scan_bwd_kernel<{n}, true>"
                                for n in (4, 8, 16))),
     ("K3 scan_bwd", ("scan_bwd_kernel",)),
-    ("K2 scan_proj_fwd", ("scan_proj_fwd_kernel",)),
+    ("K2 scan_proj_fwd", ("proj_gemm_kernel", "chunk_scan_kernel",
+                          "carry_kernel")),
     ("K1 scan_fwd", ("scan_fwd_kernel",)),
     ("K5 proj_grad", ("weight_grad_kernel", "du_chain_kernel")),
     ("K6 merge_ln_gate_fwd", ("merge_ln_gate_fwd_kernel",)),

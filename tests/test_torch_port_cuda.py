@@ -7,11 +7,14 @@ no JAX, so they run on a machine with the card and no JAX:
 
 `chip_smoke.py` checks the kernels at the main path's shapes; these tests
 take the edges it does not reach: channel and token counts that do not
-fill a tile or a checkpoint segment, every d_state width the kernels are
-built for, chain pairs beside n_u = 1, the shared-memory tile halving of
-the fused kernels (forward and backward), the routing of the entry points,
-and the errors a wrapper raises. The backward kernels (K3-K5) are held to
-autograd of the plain versions, every cotangent of each entry point. The
+fill a tile, a chunk or a checkpoint segment, every d_state width the
+kernels are built for, chain pairs beside n_u = 1, the shared-memory tile
+halving of the fused backward, the routing of the entry points, and the
+errors a wrapper raises. K2's checkpoints are held to K1's sequential
+walk, and K2 and K5 rerun bit for bit. The backward kernels (K3-K5) are
+held to autograd of the plain versions, every cotangent of each entry
+point, and bf16 with a gradient returns bf16 gradients at every scan
+entry point. The
 fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
@@ -118,10 +121,13 @@ def test_streamed_kernel_matches_plain(dev, dtype, N, reverse):
 
 PROJ_CASES = [
     # (n_u, G, batch, L, dg, N, swap)
-    (1, 1, 2, 45, 40, 4, False),     # partial channel block and token tile
+    (1, 1, 2, 45, 40, 4, False),     # partial channel tile, one short chunk
     (1, 4, 1, 33, 24, 16, True),     # two chain pairs in one operand
     (2, 2, 2, 100, 72, 8, True),     # two layout operands, C swapped
-    (2, 2, 1, 20, 1100, 16, True),   # both u tiles only fit at 16 tokens
+    (2, 2, 1, 20, 1100, 16, True),   # wide dg: 35 projection k-tiles
+    (1, 2, 1, 129, 45, 5, True),     # a chunk and one token; odd dg and N
+    (2, 2, 1, 300, 64, 16, False),   # three chunks, the last ragged
+    (1, 1, 1, 1, 8, 4, False),       # one token
 ]
 
 
@@ -175,9 +181,10 @@ def test_entry_point_routes_and_counts(dev, dg, kernel):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     t = _streamed(1, 1, 8, 16, 4, torch.float32, dev, seed=0)
     args = (t["u"], t["dt"], t["A"], t["B"], t["C"])
-    u = t["u"].clone().bfloat16().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        scan_g.selective_scan_g(u, *args[1:])
+    hck = torch.zeros((1, 1, 1, 4, 16), device=dev)
+    with pytest.raises(TypeError, match="take fp32"):
+        scan_g.launch_scan_bwd(t["u"].bfloat16(), *args[1:], None, None, hck,
+                               t["u"])
     with pytest.raises(ValueError, match="scan inputs on"):
         scan_g.selective_scan_g(t["u"].cpu(), *args[1:])
     wide = _streamed(1, 1, 8, 16, 17, torch.float32, dev, seed=0)
@@ -345,6 +352,101 @@ def test_proj_grad_matches_plain(dev):
         _close(g_ - s_, w_, torch.float32)
     for g_, w_ in zip(got_w, want_w):
         _close(g_, w_, torch.float32)
+
+
+@pytest.mark.parametrize("L", [77, 300, 1000])
+def test_fused_projection_checkpoints_and_reruns(dev, L):
+    """K2 (chunk-parallel) with checkpoints, reversed with y_accum and the
+    C swap: its hck equals the states of K1's sequential walk over the
+    same projections; a rerun gives the same bits; y without checkpoints
+    (eval) has the same bits as y with them."""
+    G, dg, N = 2, 40, 16
+    p = _projected(G, dg, N, torch.float32, dev, seed=L)
+    a = _arrays(L + 1, u=(2, G, L, dg), ya=(2, G, L, dg))
+    u, ya = (torch.from_numpy(a[k]).to(dev) for k in ("u", "ya"))
+    ws = (p["w_dt"], p["w_b"], p["w_c"], p["A"])
+    kw = dict(D=p["D"], delta_bias=p["bias"], delta_softplus=True,
+              reverse=True, swap_groups_c=True, y_accum=(ya,))
+    with torch.inference_mode():
+        (y1,), h1 = scan_g.launch_scan_proj_fwd((u,), *ws, with_hck=True,
+                                                **kw)
+        (y2,), h2 = scan_g.launch_scan_proj_fwd((u,), *ws, with_hck=True,
+                                                **kw)
+        (y0,) = scan_g.launch_scan_proj_fwd((u,), *ws, **kw)
+        dts, bs, cs = (u @ w for w in ws[:3])
+        _, want = scan_g.launch_scan_fwd(
+            u, dts, p["A"], bs, scan_g._pair_swap(cs), D=p["D"],
+            delta_bias=p["bias"], delta_softplus=True, reverse=True,
+            with_hck=True)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(y0, y1)
+    _close(h1, want, torch.float32)
+
+
+def test_proj_grad_reruns_bit_for_bit(dev):
+    """K5's weight gradient is split over tokens into partials summed in a
+    fixed order: two runs from the same du give the same bits."""
+    batch, L, dg, N = 2, 2000, 96, 16
+    a = _arrays(40, u=(batch, 1, L, dg), dd=(batch, 1, L, dg),
+                dB=(batch, 1, L, N), dC=(batch, 1, L, N), du=(batch, 1, L, dg))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    p = _projected(1, dg, N, torch.float32, dev, seed=41)
+    runs = []
+    for _ in range(2):
+        du = t["du"].clone()
+        runs.append((du, *scan_g.launch_proj_grad(
+            (t["u"],), (du,), t["dd"], t["dB"], t["dC"], p["w_dt"],
+            p["w_b"], p["w_c"])))
+    for a_, b_ in zip(*runs):
+        assert torch.equal(a_, b_)
+
+
+def _bf16_entry(name, dev):
+    """(fn(u, weights) -> y, u, the projection weights) of one scan entry
+    point at a small shape, fp32; fn takes u and the weights in one
+    dtype."""
+    if name == "selective_scan_ss2d_proj":
+        t = _image(2, 6, 9, 48, 16, dev, seed=140)
+        rest = dict(A=t["A"], D=t["D"], delta_bias=t["delta_bias"],
+                    delta_softplus=True)
+        return (lambda u, ws: scan_g.selective_scan_ss2d_proj(u, *ws, **rest),
+                t["x"], [t["w_dt"], t["w_b"], t["w_c"]])
+    p = _projected(2, 48, 16, torch.float32, dev, seed=141)
+    u = torch.from_numpy(_arrays(142, u=(2, 2, 70, 48))["u"]).to(dev)
+    ws = [p["w_dt"], p["w_b"], p["w_c"]]
+    kw = dict(D=p["D"], delta_bias=p["bias"], delta_softplus=True,
+              reverse=True)
+    if name == "selective_scan_g":
+        return (lambda u, ws: scan_g.selective_scan_g(
+            u, u @ ws[0], p["A"], u @ ws[1], u @ ws[2], **kw), u, ws)
+    if name == "selective_scan_g_proj":
+        return (lambda u, ws: scan_g.selective_scan_g_proj(
+            u, *ws, p["A"], swap_groups_c=True, **kw), u, ws)
+    return (lambda u, ws: torch.stack(scan_g.selective_scan_g_proj_ml(
+        (u[:, 0], u[:, 1]), *ws, p["A"], **kw), 1), u, ws)
+
+
+@pytest.mark.parametrize("name", ["selective_scan_g", "selective_scan_g_proj",
+                                  "selective_scan_g_proj_ml",
+                                  "selective_scan_ss2d_proj"])
+def test_bf16_grads_at_the_entry_points(dev, name):
+    """bf16 u and weights with a gradient (ROADMAP B1), as JAX's
+    test_bf16_io: the call runs the fp32 kernels from the entry on; y and
+    every gradient come back bf16, within 5e-2 of autograd of the same
+    function on the same values in fp32 (the entry point's kernels, held
+    to the plain versions by the tests above)."""
+    fn, u, ws = _bf16_entry(name, dev)
+    dy = torch.randn(u.shape, device=dev)
+    grads = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [t.bfloat16().to(dtype).requires_grad_(True)
+                  for t in (u, *ws)]
+        y = fn(leaves[0], leaves[1:])
+        assert y.dtype == dtype
+        grads[dtype] = torch.autograd.grad(y.float(), leaves, dy)
+    for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert got.dtype == torch.bfloat16
+        _close(got, want, torch.bfloat16)
 
 
 def test_eval_forward_writes_no_checkpoints(dev):
@@ -741,8 +843,9 @@ def test_image_kernels_match_plain(dev, b, H, W, dg, N, softplus):
 
 
 def test_image_kernel_bf16_and_bounds(dev):
-    """bf16 io forward at 5e-2; a bf16 call with a gradient raises C2;
-    d_state 257 raises; D and delta_bias may be left out."""
+    """bf16 io forward at 5e-2; a bf16 call with a gradient runs in fp32
+    and returns bf16 gradients at 5e-2; d_state 257 raises; D and
+    delta_bias may be left out."""
     t = _image(2, 9, 12, 48, 16, dev, seed=120)
     for k in ("x", "w_dt", "w_b", "w_c"):
         t[k] = t[k].bfloat16()
@@ -757,9 +860,16 @@ def test_image_kernel_bf16_and_bounds(dev):
     _close(got, scan_img.selective_scan_ss2d_proj_plain(
         **bare, delta_softplus=True), torch.bfloat16)
     x = t["x"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        scan_g.selective_scan_ss2d_proj(x, *(t[k] for k in (
-            "w_dt", "w_b", "w_c", "A")))
+    dy = torch.randn(x.shape, device=dev)
+    (dx,) = torch.autograd.grad(scan_g.selective_scan_ss2d_proj(
+        x, *(t[k] for k in ("w_dt", "w_b", "w_c", "A")),
+        delta_softplus=True), x, dy)
+    xf = t["x"].float().requires_grad_(True)
+    (want,) = torch.autograd.grad(scan_img.selective_scan_ss2d_proj_plain(
+        xf, *(t[k].float() for k in ("w_dt", "w_b", "w_c", "A")),
+        delta_softplus=True), xf, dy)
+    assert dx.dtype == torch.bfloat16
+    _close(dx, want, torch.bfloat16)
     wide = _image(1, 2, 3, 8, 257, dev, seed=121)
     with pytest.raises(ValueError, match="at most 256"):
         scan_g.selective_scan_ss2d_proj(**wide)

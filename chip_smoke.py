@@ -33,10 +33,12 @@ its findings:
                 entry point's backward against the plain version's, and
                 of K3 / K4 / K5 each launched alone (K5 against its plain
                 products and against cuBLAS: torch.matmul on the
-                concatenated operands), and K5 run twice from the same du
-                (the same bits). Then bf16 with a gradient (ROADMAP B1) at
-                stage 1: the four scan entry points return bf16 y and
-                gradients within 5e-2 of autograd of the plain versions.
+                concatenated operands), and K3 or K4 and K5 each run twice
+                on the same inputs (the same bits: all seven outputs of
+                K3 / K4, K5's dW and du). Then bf16 with a gradient
+                (ROADMAP B1) at stage 1: the four scan entry points return
+                bf16 y and gradients within 5e-2 of autograd of the plain
+                versions.
   4. epilogue — at every SS2D epilogue shape of sigma_tiny at 480x640 (eval
                 batch 1 and train batch 2), fp32 and bf16: K6 against the
                 plain forward, K7 against the plain backward formula; fp32
@@ -356,12 +358,13 @@ def _work(kernel, kw, reverse=False):
 
 def _tf32_ops(kernel, kw):
     """The operations of `_work` that run on the tensor cores (TF32): K2's
-    projections and K5's two products; the rest run on the fp32 cores."""
-    if kernel not in ("scan_proj_fwd", "proj_grad"):
+    and K4's projections and K5's two products; the rest run on the fp32
+    cores."""
+    if kernel not in ("scan_proj_fwd", "scan_proj_bwd", "proj_grad"):
         return 0
     G = kw.get("G", 2 if kw["ml"] else 1)
     proj = 2 * kw["B"] * G * kw["L"] * kw["dg"] * (kw["dg"] + 2 * kw["N"])
-    return proj if kernel == "scan_proj_fwd" else 2 * proj
+    return 2 * proj if kernel == "proj_grad" else proj
 
 
 def _bound(kernel, kw, reverse=False):
@@ -605,13 +608,26 @@ def _proj_grad_library(us, dd, dB, dC, w):
     return lambda: (torch.matmul(ut, zt), torch.matmul(z, wt))
 
 
+def _same_bits(first, again):
+    """True when two runs' outputs (tensors or lists of them) are equal
+    bit for bit."""
+    import torch
+
+    def flat(out):
+        return [t for o in out
+                for t in (o if isinstance(o, (list, tuple)) else (o,))]
+
+    return all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
+
+
 def _kernel_runs(kernel, kw, x, dy):
     """For timing: {kernel: closure launching it alone} on the inputs of
     one forward main-path call (K3 after K1's checkpoints, or K4 after
     K2's and K5 on K4's cotangents), {kernel: its plain version} where
     that is not the scan's autograd (K5), {kernel: the PyTorch library
-    calls that compute its function} (K5's cuBLAS products), and whether
-    K5 run twice gave the same bits (True without K5)."""
+    calls that compute its function} (K5's cuBLAS products), and
+    {kernel: whether two runs gave the same bits} (K3 or K4: all seven
+    outputs; K5: dW and du)."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
@@ -625,9 +641,12 @@ def _kernel_runs(kernel, kw, x, dy):
             cs = scan_g._pair_swap(cs)
         _, hck = scan_g.launch_scan_fwd(x["u"], dts, x["A"], bs, cs,
                                         with_hck=True, **common)
-        return {"scan_bwd": lambda: scan_g.launch_scan_bwd(
-            x["u"], dts, x["A"], bs, cs, x["D"], x["bias"], hck, dy,
-            True)}, {}, {}, True
+
+        def k3():
+            return scan_g.launch_scan_bwd(x["u"], dts, x["A"], bs, cs,
+                                          x["D"], x["bias"], hck, dy, True)
+
+        return {"scan_bwd": k3}, {}, {}, {"scan_bwd": _same_bits(k3(), k3())}
     if kw["ml"]:
         us, dys = ((t[:, 0].contiguous(), t[:, 1].contiguous())
                    for t in (x["u"], dy))
@@ -641,21 +660,22 @@ def _kernel_runs(kernel, kw, x, dy):
                                            x["bias"], hck, dys, True, False,
                                            swap)
 
-    dus, dd, dB, dC = k4()[:4]
+    out = k4()
+    reruns = {"scan_proj_bwd": _same_bits(out, k4())}
+    dus, dd, dB, dC = out[:4]
     # K5 twice from the same du: the same bits (split partials summed in
     # a fixed order, each du element owned by one block)
     first, again = ([d.clone() for d in dus] for _ in range(2))
     w1 = scan_g.launch_proj_grad(us, first, dd, dB, dC, *w)
     w2 = scan_g.launch_proj_grad(us, again, dd, dB, dC, *w)
-    rerun = all(torch.equal(a, b) for a, b in zip(
-        [*w1, *first], [*w2, *again]))
-    del first, again, w1, w2
+    reruns["proj_grad"] = _same_bits([*w1, *first], [*w2, *again])
+    del first, again, w1, w2, out
     return ({"scan_proj_bwd": k4,
              "proj_grad": lambda: scan_g.launch_proj_grad(
                  us, dus, dd, dB, dC, *w)},
             {"proj_grad": lambda: scan_g.proj_grad_plain(us, dd, dB, dC,
                                                           *w)},
-            {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)}, rerun)
+            {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)}, reruns)
 
 
 # which kernel finishes each gradient of the fused path (K4 writes dA, dD
@@ -806,17 +826,17 @@ def backward_phase(device, reps=3):
                             - _time_ms(lambda: fn(False), 1, warm=False))
 
                 entry, plain = bwd_ms(run), bwd_ms(plain_run)
-                runs, plain_runs, lib_runs, rerun = _kernel_runs(
+                runs, plain_runs, lib_runs, reruns = _kernel_runs(
                     ran[1], kw, x, dy)
-                if not rerun:
-                    bad.append("K5 rerun changed bits")
+                bad += [f"{k} rerun changed bits"
+                        for k, same in reruns.items() if not same]
                 times = {k: _time_ms(fn, reps) for k, fn in runs.items()}
                 plain_ms = {k: _time_ms(fn, reps)
                             for k, fn in plain_runs.items()}
                 lib_ms = {k: _time_ms(fn, reps) for k, fn in lib_runs.items()}
-                line += ((" K5 rerun bit for bit "
-                          + ("ok" if rerun else "FAIL")
-                          if not streamed else "")
+                line += (" reruns bit for bit " + " ".join(
+                            f"{k} {'ok' if same else 'FAIL'}"
+                            for k, same in reruns.items())
                          + f" entry_bwd_ms={entry:.4f}"
                          f" plain_bwd_ms={plain:.4f} " + " ".join(
                              f"{k}_ms={v:.4f}" for k, v in times.items())

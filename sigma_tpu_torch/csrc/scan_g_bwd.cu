@@ -16,29 +16,52 @@
 // A is the true A (the TPU kernel's A*log2e and ln2 factors are not
 // carried over).
 //
-// K3 scan_bwd_kernel<NT, false> — streamed (the stage-3 route): dt, B, C
-//   are read from device memory. K4 scan_bwd_kernel<NT, true> — fused
-//   projection: dt = u W_dt, B = u W_B, C = u W_C are recomputed from u
-//   tiles in shared memory as K2 computes them (under swap_c from the
-//   partner chain's u and W_C), so they never reach device memory; its
-//   dd / dB / dC streams go to K5.
-//   Bound: the sequential walk. Per token and channel the sweep is ~12N
-//   flops and N exps in one warp, twice (recompute, then dh), against
-//   ~40 bytes of device traffic; K4 adds K2's in-kernel projections
-//   (2 dg (dg + 2N) flops per token and chain, fp32 CUDA cores).
-//   Design: one block of 256 threads per (batch, chain, 32 channels), as
-//   K2. The forward stored h every kSeg = 32 tokens (hck). The block walks
-//   those segments last to first (first to last for `reverse`, in place):
-//   all 8 warps stage dy/u/dt/B/C (K4: project them), warp 0 recomputes h
-//   through the segment into shared memory (32 x N x 32 floats), all warps
-//   reduce dC_t = sum_e h_t dy_t over the block's channels, warp 0 sweeps
-//   dh back through the segment, leaving dh d u in the slot of the h it no
-//   longer needs, and all warps reduce those into dB. The channel sums
-//   cross blocks: each block writes its own partial (batch, n_blk, G, L, N)
-//   and the caller sums them (the TPU kernel's dg-tile partials are summed
-//   the same way, pallas_scan_g.py:1134-1137), so the result does not
-//   depend on the blocks' order. dA / dbias / dD are per-batch partials.
-//   K4's u tile is halved until the tiles fit the 227 KB a block may use.
+// K3 (streamed: dt, B, C read from device memory) and K4 (fused
+// projection) share one chunk-parallel body, templated on PROJ so that a
+// trace tells their launches apart. Three launches (K4: four), counted as
+// one call by the wrappers:
+//   K4a bwd_proj_kernel — K4 only: [dt | B | C] = u [W_dt | W_B | W_C]
+//     once per chain on the tensor cores into an fp32 scratch stream P
+//     (batch, G, L, dg + 2N), with K2a's tiles (tc::proj_tile: 3xTF32), so
+//     the streams K4 scans back are the bits K2 scanned and checkpointed.
+//     From here on K4 is K3 reading dt / B / C out of P (under swap_c,
+//     C from the partner chain's P).
+//   adjoint_local_kernel — the sequence is cut into chunks of kChunk = 128
+//     physical tokens, aligned with the 32-token checkpoint segments (the
+//     last chunk ragged; tokens past L walk as identities, d = 0). One
+//     block per (chunk, 32 channels, chain) stages the chunk in walk order
+//     and, per channel and state, folds each lane's 4 walk positions of
+//     the adjoint map x -> a_t (C_t dy_t + x) and composes the 32 lanes
+//     against the walk (chunk::scan_down): the chunk's adjoint leaving its
+//     first token from a zero adjoint at its exit (lam), and its sum of d
+//     (sd: the adjoint decays across the chunk by exp(A_ne sum_t d_t)).
+//   adjoint_carry_kernel — one thread per (batch, chain, state, channel)
+//     walks the chunks against the walk (chunk::walk_carries, K2c's
+//     carry in the other direction) and leaves in lam the adjoint entering
+//     each chunk at its exit: a fixed order, no atomics.
+//   adjoint_emit_kernel — per (chunk, 32 channels, chain) again. h needs
+//     no carry: hck holds h as the walk enters every 32-token segment, so
+//     h is recomputed inside each segment (8 lanes, chunk::scan_up over
+//     8-lane groups). The adjoint is re-swept from the true exit adjoint
+//     (chunk::scan_down) and every output formed per token: du (the
+//     direct term; K5 adds the chain term), dd; dA, dbias, dD as
+//     per-chunk partials; dB, dC summed over the block's channels (each
+//     warp over its 4 channels in registers, then the 8 warps in order in
+//     shared memory) into per-block partials (batch, nblk, G, L, N), dC
+//     routed to the chain whose projection made the C. The wrapper sums
+//     the partials over chunks, channel blocks and batch in a fixed order,
+//     so a rerun gives the same bits for all seven gradients.
+//   Bound: device memory and the fp32 cores about evenly. Per token and
+//   channel ~40 bytes of device traffic (u, dt, dy read, du, dd written,
+//   the checkpoints), against ~22 flops and two exps per token, channel
+//   and state (the local pass and the re-sweep); at d_state 16 the two
+//   bounds lie within 10% of each other. K4 adds its projections,
+//   2 dg (dg + 2N) flops per token and chain on the TF32 tensor cores.
+//   Design: work spreads over (chunk, channel tile, chain, batch): 3,600
+//   blocks at the train step's ConMB stage 0 (L 38,400, dg 192) where the
+//   sequential design this replaces had 12. Every global access is a row
+//   of 32 channels (or N states) of one token, staged through shared
+//   memory in walk order (chunk::slot).
 //
 // K5 weight_grad_kernel + du_chain_kernel (one entry point) — the products
 //   the TPU kernel runs in its own body (:594-622): per chain
@@ -70,28 +93,25 @@
 
 #include <cstddef>
 
+#include "chunk.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kSeg = 32;       // checkpoint spacing = backward segment
-constexpr int kChan = 32;      // channels per block (warp 0 sweeps them)
-constexpr int kThreads = 256;  // threads per block, all stage and reduce
-constexpr int kWarps = kThreads / kChan;
-constexpr int kLdH = kChan + 1;  // padded row of the per-token state store
-constexpr size_t kMaxSmem = 232448;
+using namespace chunk;  // kSeg, kItems, kChunk, kRows, phys, slot, scans
+
+constexpr int kChan = 32;        // channels per block
+constexpr int kThreads = 256;    // threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = kChan / kWarps;  // channels per warp: warp, warp + 8, ..
+constexpr int kIlp = 2;          // states scanned together
+constexpr int kLdC = kChan + 1;  // row pitch of the staged channel rows
+constexpr int kSegs = kChunk / kSeg;         // checkpoint segments a chunk
+constexpr int kSegLanes = kSeg / kItems;     // lanes a segment
+static_assert(4 % kIlp == 0, "the state widths (4, 8, 16) hold whole groups");
 
 constexpr int kErrStateWidth = 10001;
-constexpr int kErrSharedMemory = 10002;
 constexpr int kErrArguments = 10003;
-
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + __expf(-x));
-}
 
 struct BwdArgs {
   // u / dy / du: n_u == 2: two layouts (batch, L, dg), chain g on layout g;
@@ -99,22 +119,28 @@ struct BwdArgs {
   const float* u[2];
   const float* dy[2];
   float* du[2];
-  // streamed: dt (batch, G, L, dg), B / C (batch, G, L, N);
-  // projected: W_dt (G, dg, dg), W_B / W_C (G, dg, N)
+  // the dt / B / C streams: chain (b, g)'s token t at
+  // dt[(b G + g) sdt + t ldt], B / C[(b G + g) sbc + t ldbc] (C of the
+  // chain whose projection made it); K3: (batch, G, L, dg) and (batch, G,
+  // L, N); K4: columns 0, dg and dg + N of P
   const float* dt;
   const float* Bm;
   const float* Cm;
+  size_t sdt, sbc;
+  int ldt, ldbc;
   const float* A;     // (G, N, dg)
   const float* bias;  // (G, dg)
   const float* Dk;    // (G, dg)
   const float* hck;   // (batch, G, nck, N, dg)
+  float* lam;         // (batch, G, n_chunk, N, dg) scratch: chunk adjoints
+  float* sd;          // (batch, G, n_chunk, dg) scratch: sum of d per chunk
   float* dd;          // (batch, G, L, dg) raw-dt cotangent
-  float* dA;          // (batch, G, N, dg)
-  float* dbias;       // (batch, G, dg)
-  float* dD;          // (batch, G, dg)
+  float* dA;          // (batch, G, n_chunk, N, dg) per-chunk partials
+  float* dbias;       // (batch, G, n_chunk, dg) per-chunk partials
+  float* dD;          // (batch, G, n_chunk, dg) per-chunk partials
   float* dBp;         // (batch, nblk, G, L, N) per-block partials
   float* dCp;         // the same; swap_c routes to the projecting chain
-  int G, L, dg, N, n_u, tl, softplus, reverse, swap_c, nck, nblk;
+  int G, L, dg, N, n_u, softplus, reverse, swap_c, nck, nblk, n_chunk;
 };
 
 __device__ __forceinline__ size_t chain_offset(const BwdArgs& p, int b,
@@ -123,253 +149,405 @@ __device__ __forceinline__ size_t chain_offset(const BwdArgs& p, int b,
                     : ((size_t)b * p.G + g) * p.L * p.dg;
 }
 
+// K4a: P[b, g] = u[b, g] [W_dt | W_B | W_C][g], as K2a
+__global__ void __launch_bounds__(tc::kGemmThreads)
+bwd_proj_kernel(const BwdArgs p, const float* wdt, const float* wbc,
+                float* P) {
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
+  const int dg = p.dg, N = p.N;
+  tc::proj_tile<float>(p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g),
+                       wdt + (size_t)g * dg * dg, wbc + (size_t)g * dg * 2 * N,
+                       P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L,
+                       dg, N, blockIdx.x * tc::kBM, blockIdx.y);
+}
+
+// Stage chunk c of chain (b, g) in walk order: ds d = softplus(dt + bias)
+// (or dt + bias), ys dy, cs C, and with FULL us u and bs B. Tokens past L
+// and channels past dg stage as zeros (d = 0: an identity step).
+template <int NT, bool FULL>
+__device__ __forceinline__ void stage(const BwdArgs& p, int c, int e0, int b,
+                                      int g, float* us, float* ds, float* ys,
+                                      float* bs, float* cs) {
+  constexpr int kLdN = NT + 1;
+  const int dg = p.dg, N = p.N, L = p.L;
+  const size_t bg = (size_t)b * p.G + g;
+  const int gp = p.swap_c ? (g ^ 1) : g;
+  const float* u_c = p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  const float* dy_c = p.dy[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  const float* dt_c = p.dt + bg * p.sdt;
+  const float* B_c = p.Bm + bg * p.sbc;
+  const float* C_c = p.Cm + ((size_t)b * p.G + gp) * p.sbc;
+  for (int i = threadIdx.x; i < kChunk * kChan; i += kThreads) {
+    const int k = i / kChan, ch = i % kChan, e = e0 + ch;
+    const int t = phys(c, k, p.reverse);
+    float uv = 0.f, dv = 0.f, yv = 0.f;
+    if (t < L && e < dg) {
+      dv = dt_c[(size_t)t * p.ldt + e] + p.bias[(size_t)g * dg + e];
+      if (p.softplus) dv = softplus_f(dv);
+      yv = dy_c[(size_t)t * dg + e];
+      if (FULL) uv = u_c[(size_t)t * dg + e];
+    }
+    const int r = slot(k) * kLdC + ch;
+    ds[r] = dv;
+    ys[r] = yv;
+    if (FULL) us[r] = uv;
+  }
+  for (int i = threadIdx.x; i < kChunk * NT; i += kThreads) {
+    const int k = i / NT, n = i % NT;
+    const int t = phys(c, k, p.reverse);
+    const bool ok = t < L && n < N;
+    const int r = slot(k) * kLdN + n;
+    cs[r] = ok ? C_c[(size_t)t * p.ldbc + n] : 0.f;
+    if (FULL) bs[r] = ok ? B_c[(size_t)t * p.ldbc + n] : 0.f;
+  }
+}
+
+// the sum over a warp's 32 lanes, in a fixed order
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Pass 1: per (chunk, 32 channels, chain), the adjoint leaving the chunk's
+// first walk position from a zero adjoint at its exit (lam) and the
+// chunk's sum of d per channel (sd). Lane l holds walk positions 4l..4l+3;
+// its map x -> a_{4l} (c_{4l} + a_{4l+1} (c_{4l+1} + ...)), c_t = C_t dy_t,
+// x the adjoint arriving from lane l + 1, composes lane 31 first.
 template <int NT, bool PROJ>
 __global__ void __launch_bounds__(kThreads)
-scan_bwd_kernel(const BwdArgs p) {
+adjoint_local_kernel(const BwdArgs p) {
   extern __shared__ float smem[];
-  const int dg = p.dg, N = p.N, L = p.L;
-  const int ld = dg + 1;  // padded u-tile row, as in K2
-  const size_t tile = PROJ ? (size_t)p.tl * ld : 0;
-  float* us = smem;                                  // tl x ld (K4)
-  float* up = us + tile;                             // partner (swap_c)
-  float* Bs = up + (PROJ && p.swap_c ? tile : 0);    // kSeg x NT
-  float* Cs = Bs + kSeg * NT;                        // kSeg x NT
-  float* dts = Cs + kSeg * NT;                       // kSeg x kChan raw dt
-  float* useg = dts + kSeg * kChan;                  // kSeg x kChan u
-  float* dys = useg + kSeg * kChan;                  // kSeg x kChan dy
-  float* hs = dys + kSeg * kChan;                    // (kSeg NT) x kLdH
+  constexpr int kLdN = NT + 1;
+  float* ds = smem;               // kRows x kLdC: d
+  float* ys = ds + kRows * kLdC;  // kRows x kLdC: dy
+  float* cs = ys + kRows * kLdC;  // kRows x kLdN: C
+  float* ls = cs + kRows * kLdN;  // NT x kChan: the chunk's adjoints
+  const int c = blockIdx.x, e0 = blockIdx.y * kChan;
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
+  const int dg = p.dg, N = p.N;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t bg = (size_t)b * p.G + g;
+  stage<NT, false>(p, c, e0, b, g, nullptr, ds, ys, nullptr, cs);
+  __syncthreads();
 
-  const int blk = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  for (int ch = warp; ch < kChan; ch += kWarps) {
+    const int e = e0 + ch;
+    if (e >= dg) break;
+    float dk[kItems], yk[kItems];
+    float dsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int r = slot(lane * kItems + j) * kLdC + ch;
+      dk[j] = ds[r];
+      yk[j] = ys[r];
+      dsum += dk[j];
+    }
+    for (int n0 = 0; n0 < N; n0 += kIlp) {
+      float fa[kIlp], fb[kIlp];
+#pragma unroll
+      for (int q = 0; q < kIlp; ++q) {
+        const int n = n0 + q;
+        const float an = n < N ? p.A[((size_t)g * N + n) * dg + e] : 0.f;
+        fa[q] = 1.f;
+        fb[q] = 0.f;
+#pragma unroll
+        for (int j = kItems - 1; j >= 0; --j) {
+          const float a = __expf(dk[j] * an);
+          const float cv = cs[slot(lane * kItems + j) * kLdN + n] * yk[j];
+          fb[q] = a * (fb[q] + cv);
+          fa[q] *= a;
+        }
+      }
+      scan_down<kIlp>(fa, fb, lane);
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < kIlp; ++q) ls[(n0 + q) * kChan + ch] = fb[q];
+      }
+    }
+    dsum = warp_sum(dsum);
+    if (lane == 0) p.sd[(bg * p.n_chunk + c) * dg + e] = dsum;
+  }
+  __syncthreads();
+  const size_t slab = (bg * p.n_chunk + c) * N * dg;
+  for (int i = threadIdx.x; i < N * kChan; i += kThreads) {
+    const int n = i / kChan, e = e0 + i % kChan;
+    if (e < dg) p.lam[slab + (size_t)n * dg + e] = ls[i];
+  }
+}
+
+// Pass 2: lam[c] becomes the adjoint entering chunk c at its exit, the
+// chunks walked against the walk (K2c's carry in the other direction).
+// PROJ only names K4's launches apart from K3's.
+template <bool PROJ>
+__global__ void adjoint_carry_kernel(const BwdArgs p, int batch) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int dg = p.dg, N = p.N;
+  if (i >= (size_t)batch * p.G * N * dg) return;
+  const int e = i % dg, n = (i / dg) % N;
+  const size_t bg = i / ((size_t)N * dg);
+  const float an = p.A[((size_t)(bg % p.G) * N + n) * dg + e];
+  walk_carries(p.lam + (bg * p.n_chunk * N + n) * dg + e,
+               p.sd + bg * p.n_chunk * dg + e, (size_t)N * dg, dg, an,
+               p.n_chunk, !p.reverse);
+}
+
+// Pass 3: every output of chunk c from its exit adjoint (lam) and the
+// checkpoints. Warp w takes channels w, w + 8, w + 16, w + 24; the states
+// go in groups of kIlp, each group's dB / dC channel sums reduced across
+// the warps before the next group starts.
+template <int NT, bool PROJ>
+__global__ void __launch_bounds__(kThreads, 2)
+adjoint_emit_kernel(const BwdArgs p) {
+  extern __shared__ float smem[];
+  constexpr int kLdN = NT + 1;
+  float* us = smem;                    // kRows x kLdC: u, then du
+  float* ds = us + kRows * kLdC;       // kRows x kLdC: d, then dd
+  float* ys = ds + kRows * kLdC;       // kRows x kLdC: dy
+  float* bs = ys + kRows * kLdC;       // kRows x kLdN: B, then dB
+  float* cs = bs + kRows * kLdN;       // kRows x kLdN: C, then dC
+  float* ls = cs + kRows * kLdN;       // NT x kChan: exit adjoints
+  float* as = ls + NT * kChan;         // NT x kChan: A
+  float* hk = as + NT * kChan;         // kSegs x NT x kChan: checkpoints
+  float* part = hk + kSegs * NT * kChan;  // kWarps x 2 x kIlp x kChunk
+  const int c = blockIdx.x, blk = blockIdx.y, e0 = blk * kChan;
+  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
   const int gp = p.swap_c ? (g ^ 1) : g;
-  const int jg = p.n_u == 2 ? g : 0, jp = p.n_u == 2 ? gp : 0;
-  const int lane = threadIdx.x % kChan, q = threadIdx.x / kChan;
-  const int e0 = blk * kChan;
-  const int nch = min(kChan, dg - e0);
-  const int e = e0 + lane;
-  const bool sweeper = q == 0 && lane < nch;  // warp 0 walks the recurrence
-  const int ec = lane < nch ? e : e0;
-  const size_t chain = (size_t)b * p.G + g;
-  const float* u_c = p.u[jg] + chain_offset(p, b, g);
-  const float* u_p = p.u[jp] + chain_offset(p, b, gp);
-  const float* dy_c = p.dy[jg] + chain_offset(p, b, g);
-  float* du_c = p.du[jg] + chain_offset(p, b, g);
-  float* dd_c = p.dd + chain * L * dg;
-  const float* hck_c = p.hck + chain * p.nck * N * dg;
+  const int dg = p.dg, N = p.N, L = p.L;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t bg = (size_t)b * p.G + g;
+  stage<NT, true>(p, c, e0, b, g, us, ds, ys, bs, cs);
+  const size_t slab = (bg * p.n_chunk + c) * N * dg;
+  for (int i = threadIdx.x; i < NT * kChan; i += kThreads) {
+    const int n = i / kChan, e = e0 + i % kChan;
+    const bool ok = n < N && e < dg;
+    ls[i] = ok ? p.lam[slab + (size_t)n * dg + e] : 0.f;
+    as[i] = ok ? p.A[((size_t)g * N + n) * dg + e] : 0.f;
+  }
+  // walk-local segment s starts at walk position s kSeg: checkpoint j
+  // (reversed, a segment past L - 1 is entered at L - 1 with the state its
+  // checkpoint holds; one wholly past L walks identities from zero)
+  for (int i = threadIdx.x; i < kSegs * NT * kChan; i += kThreads) {
+    const int s = i / (NT * kChan), n = (i / kChan) % NT;
+    const int e = e0 + i % kChan;
+    const int j = phys(c, s * kSeg, p.reverse) / kSeg;
+    hk[i] = n < N && e < dg && j < p.nck
+                ? p.hck[((bg * p.nck + j) * N + n) * dg + e]
+                : 0.f;
+  }
+  __syncthreads();
+
+  float sb[kPer][kItems], sa[kPer][kItems];  // sum_n dh B, sum_n dh A a h
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) sb[i][j] = sa[i][j] = 0.f;
+  const int seg = lane / kSegLanes;
+  for (int n0 = 0; n0 < N; n0 += kIlp) {
+    float accB[kIlp][kItems], accC[kIlp][kItems];
+#pragma unroll
+    for (int q = 0; q < kIlp; ++q)
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) accB[q][j] = accC[q][j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int ch = warp + kWarps * i, e = e0 + ch;
+      if (e >= dg) break;
+      float dk[kItems], uk[kItems], yk[kItems];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int r = slot(lane * kItems + j) * kLdC + ch;
+        dk[j] = ds[r];
+        uk[j] = us[r];
+        yk[j] = ys[r];
+      }
+      // per state: the lane's forward map (h) and adjoint map, composed
+      // over the segment's lanes and over the chunk's lanes
+      float ak[kIlp][kItems], fa[kIlp], fb[kIlp], ga[kIlp], gb[kIlp];
+#pragma unroll
+      for (int q = 0; q < kIlp; ++q) {
+        const int n = n0 + q;
+        const float an = as[n * kChan + ch];
+        fa[q] = ga[q] = 1.f;
+        fb[q] = gb[q] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int r = slot(lane * kItems + j) * kLdN + n;
+          ak[q][j] = __expf(dk[j] * an);
+          fb[q] = fmaf(ak[q][j], fb[q], dk[j] * uk[j] * bs[r]);
+          fa[q] *= ak[q][j];
+        }
+#pragma unroll
+        for (int j = kItems - 1; j >= 0; --j) {
+          const int r = slot(lane * kItems + j) * kLdN + n;
+          gb[q] = ak[q][j] * (gb[q] + cs[r] * yk[j]);
+          ga[q] *= ak[q][j];
+        }
+      }
+      scan_up<kIlp, kSegLanes>(fa, fb, lane);
+      scan_down<kIlp>(ga, gb, lane);
+#pragma unroll
+      for (int q = 0; q < kIlp; ++q) {
+        const int n = n0 + q;
+        const float an = as[n * kChan + ch];
+        // h entering the lane's run: the segment's checkpoint through the
+        // segment's earlier lanes
+        float xa = __shfl_up_sync(kFull, fa[q], 1, kSegLanes);
+        float xb = __shfl_up_sync(kFull, fb[q], 1, kSegLanes);
+        if (lane % kSegLanes == 0) {
+          xa = 1.f;
+          xb = 0.f;
+        }
+        float h = fmaf(xa, hk[(seg * NT + n) * kChan + ch], xb);
+        float hp[kItems];  // h before each walk position
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int r = slot(lane * kItems + j) * kLdN + n;
+          hp[j] = h;
+          h = fmaf(ak[q][j], h, dk[j] * uk[j] * bs[r]);
+          accC[q][j] = fmaf(h, yk[j], accC[q][j]);
+        }
+        // the adjoint arriving from the lane above: the chunk's exit
+        // adjoint through the later lanes
+        float za = __shfl_down_sync(kFull, ga[q], 1);
+        float zb = __shfl_down_sync(kFull, gb[q], 1);
+        if (lane == 31) {
+          za = 1.f;
+          zb = 0.f;
+        }
+        float dh = fmaf(za, ls[n * kChan + ch], zb);
+        float dA_l = 0.f;
+#pragma unroll
+        for (int j = kItems - 1; j >= 0; --j) {
+          const int r = slot(lane * kItems + j) * kLdN + n;
+          dh += cs[r] * yk[j];
+          const float dah = dh * ak[q][j] * hp[j];
+          sb[i][j] = fmaf(dh, bs[r], sb[i][j]);
+          sa[i][j] = fmaf(dah, an, sa[i][j]);
+          dA_l = fmaf(dah, dk[j], dA_l);
+          accB[q][j] = fmaf(dh, dk[j] * uk[j], accB[q][j]);
+          dh *= ak[q][j];
+        }
+        dA_l = warp_sum(dA_l);
+        if (lane == 0 && n < N)
+          p.dA[((bg * p.n_chunk + c) * N + n) * dg + e] = dA_l;
+      }
+    }
+    // the group's dB / dC over the block's channels: each warp's sum over
+    // its channels, then the warps in order, into the group's columns of
+    // bs / cs (read by every warp above, before the barrier)
+#pragma unroll
+    for (int q = 0; q < kIlp; ++q)
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        part[((warp * 2 + 0) * kIlp + q) * kChunk + j * 32 + lane] =
+            accB[q][j];
+        part[((warp * 2 + 1) * kIlp + q) * kChunk + j * 32 + lane] =
+            accC[q][j];
+      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * kIlp * kChunk; i += kThreads) {
+      const int which = i / (kIlp * kChunk), q = (i / kChunk) % kIlp;
+      const int jl = i % kChunk;  // item j = jl / 32 of lane jl % 32
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        s += part[((w * 2 + which) * kIlp + q) * kChunk + jl];
+      const int k = (jl % 32) * kItems + jl / 32;
+      (which ? cs : bs)[slot(k) * kLdN + n0 + q] = s;
+    }
+    __syncthreads();
+  }
+
+  // du, dd per walk position (into us / ds, the warp's own columns); the
+  // per-chunk dbias and dD
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int ch = warp + kWarps * i, e = e0 + ch;
+    if (e >= dg) break;
+    const float d_e = p.Dk[(size_t)g * dg + e];
+    float dbias_l = 0.f, dD_l = 0.f;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int k = lane * kItems + j, r = slot(k) * kLdC + ch;
+      const float dv = ds[r], uv = us[r], yv = ys[r];
+      float ddv = fmaf(uv, sb[i][j], sa[i][j]);
+      // d = softplus(pre): sigmoid(pre) = 1 - e^-d, exact for small d
+      if (p.softplus) ddv *= -expm1f(-dv);
+      if (phys(c, k, p.reverse) >= L) ddv = 0.f;
+      us[r] = fmaf(dv, sb[i][j], d_e * yv);
+      ds[r] = ddv;
+      dbias_l += ddv;
+      dD_l = fmaf(yv, uv, dD_l);
+    }
+    dbias_l = warp_sum(dbias_l);
+    dD_l = warp_sum(dD_l);
+    if (lane == 0) {
+      p.dbias[(bg * p.n_chunk + c) * dg + e] = dbias_l;
+      p.dD[(bg * p.n_chunk + c) * dg + e] = dD_l;
+    }
+  }
+  __syncthreads();
+
+  float* du_c = p.du[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
+  float* dd_c = p.dd + bg * L * dg;
+  for (int i = threadIdx.x; i < kChunk * kChan; i += kThreads) {
+    const int k = i / kChan, ch = i % kChan, e = e0 + ch;
+    const int t = phys(c, k, p.reverse);
+    if (t >= L || e >= dg) continue;
+    const int r = slot(k) * kLdC + ch;
+    du_c[(size_t)t * dg + e] = us[r];
+    dd_c[(size_t)t * dg + e] = ds[r];
+  }
   float* dB_c = p.dBp + (((size_t)b * p.nblk + blk) * p.G + g) * L * N;
   float* dC_c = p.dCp + (((size_t)b * p.nblk + blk) * p.G + gp) * L * N;
-  // streamed operands (K3) or projection weights (K4)
-  const float* dt_c = p.dt + (PROJ ? (size_t)g * dg * dg : chain * L * dg);
-  const float* B_c = p.Bm + (PROJ ? (size_t)g * dg * N : chain * L * N);
-  const float* C_c = p.Cm + (PROJ ? (size_t)gp * dg * N : chain * L * N);
-
-  float Av[NT], dh[NT], dA_acc[NT];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    Av[n] = n < N ? p.A[((size_t)g * N + n) * dg + ec] : 0.f;
-    dh[n] = 0.f;
-    dA_acc[n] = 0.f;
-  }
-  const float bias_e = p.bias[(size_t)g * dg + ec];
-  const float d_e = p.Dk[(size_t)g * dg + ec];
-  float dbias_acc = 0.f, dD_acc = 0.f;
-
-  const int nseg = (L + kSeg - 1) / kSeg;
-  for (int it = 0; it < nseg; ++it) {
-    const int j = p.reverse ? it : nseg - 1 - it;  // against the walk
-    const int t0 = j * kSeg;
-    const int sl = min(kSeg, L - t0);
-    __syncthreads();  // the previous segment's tiles are consumed
-
-    // ---- stage dy (and K3's u, dt, B, C) for the segment
-    for (int i = threadIdx.x; i < sl * kChan; i += kThreads) {
-      const int k = i / kChan, c = i % kChan;
-      const bool ok = c < nch;
-      const size_t off = (size_t)(t0 + k) * dg + e0 + c;
-      dys[i] = ok ? dy_c[off] : 0.f;
-      if (!PROJ) {
-        useg[i] = ok ? u_c[off] : 0.f;
-        dts[i] = ok ? dt_c[off] : 0.f;
-      }
-    }
-    if (!PROJ) {
-      for (int i = threadIdx.x; i < sl * NT; i += kThreads) {
-        const int k = i / NT, n = i % NT;
-        const bool ok = n < N;
-        Bs[i] = ok ? B_c[(size_t)(t0 + k) * N + n] : 0.f;
-        Cs[i] = ok ? C_c[(size_t)(t0 + k) * N + n] : 0.f;
-      }
-    } else {
-      // ---- K4: project dt / B / C from u sub-tiles, as K2 does
-      for (int s0 = 0; s0 < sl; s0 += p.tl) {
-        const int tn = min(p.tl, sl - s0);
-        __syncthreads();  // the previous sub-tile is consumed
-        for (int i = threadIdx.x; i < tn * dg; i += kThreads) {
-          const int t = i / dg, d = i % dg;
-          us[t * ld + d] = u_c[(size_t)(t0 + s0) * dg + i];
-          if (p.swap_c) up[t * ld + d] = u_p[(size_t)(t0 + s0) * dg + i];
-        }
-        __syncthreads();
-        const float* c_src = p.swap_c ? up : us;
-        for (int i = threadIdx.x; i < tn * NT; i += kThreads) {
-          const int t = i / NT, n = i % NT;
-          float sb = 0.f, sc = 0.f;
-          if (n < N) {
-            const float* ub = us + t * ld;
-            const float* uc = c_src + t * ld;
-            for (int d = 0; d < dg; ++d) {
-              sb += ub[d] * B_c[(size_t)d * N + n];
-              sc += uc[d] * C_c[(size_t)d * N + n];
-            }
-          }
-          Bs[(s0 + t) * NT + n] = sb;
-          Cs[(s0 + t) * NT + n] = sc;
-        }
-        if (lane < nch) {
-          // warp q projects dt for tokens q, q + kWarps, ... of the sub-tile
-          float acc[kSeg / kWarps];
-#pragma unroll
-          for (int k = 0; k < kSeg / kWarps; ++k) acc[k] = 0.f;
-          for (int d = 0; d < dg; ++d) {
-            const float w = dt_c[(size_t)d * dg + e];
-#pragma unroll
-            for (int k = 0; k < kSeg / kWarps; ++k) {
-              const int t = q + kWarps * k;
-              if (t < tn) acc[k] += us[t * ld + d] * w;
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < kSeg / kWarps; ++k) {
-            const int t = q + kWarps * k;
-            if (t < tn) dts[(s0 + t) * kChan + lane] = acc[k];
-          }
-        }
-        for (int i = threadIdx.x; i < tn * kChan; i += kThreads) {
-          const int t = i / kChan, c = i % kChan;
-          useg[(s0 + t) * kChan + c] = c < nch ? us[t * ld + e0 + c] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- recompute h through the segment from its checkpoint: hs[k] = h
-    // after physical token t0 + k
-    if (sweeper) {
-      float h[NT];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        h[n] = n < N ? hck_c[((size_t)j * N + n) * dg + e] : 0.f;
-      for (int i = 0; i < sl; ++i) {
-        const int k = p.reverse ? sl - 1 - i : i;
-        float dv = dts[k * kChan + lane] + bias_e;
-        if (p.softplus) dv = softplus_f(dv);
-        const float du = dv * useg[k * kChan + lane];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          h[n] = __expf(dv * Av[n]) * h[n] + du * Bs[k * NT + n];
-          hs[(k * NT + n) * kLdH + lane] = h[n];
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- dC_t = sum over the block's channels of h_t dy_t
-    for (int o = threadIdx.x; o < sl * NT; o += kThreads) {
-      const int k = o / NT, n = o % NT;
-      if (n >= N) continue;
-      const float* hr = hs + (size_t)(k * NT + n) * kLdH;
-      const float* dr = dys + k * kChan;
-      float s = 0.f;
-      for (int c = 0; c < nch; ++c) s += hr[c] * dr[c];
-      dC_c[(size_t)(t0 + k) * N + n] = s;
-    }
-    __syncthreads();
-
-    // ---- the dh sweep, against the walk; hs[k] becomes dh_t d_t u_t
-    if (sweeper) {
-      for (int i = 0; i < sl; ++i) {
-        const int k = p.reverse ? i : sl - 1 - i;
-        const bool first = p.reverse ? k == sl - 1 : k == 0;
-        const int kp = p.reverse ? k + 1 : k - 1;  // the previous token
-        const float pre = dts[k * kChan + lane] + bias_e;
-        const float dv = p.softplus ? softplus_f(pre) : pre;
-        const float uv = useg[k * kChan + lane];
-        const float dyv = dys[k * kChan + lane];
-        const float dvu = dv * uv;
-        float sb = 0.f, sa = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          float hp;
-          if (first)
-            hp = n < N ? hck_c[((size_t)j * N + n) * dg + e] : 0.f;
-          else
-            hp = hs[(kp * NT + n) * kLdH + lane];
-          const float a = __expf(dv * Av[n]);
-          const float ahp = a * hp;
-          dh[n] += Cs[k * NT + n] * dyv;
-          sb += dh[n] * Bs[k * NT + n];
-          sa += dh[n] * Av[n] * ahp;
-          dA_acc[n] += dh[n] * ahp * dv;
-          hs[(k * NT + n) * kLdH + lane] = dh[n] * dvu;
-          dh[n] *= a;
-        }
-        const float ddv = sa + uv * sb;
-        const float ddr = p.softplus ? ddv * sigmoid_f(pre) : ddv;
-        dbias_acc += ddr;
-        dD_acc += dyv * uv;
-        const size_t off = (size_t)(t0 + k) * dg + e;
-        du_c[off] = dv * sb + d_e * dyv;
-        dd_c[off] = ddr;
-      }
-    }
-    __syncthreads();
-
-    // ---- dB_t = sum over the block's channels of dh_t d_t u_t
-    for (int o = threadIdx.x; o < sl * NT; o += kThreads) {
-      const int k = o / NT, n = o % NT;
-      if (n >= N) continue;
-      const float* hr = hs + (size_t)(k * NT + n) * kLdH;
-      float s = 0.f;
-      for (int c = 0; c < nch; ++c) s += hr[c];
-      dB_c[(size_t)(t0 + k) * N + n] = s;
-    }
-  }
-
-  if (sweeper) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      if (n < N) p.dA[(chain * N + n) * dg + e] = dA_acc[n];
-    p.dbias[chain * dg + e] = dbias_acc;
-    p.dD[chain * dg + e] = dD_acc;
+  for (int i = threadIdx.x; i < kChunk * N; i += kThreads) {
+    const int k = i / N, n = i % N;
+    const int t = phys(c, k, p.reverse);
+    if (t >= L) continue;
+    const int r = slot(k) * kLdN + n;
+    dB_c[(size_t)t * N + n] = bs[r];
+    dC_c[(size_t)t * N + n] = cs[r];
   }
 }
 
 template <int NT, bool PROJ>
-int launch_bwd(BwdArgs p, int batch, cudaStream_t stream) {
-  auto smem_bytes = [&](int tl) {
-    const size_t n_tiles = PROJ ? (p.swap_c ? 2 : 1) : 0;
-    return sizeof(float) *
-           (n_tiles * tl * (size_t)(p.dg + 1) + 2 * (size_t)kSeg * NT +
-            3 * (size_t)kSeg * kChan + (size_t)kSeg * NT * kLdH);
-  };
-  int tl = kSeg;
-  while (PROJ && tl > 1 && smem_bytes(tl) > kMaxSmem) tl /= 2;
-  const size_t smem = smem_bytes(tl);
-  if (smem > kMaxSmem) return kErrSharedMemory;
+int launch_chunks(const BwdArgs& p, int batch, cudaStream_t stream) {
+  constexpr int kLdN = NT + 1;
+  const size_t smem_local =
+      sizeof(float) * (2 * kRows * kLdC + kRows * kLdN + NT * kChan);
+  const size_t smem_emit =
+      sizeof(float) * (3 * kRows * kLdC + 2 * kRows * kLdN +
+                       (2 + kSegs) * NT * kChan +
+                       kWarps * 2 * kIlp * kChunk);
+  auto local = adjoint_local_kernel<NT, PROJ>;
+  auto emit = adjoint_emit_kernel<NT, PROJ>;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_bwd_kernel<NT, PROJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      local, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_local));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(emit,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_emit));
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.tl = tl;
-  const dim3 grid(p.nblk, p.G, batch);
-  scan_bwd_kernel<NT, PROJ><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(p.n_chunk, p.nblk, batch * p.G);
+  local<<<grid, kThreads, smem_local, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t threads = (size_t)batch * p.G * p.N * p.dg;
+  adjoint_carry_kernel<PROJ>
+      <<<(threads + 255) / 256, 256, 0, stream>>>(p, batch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit<<<grid, kThreads, smem_emit, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool PROJ>
 int dispatch_bwd(const BwdArgs& p, int batch, cudaStream_t s) {
-  if (p.N <= 4) return launch_bwd<4, PROJ>(p, batch, s);
-  if (p.N <= 8) return launch_bwd<8, PROJ>(p, batch, s);
-  if (p.N <= 16) return launch_bwd<16, PROJ>(p, batch, s);
+  if (p.N <= 4) return launch_chunks<4, PROJ>(p, batch, s);
+  if (p.N <= 8) return launch_chunks<8, PROJ>(p, batch, s);
+  if (p.N <= 16) return launch_chunks<16, PROJ>(p, batch, s);
   return kErrStateWidth;
 }
 
@@ -481,21 +659,32 @@ bool bad_shape(int batch, int G, int L, int dg, int N, int n_u) {
          (n_u == 2 && G != 2);
 }
 
+// K3 / K4's own checks: the chains fit the grid, the checkpoints and the
+// chunk scratch have the kernels' spacing
+bool bad_chunks(int batch, int G, int L, int nck, int n_chunk) {
+  return (size_t)batch * G > 65535 || nck != (L + kSeg - 1) / kSeg ||
+         n_chunk != (L + kChunk - 1) / kChunk;
+}
+
 }  // namespace
 
 extern "C" {
 
 // K3. u, dt, dy, du, dd: (batch, G, L, dg); Bm, Cm: (batch, G, L, N);
 // A: (G, N, dg); bias, Dk: (G, dg); hck: (batch, G, nck, N, dg) from K1;
-// dA: (batch, G, N, dg); dbias, dD: (batch, G, dg);
-// dBp, dCp: (batch, ceil(dg / 32), G, L, N). All fp32.
+// dA: (batch, G, n_chunk, N, dg); dbias, dD: (batch, G, n_chunk, dg);
+// dBp, dCp: (batch, ceil(dg / 32), G, L, N); scratch lam (batch, G,
+// n_chunk, N, dg), sd (batch, G, n_chunk, dg), n_chunk = ceil(L / 128).
+// All fp32.
 int sigma_scan_bwd(const float* u, const float* dt, const float* A,
                    const float* Bm, const float* Cm, const float* bias,
                    const float* Dk, const float* hck, const float* dy,
                    float* du, float* dd, float* dA, float* dbias, float* dD,
-                   float* dBp, float* dCp, int batch, int G, int L, int dg,
-                   int N, int nck, int softplus, int reverse, void* stream) {
-  if (bad_shape(batch, G, L, dg, N, 1) || nck != (L + kSeg - 1) / kSeg)
+                   float* dBp, float* dCp, float* lam, float* sd,
+                   int n_chunk, int batch, int G, int L, int dg, int N,
+                   int nck, int softplus, int reverse, void* stream) {
+  if (bad_shape(batch, G, L, dg, N, 1) ||
+      bad_chunks(batch, G, L, nck, n_chunk))
     return kErrArguments;
   BwdArgs p = {};
   p.u[0] = u;
@@ -504,10 +693,16 @@ int sigma_scan_bwd(const float* u, const float* dt, const float* A,
   p.dt = dt;
   p.Bm = Bm;
   p.Cm = Cm;
+  p.sdt = (size_t)L * dg;
+  p.sbc = (size_t)L * N;
+  p.ldt = dg;
+  p.ldbc = N;
   p.A = A;
   p.bias = bias;
   p.Dk = Dk;
   p.hck = hck;
+  p.lam = lam;
+  p.sd = sd;
   p.dd = dd;
   p.dA = dA;
   p.dbias = dbias;
@@ -523,24 +718,29 @@ int sigma_scan_bwd(const float* u, const float* dt, const float* A,
   p.reverse = reverse;
   p.nck = nck;
   p.nblk = (dg + kChan - 1) / kChan;
+  p.n_chunk = n_chunk;
   return dispatch_bwd<false>(p, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K4. n_u == 2: u0/u1, dy0/dy1, du0/du1 are the two layouts (batch, L, dg)
 // and G == 2; n_u == 1: slot 0 is (batch, G, L, dg). wdt: (G, dg, dg);
-// wb, wc: (G, dg, N); the rest as for sigma_scan_bwd, with dCp routed to
-// the partner chain under swap_c (G even).
+// wbc: (G, dg, 2N), [W_B | W_C]; scratch P: (batch, G, L, dg + 2N); the
+// rest as for sigma_scan_bwd, with dCp routed to the partner chain under
+// swap_c (G even).
 int sigma_scan_proj_bwd(const float* u0, const float* u1, const float* wdt,
-                        const float* wb, const float* wc, const float* A,
-                        const float* bias, const float* Dk, const float* hck,
-                        const float* dy0, const float* dy1, float* du0,
-                        float* du1, float* dd, float* dA, float* dbias,
-                        float* dD, float* dBp, float* dCp, int batch, int G,
-                        int L, int dg, int N, int nck, int n_u, int softplus,
-                        int reverse, int swap_c, void* stream) {
+                        const float* wbc, const float* A, const float* bias,
+                        const float* Dk, const float* hck, const float* dy0,
+                        const float* dy1, float* du0, float* du1, float* P,
+                        float* dd, float* dA, float* dbias, float* dD,
+                        float* dBp, float* dCp, float* lam, float* sd,
+                        int n_chunk, int batch, int G, int L, int dg, int N,
+                        int nck, int n_u, int softplus, int reverse,
+                        int swap_c, void* stream) {
   if (bad_shape(batch, G, L, dg, N, n_u) || (swap_c && G % 2) ||
-      nck != (L + kSeg - 1) / kSeg)
+      bad_chunks(batch, G, L, nck, n_chunk))
     return kErrArguments;
+  if (N > 16) return kErrStateWidth;
+  const size_t kz = (size_t)dg + 2 * N;
   BwdArgs p = {};
   p.u[0] = u0;
   p.u[1] = u1;
@@ -548,13 +748,17 @@ int sigma_scan_proj_bwd(const float* u0, const float* u1, const float* wdt,
   p.dy[1] = dy1;
   p.du[0] = du0;
   p.du[1] = du1;
-  p.dt = wdt;
-  p.Bm = wb;
-  p.Cm = wc;
+  p.dt = P;
+  p.Bm = P + dg;
+  p.Cm = P + dg + N;
+  p.sdt = p.sbc = (size_t)L * kz;
+  p.ldt = p.ldbc = static_cast<int>(kz);
   p.A = A;
   p.bias = bias;
   p.Dk = Dk;
   p.hck = hck;
+  p.lam = lam;
+  p.sd = sd;
   p.dd = dd;
   p.dA = dA;
   p.dbias = dbias;
@@ -571,7 +775,13 @@ int sigma_scan_proj_bwd(const float* u0, const float* u1, const float* wdt,
   p.swap_c = swap_c;
   p.nck = nck;
   p.nblk = (dg + kChan - 1) / kChan;
-  return dispatch_bwd<true>(p, batch, static_cast<cudaStream_t>(stream));
+  p.n_chunk = n_chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bwd_proj_kernel<<<tc::proj_grid(L, dg, N, batch * G), tc::kGemmThreads,
+                    tc::proj_smem<float>(), s>>>(p, wdt, wbc, P);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return dispatch_bwd<true>(p, batch, s);
 }
 
 // K5. u / du as for sigma_scan_proj_bwd (du is added to); dd: (batch, G,
@@ -619,8 +829,6 @@ const char* sigma_scan_bwd_error_string(int code) {
   switch (code) {
     case kErrStateWidth:
       return "d_state above 16 is not supported by the scan kernels";
-    case kErrSharedMemory:
-      return "the backward tiles do not fit in shared memory at this dg";
     case kErrArguments:
       return "invalid scan backward arguments";
     default:

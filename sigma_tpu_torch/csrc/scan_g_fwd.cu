@@ -73,22 +73,19 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "chunk.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
+
+using namespace chunk;  // kSeg, kItems, kChunk, phys, slot, scan_up, ...
 
 constexpr int kThreads = 64;     // K1: channels per block, one thread each
 constexpr int kTile1 = 64;       // K1 token tile
 constexpr int kChan2 = 32;       // K2 scan: channels per block
 constexpr int kScanThreads = 256;  // K2 scan: threads per block
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kItems = 4;        // K2 scan: consecutive tokens per lane
-constexpr int kChunk = 32 * kItems;  // K2 scan: tokens per chunk
 constexpr int kIlp = 2;          // K2 scan: states scanned together
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSeg = 32;  // hck spacing in tokens; scan_g_bwd.cu's segment
-static_assert(kChunk % kSeg == 0, "K2's chunks must align with hck segments");
-static_assert(kSeg % kItems == 0, "a segment entry starts a lane's run");
 static_assert(4 % kIlp == 0, "the state widths (4, 8, 16) hold whole groups");
 
 constexpr int kErrStateWidth = 10001;
@@ -105,11 +102,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// log(1 + e^x) without overflow: max(x, 0) + log1p(e^-|x|)
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
 }
 
 // physical token p starts its checkpoint segment in the walk's order
@@ -224,85 +216,18 @@ __device__ __forceinline__ size_t chain_offset(const ProjArgs<T>& p, int b,
 }
 
 // K2a: P[b, g, t] = u[b, g, t] [W_dt | W_B | W_C][g], a 64 x 64 tile of
-// (token, column) per block on the tensor cores (csrc/tc_gemm.cuh; 3xTF32
-// at fp32 io, exact 1xTF32 at bf16). The tile's columns lie in W_dt
-// (tiles below ceil(dg / 64)) or in [W_B | W_C] (the rest), decided once.
+// (token, column) per block on the tensor cores (tc::proj_tile in
+// csrc/tc_gemm.cuh; 3xTF32 at fp32 io, exact 1xTF32 at bf16).
 template <typename T>
 __global__ void __launch_bounds__(tc::kGemmThreads)
 proj_gemm_kernel(const ProjArgs<T> p) {
-  using namespace tc;
   const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
-  const int dg = p.dg, L = p.L, m0 = blockIdx.x * kBM;
-  const int ntd = (dg + kBN - 1) / kBN;
-  const bool in_dt = blockIdx.y < ntd;
-  const int n0 = (in_dt ? blockIdx.y : blockIdx.y - ntd) * kBN;
-  const int nw = in_dt ? dg : 2 * p.N;
-  const int col0 = in_dt ? 0 : dg;
-  const T* ub = p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g);
-  const T* wb = in_dt ? p.wdt + (size_t)g * dg * dg
-                      : p.wbc + (size_t)g * dg * 2 * p.N;
-  const bool vu = vec_ok(ub, dg), vw = vec_ok(wb, nw);
-  const int ntiles = (dg + kBK - 1) / kBK;
-  float acc[2][4][4];
-  if constexpr (std::is_same<T, float>::value) {
-    // fp32: 3xTF32, operands copied by cp.async
-    gemm_loop_async<false, true, true>(
-        ntiles, L - m0, nw - n0,
-        [=](int kt, float* sa, float* sb) {
-          row_tile_async(sa, ub, dg, m0, L, kt * kBK, dg, vu);
-          k_tile_async(sb, wb, nw, kt * kBK, dg, n0, nw, vw);
-        },
-        [=](int kt) { return dg - kt * kBK; }, acc);
-  } else {
-    // bf16: exact in TF32, converted on the way into shared memory
-    gemm_loop<false, true, false, RowTile<T>, KTile<T>>(
-        ntiles, L - m0, nw - n0,
-        [=](int kt, RowTile<T>& ta, KTile<T>& tb) {
-          ta.load(ub, dg, m0, L, kt * kBK, dg, vu);
-          tb.load(wb, nw, kt * kBK, dg, n0, nw, vw);
-          return dg - kt * kBK;
-        },
-        acc);
-  }
-  const int kz = dg + 2 * p.N;
-  float* out = p.P + ((size_t)b * p.G + g) * L * kz;
-  for_each_out(acc, [&](int r, int c, float v) {
-    if (m0 + r < L && n0 + c < nw)
-      out[(size_t)(m0 + r) * kz + col0 + n0 + c] = v;
-  });
-}
-
-// chunk-local walk position k of chunk c is physical token phys(c, k)
-__device__ __forceinline__ int phys(int c, int k, int reverse) {
-  return reverse ? c * kChunk + kChunk - 1 - k : c * kChunk + k;
-}
-
-// staging slot of walk position k: lane l's run of kItems starts at
-// l * (kItems + 1), so 32 lanes reading item j of their runs from rows of
-// odd pitch hit 32 banks
-__device__ __forceinline__ int slot(int k) { return k + k / kItems; }
-
-// inclusive scans over the lanes, lane 0 first, of h -> a h + b, for Q
-// independent states at once (their shuffles interleave)
-template <int Q>
-__device__ __forceinline__ void scan_up(float (&a)[Q], float (&b)[Q],
-                                        int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    float qa[Q], qb[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      qa[q] = __shfl_up_sync(kFull, a[q], off);
-      qb[q] = __shfl_up_sync(kFull, b[q], off);
-    }
-    if (lane >= off) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        b[q] = fmaf(a[q], qb[q], b[q]);
-        a[q] *= qa[q];
-      }
-    }
-  }
+  const int dg = p.dg, N = p.N;
+  tc::proj_tile<T>(p.u[p.n_u == 2 ? g : 0] + chain_offset(p, b, g),
+                   p.wdt + (size_t)g * dg * dg,
+                   p.wbc + (size_t)g * dg * 2 * N,
+                   p.P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L, dg,
+                   N, blockIdx.x * tc::kBM, blockIdx.y);
 }
 
 // K2b (EMIT false) / K2d (EMIT true): one block per (chunk, 32 channels,
@@ -318,7 +243,6 @@ template <typename T, int NT, bool EMIT, bool CK>
 __global__ void __launch_bounds__(kScanThreads)
 chunk_scan_kernel(const ProjArgs<T> p) {
   extern __shared__ float smem[];
-  constexpr int kRows = kChunk + kChunk / kItems;  // staged walk slots
   constexpr int kLdC = kChan2 + 1;                  // u / d row pitch
   constexpr int kLdN = NT + 1;                      // B / C row pitch
   float* us = smem;                  // kRows x kLdC: u, then y
@@ -484,31 +408,9 @@ __global__ void carry_kernel(const ProjArgs<T> p, int batch) {
   const int e = i % dg, n = (i / dg) % N;
   const size_t bg = i / ((size_t)N * dg);
   const float an = p.A[((size_t)(bg % p.G) * N + n) * dg + e];
-  float* h = p.hloc + (bg * p.n_chunk * N + n) * dg + e;  // chunk 0
-  const float* sd = p.sd + bg * p.n_chunk * dg + e;
-  const size_t hstep = (size_t)N * dg;
-  float carry = 0.f;
-  // kBatch chunks' loads in flight at a time, then their sequential carry
-  constexpr int kBatch = 8;
-  for (int w0 = 0; w0 < p.n_chunk; w0 += kBatch) {
-    float local[kBatch], decay[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int w = w0 + j, c = p.reverse ? p.n_chunk - 1 - w : w;
-      if (w < p.n_chunk) {
-        local[j] = h[c * hstep];
-        decay[j] = __expf(an * sd[(size_t)c * dg]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int w = w0 + j, c = p.reverse ? p.n_chunk - 1 - w : w;
-      if (w < p.n_chunk) {
-        h[c * hstep] = carry;
-        carry = fmaf(decay[j], carry, local[j]);
-      }
-    }
-  }
+  walk_carries(p.hloc + (bg * p.n_chunk * N + n) * dg + e,
+               p.sd + bg * p.n_chunk * dg + e, (size_t)N * dg, dg, an,
+               p.n_chunk, p.reverse);
 }
 
 template <typename T, int NT>
@@ -530,7 +432,6 @@ int launch_scan(const void* u, const void* dt, const float* A, const void* Bm,
 
 template <typename T, int NT, bool EMIT, bool CK>
 int launch_chunks(const ProjArgs<T>& p, int batch, cudaStream_t stream) {
-  constexpr int kRows = kChunk + kChunk / kItems;
   const size_t smem =
       sizeof(float) * (2 * kRows * (kChan2 + 1) + 2 * kRows * (NT + 1) +
                        NT * kChan2 + (CK ? kChunk / kSeg * NT * kChan2 : 0));
@@ -547,11 +448,8 @@ int launch_chunks(const ProjArgs<T>& p, int batch, cudaStream_t stream) {
 // K2: the projection GEMM, the chunk states, the carries, the emission
 template <typename T, int NT>
 int launch_proj(const ProjArgs<T>& p, int batch, cudaStream_t stream) {
-  const int tiles_d = (p.dg + tc::kBN - 1) / tc::kBN;
-  const dim3 gp((p.L + tc::kBM - 1) / tc::kBM,
-                tiles_d + (2 * p.N + tc::kBN - 1) / tc::kBN, batch * p.G);
-  const size_t smem = std::is_same<T, float>::value ? tc::kAsyncSmem : 0;
-  proj_gemm_kernel<T><<<gp, tc::kGemmThreads, smem, stream>>>(p);
+  proj_gemm_kernel<T><<<tc::proj_grid(p.L, p.dg, p.N, batch * p.G),
+                         tc::kGemmThreads, tc::proj_smem<T>(), stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int code = launch_chunks<T, NT, false, false>(p, batch, stream);

@@ -1,5 +1,6 @@
 // Tensor-core tile products for the grouped-scan kernels (sm_90a), shared by
-// csrc/scan_g_fwd.cu (K2's projections) and csrc/scan_g_bwd.cu (K5).
+// csrc/scan_g_fwd.cu (K2's projections) and csrc/scan_g_bwd.cu (K4's
+// projections, the same tiles as K2's, and K5).
 //
 // A block of kGemmThreads = 128 threads (four warps, 2 x 2) computes one
 // kBM x kBN = 64 x 64 fp32 tile of a product C = A B over k-tiles of
@@ -32,6 +33,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace tc {
 
@@ -374,6 +376,65 @@ __device__ __forceinline__ void gemm_loop_async(int ntiles, int mrows,
         (min(kvalid(kt), kBK) + 7) / 8 * 8, mrows, ncols, acc);
   }
   cp_async_wait<0>();
+}
+
+// One 64 x 64 tile of a chain's projection P = u [W_dt | W_B | W_C]: ub
+// is the chain's u (L x dg), wdt its W_dt (dg x dg), wbc its [W_B | W_C]
+// (dg x 2N), P its (L x (dg + 2N)) fp32 rows. Rows m0.. of tokens, column
+// tile ty: tiles below ceil(dg / 64) lie in W_dt, the rest in [W_B | W_C],
+// decided once. 3xTF32 at fp32 io, exact 1xTF32 at bf16. K2 and K4 call it
+// with the same arguments, so K4 recomputes the bits K2 scanned.
+template <typename T>
+__device__ __forceinline__ void proj_tile(const T* ub, const T* wdt,
+                                          const T* wbc, float* P, int L,
+                                          int dg, int N, int m0, int ty) {
+  const int ntd = (dg + kBN - 1) / kBN;
+  const bool in_dt = ty < ntd;
+  const int n0 = (in_dt ? ty : ty - ntd) * kBN;
+  const int nw = in_dt ? dg : 2 * N;
+  const int col0 = in_dt ? 0 : dg;
+  const T* wb = in_dt ? wdt : wbc;
+  const bool vu = vec_ok(ub, dg), vw = vec_ok(wb, nw);
+  const int ntiles = (dg + kBK - 1) / kBK;
+  float acc[2][4][4];
+  if constexpr (std::is_same<T, float>::value) {
+    // fp32: 3xTF32, operands copied by cp.async
+    gemm_loop_async<false, true, true>(
+        ntiles, L - m0, nw - n0,
+        [=](int kt, float* sa, float* sb) {
+          row_tile_async(sa, ub, dg, m0, L, kt * kBK, dg, vu);
+          k_tile_async(sb, wb, nw, kt * kBK, dg, n0, nw, vw);
+        },
+        [=](int kt) { return dg - kt * kBK; }, acc);
+  } else {
+    // bf16: exact in TF32, converted on the way into shared memory
+    gemm_loop<false, true, false, RowTile<T>, KTile<T>>(
+        ntiles, L - m0, nw - n0,
+        [=](int kt, RowTile<T>& ta, KTile<T>& tb) {
+          ta.load(ub, dg, m0, L, kt * kBK, dg, vu);
+          tb.load(wb, nw, kt * kBK, dg, n0, nw, vw);
+          return dg - kt * kBK;
+        },
+        acc);
+  }
+  const int kz = dg + 2 * N;
+  for_each_out(acc, [&](int r, int c, float v) {
+    if (m0 + r < L && n0 + c < nw)
+      P[(size_t)(m0 + r) * kz + col0 + n0 + c] = v;
+  });
+}
+
+// the grid of proj_tile blocks over `chains` chains: (token tiles, column
+// tiles, chains)
+inline dim3 proj_grid(int L, int dg, int N, int chains) {
+  return dim3((L + kBM - 1) / kBM,
+              (dg + kBN - 1) / kBN + (2 * N + kBN - 1) / kBN, chains);
+}
+
+// dynamic shared memory of a proj_tile block
+template <typename T>
+constexpr size_t proj_smem() {
+  return std::is_same<T, float>::value ? kAsyncSmem : 0;
 }
 
 }  // namespace tc

@@ -52,12 +52,13 @@ _SIGNATURES = {
     },
     "bwd": {
         # u, dt, A, B, C, bias, D, hck, dy, du, dd, dA, dbias, dD, dBp,
-        # dCp, batch, G, L, dg, N, nck, softplus, reverse, stream
-        "sigma_scan_bwd": [_P] * 16 + [_I] * 8 + [_P],
-        # u0, u1, wdt, wb, wc, A, bias, D, hck, dy0, dy1, du0, du1, dd, dA,
-        # dbias, dD, dBp, dCp, batch, G, L, dg, N, nck, n_u, softplus,
-        # reverse, swap_c, stream
-        "sigma_scan_proj_bwd": [_P] * 19 + [_I] * 10 + [_P],
+        # dCp, lam, sd, n_chunk, batch, G, L, dg, N, nck, softplus,
+        # reverse, stream
+        "sigma_scan_bwd": [_P] * 18 + [_I] * 9 + [_P],
+        # u0, u1, wdt, wbc, A, bias, D, hck, dy0, dy1, du0, du1, P, dd,
+        # dA, dbias, dD, dBp, dCp, lam, sd, n_chunk, batch, G, L, dg, N,
+        # nck, n_u, softplus, reverse, swap_c, stream
+        "sigma_scan_proj_bwd": [_P] * 21 + [_I] * 11 + [_P],
         # u0, u1, du0, du1, dd, dbc, wdt, wbc, dW, batch, G, L, dg, N,
         # n_u, n_l, stream
         "sigma_proj_grad": [_P] * 9 + [_I] * 7 + [_P],

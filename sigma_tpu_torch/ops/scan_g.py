@@ -21,12 +21,13 @@ Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`):
     K1 scan_fwd       streamed forward
     K2 scan_proj_fwd  forward that projects its own dt/B/C (tensor cores,
                       into a scratch stream), then a chunk-parallel scan
-    K3 scan_bwd       streamed backward
-    K4 scan_proj_bwd  backward with dt/B/C re-projected in-kernel
+    K3 scan_bwd       streamed backward, chunk-parallel
+    K4 scan_proj_bwd  backward that re-projects dt/B/C as K2 does (tensor
+                      cores, into a scratch stream), then K3's body
     K5 proj_grad      weight gradients and the du chain term of K4
                       (tensor cores, TF32)
-`LAUNCHES` counts each wrapper's calls: K2's four launches and K5's two
-count once per call.
+`LAUNCHES` counts each wrapper's calls: K2's and K4's four launches, K3's
+three and K5's two count once per call.
 
 K1-K4 hold the state in registers, at most 16 states (K1_MAX_STATE). A
 call with a wider state runs on CUDA tensors as slices of at most 16
@@ -75,7 +76,8 @@ PROJ_BUDGET_BYTES = 12 * 1024 * 1024
 # state checkpoint spacing of the forward kernels (kSeg in csrc/*.cu); every
 # kernel entry takes n_ck = ceil(L / CK_TOKENS) and refuses another value
 CK_TOKENS = 32
-# tokens per chunk of K2's chunk-parallel scan (kChunk in csrc/scan_g_fwd.cu)
+# tokens per chunk of the chunk-parallel scans K2, K3 and K4 (kChunk in
+# csrc/chunk.cuh)
 PROJ_CHUNK = 128
 # channels per block of K3/K4: their dB/dC partials have ceil(dg / 32)
 BWD_CHANNELS = 32
@@ -371,21 +373,43 @@ def _f32(t):
 
 
 def _bwd_outputs(batch, G, L, dg, N, like):
-    """dd, dA, dbias, dD and the per-block dB / dC partials of K3 / K4."""
+    """K3 / K4's outputs and scratch: dd, the per-chunk dA / dbias / dD
+    partials, the per-channel-block dB / dC partials, the chunks' adjoints
+    and sums of d."""
     nblk = -(-dg // BWD_CHANNELS)
+    n_chunk = -(-L // PROJ_CHUNK)
     f = dict(dtype=torch.float32, device=like.device)
-    return (torch.empty((batch, G, L, dg), **f),
-            torch.empty((batch, G, N, dg), **f),
-            torch.empty((batch, G, dg), **f), torch.empty((batch, G, dg), **f),
-            torch.empty((batch, nblk, G, L, N), **f),
-            torch.empty((batch, nblk, G, L, N), **f))
+    return dict(
+        dd=torch.empty((batch, G, L, dg), **f),
+        dA=torch.empty((batch, G, n_chunk, N, dg), **f),
+        dbias=torch.empty((batch, G, n_chunk, dg), **f),
+        dD=torch.empty((batch, G, n_chunk, dg), **f),
+        dBp=torch.empty((batch, nblk, G, L, N), **f),
+        dCp=torch.empty((batch, nblk, G, L, N), **f),
+        lam=torch.empty((batch, G, n_chunk, N, dg), **f),
+        sd=torch.empty((batch, G, n_chunk, dg), **f))
+
+
+def _bwd_pointers(o):
+    """The pointers of `_bwd_outputs` in the kernels' order, then
+    n_chunk."""
+    keys = ("dd", "dA", "dbias", "dD", "dBp", "dCp", "lam", "sd")
+    return [o[k].data_ptr() for k in keys] + [o["sd"].shape[2]]
+
+
+def _bwd_sums(o):
+    """dA, dbias, dD summed over batch and chunks, dB / dC over channel
+    blocks: torch's reductions, a fixed order."""
+    return (o["dA"].sum((0, 2)), o["dbias"].sum((0, 2)), o["dD"].sum((0, 2)),
+            o["dBp"].sum(1), o["dCp"].sum(1))
 
 
 def launch_scan_bwd(u, delta, A, B, C, D, delta_bias, hck, dy,
                     delta_softplus=False, reverse=False):
     """K3: the streamed backward from K1's checkpoints, fp32 CUDA tensors.
-    Returns (du, dd, dA, dB, dC, dbias, dD); the per-block and per-batch
-    partials are summed here."""
+    Returns (du, dd, dA, dB, dC, dbias, dD); the per-chunk, per-block and
+    per-batch partials are summed here. Its three launches (chunk
+    adjoints, carries, emission) count as one."""
     batch, G, L, dg = u.shape
     N = A.shape[1]
     _expect(dy, u.shape, "dy")
@@ -395,21 +419,20 @@ def launch_scan_bwd(u, delta, A, B, C, D, delta_bias, hck, dy,
     bias = _param(delta_bias, (G, dg), u)
     dk = _param(D, (G, dg), u)
     du = torch.empty_like(u)
-    dd, dA, dbias, dD, dBp, dCp = _bwd_outputs(batch, G, L, dg, N, u)
+    o = _bwd_outputs(batch, G, L, dg, N, u)
     lib = _build.library("bwd")
     with torch.cuda.device(u.device):
         code = lib.sigma_scan_bwd(
             u.data_ptr(), delta.data_ptr(), a32.data_ptr(), B.data_ptr(),
             C.data_ptr(), bias.data_ptr(), dk.data_ptr(), hck.data_ptr(),
-            dy.data_ptr(), du.data_ptr(), dd.data_ptr(), dA.data_ptr(),
-            dbias.data_ptr(), dD.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            dy.data_ptr(), du.data_ptr(), *_bwd_pointers(o),
             batch, G, L, dg, N, hck.shape[2], int(bool(delta_softplus)),
             int(bool(reverse)), _stream(u),
         )
         LAUNCHES["scan_bwd"] += 1
     _build.check(code, "scan_bwd", "bwd")
-    return (du, dd, dA.sum(0), dBp.sum(1), dCp.sum(1), dbias.sum(0),
-            dD.sum(0))
+    dA, dbias, dD, dB, dC = _bwd_sums(o)
+    return du, o["dd"], dA, dB, dC, dbias, dD
 
 
 def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
@@ -419,7 +442,9 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
     as for K2. Returns (du like `us` — the direct term only, K5 adds the
     chain term —, dd, dB, dC, dA, dbias, dD): dd / dB / dC are the
     cotangents of the projected streams, dC routed to the chain whose
-    projection made the C (the partner under `swap_groups_c`)."""
+    projection made the C (the partner under `swap_groups_c`). Its four
+    launches (the projections into a scratch stream, as K2 makes them,
+    then K3's three) count as one."""
     n_u = len(us)
     batch, G, L, dg = _layouts(us)
     N = A.shape[1]
@@ -428,29 +453,34 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
     _expect(hck, (batch, G, _n_ck(L), N, dg), "hck")
     us = [_f32(u) for u in us]
     dys = [_f32(dy) for dy in dys]
-    ws = [_f32(w) for w in (w_dt, w_b, w_c)]
+    _expect(w_dt, (G, dg, dg), "w_dt")
+    _expect(w_b, (G, dg, N), "w_b")
+    _expect(w_c, (G, dg, N), "w_c")
+    wdt = _f32(w_dt)
+    wbc = torch.cat([_f32(w_b), _f32(w_c)], -1)
     a32 = _param(A, (G, N, dg), us[0])
     bias = _param(delta_bias, (G, dg), us[0])
     dk = _param(D, (G, dg), us[0])
     dus = [torch.empty_like(u) for u in us]
-    dd, dA, dbias, dD, dBp, dCp = _bwd_outputs(batch, G, L, dg, N, us[0])
+    o = _bwd_outputs(batch, G, L, dg, N, us[0])
+    # scratch: the projected [dt | B | C] stream
+    proj = torch.empty((batch, G, L, dg + 2 * N), dtype=torch.float32,
+                       device=us[0].device)
     pad = [None] * (2 - n_u)
     lib = _build.library("bwd")
     with torch.cuda.device(us[0].device):
         code = lib.sigma_scan_proj_bwd(
-            *[_ptr(u) for u in us], *pad,
-            ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr(),
+            *[_ptr(u) for u in us], *pad, wdt.data_ptr(), wbc.data_ptr(),
             a32.data_ptr(), bias.data_ptr(), dk.data_ptr(), hck.data_ptr(),
             *[_ptr(dy) for dy in dys], *pad, *[_ptr(du) for du in dus], *pad,
-            dd.data_ptr(), dA.data_ptr(), dbias.data_ptr(), dD.data_ptr(),
-            dBp.data_ptr(), dCp.data_ptr(),
+            proj.data_ptr(), *_bwd_pointers(o),
             batch, G, L, dg, N, hck.shape[2], n_u, int(bool(delta_softplus)),
             int(bool(reverse)), int(bool(swap_groups_c)), _stream(us[0]),
         )
         LAUNCHES["scan_proj_bwd"] += 1
     _build.check(code, "scan_proj_bwd", "bwd")
-    return (dus, dd, dBp.sum(1), dCp.sum(1), dA.sum(0), dbias.sum(0),
-            dD.sum(0))
+    dA, dbias, dD, dB, dC = _bwd_sums(o)
+    return dus, o["dd"], dB, dC, dA, dbias, dD
 
 
 def _proj_grad_splits(batch, G, L, dg, N):

@@ -27,11 +27,14 @@ import torch
 
 TRAIN_BATCH = 2
 
-# kernel groups, first match wins (the scan kernels' C++ names)
+# kernel groups, first match wins (the scan kernels' C++ names; K3 and K4
+# share their chunk passes, told apart by the template's PROJ)
 GROUPS = (
-    ("K4 scan_proj_bwd", tuple(f"scan_bwd_kernel<{n}, true>"
-                               for n in (4, 8, 16))),
-    ("K3 scan_bwd", ("scan_bwd_kernel",)),
+    ("K4 scan_proj_bwd", ("bwd_proj_kernel", "adjoint_carry_kernel<true>")
+     + tuple(f"adjoint_{p}_kernel<{n}, true>" for p in ("local", "emit")
+             for n in (4, 8, 16))),
+    ("K3 scan_bwd", ("adjoint_local_kernel", "adjoint_carry_kernel",
+                     "adjoint_emit_kernel")),
     ("K2 scan_proj_fwd", ("proj_gemm_kernel", "chunk_scan_kernel",
                           "carry_kernel")),
     ("K1 scan_fwd", ("scan_fwd_kernel",)),
@@ -126,7 +129,11 @@ def main(argv=None) -> int:
         defaultdict(int)
     intervals = []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range on the device's timeline (the optimizer's
+        # "Optimizer.step#AdamW.step") spans the idle time between its
+        # kernels: it is no kernel and counts as no busy time
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
             continue
         s, t = e.time_range.start, e.time_range.end
         intervals.append((s, t))

@@ -7,14 +7,14 @@ no JAX, so they run on a machine with the card and no JAX:
 
 `chip_smoke.py` checks the kernels at the main path's shapes; these tests
 take the edges it does not reach: channel and token counts that do not
-fill a tile, a chunk or a checkpoint segment, every d_state width the
-kernels are built for, chain pairs beside n_u = 1, the shared-memory tile
-halving of the fused backward, the routing of the entry points, and the
-errors a wrapper raises. K2's checkpoints are held to K1's sequential
-walk, and K2 and K5 rerun bit for bit. The backward kernels (K3-K5) are
-held to autograd of the plain versions, every cotangent of each entry
-point, and bf16 with a gradient returns bf16 gradients at every scan
-entry point. The
+fill a tile, a chunk or a checkpoint segment, sequences below one chunk,
+ragged and over several chunks in both directions, every d_state width the
+kernels are built for, chain pairs beside n_u = 1, wide channel counts,
+the routing of the entry points, and the errors a wrapper raises. K2's
+checkpoints are held to K1's sequential walk, and K2, K3, K4 and K5 rerun
+bit for bit. The backward kernels (K3-K5) are held to autograd of the
+plain versions, every cotangent of each entry point, and bf16 with a
+gradient returns bf16 gradients at every scan entry point. The
 fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
@@ -249,13 +249,16 @@ def _leaf(t):
     return t.detach().clone().requires_grad_(True)
 
 
+@pytest.mark.parametrize("L", [77, 300, 1000])
 @pytest.mark.parametrize("N", [1, 4, 16])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_streamed_backward_matches_autograd_of_plain(dev, N, reverse):
+def test_streamed_backward_matches_autograd_of_plain(dev, N, reverse, L):
     """K1 + K3 through selective_scan_g: 50 channels (a partial 32-channel
-    block), 77 tokens (a partial 32-token checkpoint segment), three
-    chains; all seven cotangents against autograd of the plain version."""
-    t = _streamed(2, 3, 77, 50, N, torch.float32, dev, seed=20 + N)
+    block), 77 tokens (below one 128-token chunk, a partial 32-token
+    checkpoint segment), 300 (two chunks and a ragged third) or 1000 (eight
+    chunks, the last ragged), three chains; all seven cotangents against
+    autograd of the plain version."""
+    t = _streamed(2, 3, L, 50, N, torch.float32, dev, seed=20 + N + L)
     inputs = dict(u=t["u"], delta=t["dt"], A=t["A"], B=t["B"], C=t["C"],
                   D=t["D"], delta_bias=t["bias"])
     inputs = {k: _leaf(v) for k, v in inputs.items()}
@@ -277,8 +280,11 @@ BWD_PROJ_CASES = [
     (1, 1, 2, 45, 40, 4, False),     # partial channel block and segment
     (1, 4, 1, 33, 24, 16, True),     # two chain pairs in one operand
     (2, 2, 2, 100, 72, 8, True),     # two layout operands, C swapped
-    (2, 2, 1, 20, 768, 16, True),    # both u tiles fit only at 16 tokens
+    (2, 2, 1, 20, 768, 16, True),    # 24 channel blocks
     (2, 2, 1, 70, 64, 1, False),     # d_state 1
+    (2, 2, 1, 300, 72, 16, True),    # two chunks and a ragged third
+    (1, 2, 2, 1000, 40, 4, True),    # eight chunks, one operand, swapped
+    (1, 1, 1, 256, 32, 8, False),    # ends on a chunk
 ]
 
 
@@ -331,6 +337,60 @@ def test_fused_backward_matches_autograd_of_plain(dev, reverse, n_u, G,
     assert set(got) == set(want)
     for k in want:
         _close(got[k], want[k], torch.float32)
+
+
+def _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed):
+    """The inputs of one K3 call (streamed) and of one K4 call after their
+    forward kernels' checkpoints, reversed."""
+    p = _projected(G, dg, N, torch.float32, dev, seed=seed)
+    a = _arrays(seed + 1, u=(batch, G, L, dg), dy=(batch, G, L, dg))
+    u, dy = (torch.from_numpy(a[k]).to(dev) for k in ("u", "dy"))
+    ws = (p["w_dt"], p["w_b"], p["w_c"])
+    kw = dict(D=p["D"], delta_bias=p["bias"], delta_softplus=True,
+              reverse=True)
+    with torch.inference_mode():
+        dts, bs, cs = (u @ w for w in ws)
+        if swap:
+            cs = scan_g._pair_swap(cs)
+        _, hck1 = scan_g.launch_scan_fwd(u, dts, p["A"], bs, cs,
+                                         with_hck=True, **kw)
+        if n_u == 2:
+            us, dys = (u[:, 0].contiguous(), u[:, 1].contiguous()), (
+                dy[:, 0].contiguous(), dy[:, 1].contiguous())
+        else:
+            us, dys = (u,), (dy,)
+        _, hck2 = scan_g.launch_scan_proj_fwd(us, *ws, p["A"],
+                                              swap_groups_c=swap,
+                                              with_hck=True, **kw)
+
+    def k3():
+        return scan_g.launch_scan_bwd(u, dts, p["A"], bs, cs, p["D"],
+                                      p["bias"], hck1, dy, True, True)
+
+    def k4():
+        dus, *rest = scan_g.launch_scan_proj_bwd(
+            us, *ws, p["A"], p["D"], p["bias"], hck2, dys, True, True, swap)
+        return (*dus, *rest)
+
+    return k3, k4
+
+
+@pytest.mark.parametrize("n_u,G,batch,L,dg,N,swap", [
+    (1, 2, 2, 1000, 72, 16, True),
+    (2, 2, 1, 300, 40, 4, False),
+])
+def test_scan_backward_reruns_bit_for_bit(dev, n_u, G, batch, L, dg, N,
+                                          swap):
+    """K3 and K4 sum every partial (chunks, channel blocks, batch) in a
+    fixed order and use no atomics: two runs on the same inputs give the
+    same bits for all seven outputs."""
+    k3, k4 = _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed=L + dg)
+    for run in (k3, k4):
+        with torch.inference_mode():
+            first, again = run(), run()
+        assert len(first) == len(again) >= 7
+        for a_, b_ in zip(first, again):
+            assert torch.equal(a_, b_)
 
 
 def test_proj_grad_matches_plain(dev):

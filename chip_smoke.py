@@ -14,13 +14,14 @@ its findings:
                 one process per source, all started together (timed);
                 print the card's name and power limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
-                batch 1, run K1 (streamed) / K2 (fused projection,
-                chunk-parallel) against their plain PyTorch versions on the
+                batch 1, run K1 (streamed) / K2 (fused projection), both
+                chunk-parallel, against their plain PyTorch versions on the
                 card, fp32 and bf16 io, with the S4D A and dt-bias inits;
-                print errors and times. At each K2 shape, fp32, reversed
-                with y_accum and checkpoints: a rerun gives the same bits,
-                y without checkpoints (eval) the same bits as with them,
-                and the checkpoints hold K1's sequential walk's states.
+                print errors and times. At each shape, fp32, reversed with
+                y_accum and checkpoints: a rerun gives the same bits (y and
+                hck), y without checkpoints (eval) the same bits as with
+                them, and the checkpoints hold the states of the plain
+                token-by-token walk (`scan_g.scan_checkpoints_plain`).
   3. backward — at every distinct scan shape of sigma_tiny's train step at
                 480x640, batch 2 (an SS2D scans batch 4), forward and
                 reversed (the reversed call with y_accum, CroMB with its C
@@ -68,7 +69,9 @@ its findings:
                 stage and all seven gradients at stages 0 and 3 against
                 the plain version (the stacked composition, autograd, each
                 chunk recomputed), one K10 per forward and K11 + two K5 per
-                backward and nothing else, and a K11 rerun bit for bit.
+                backward and nothing else; K10 (y, hck) and K11 rerun bit
+                for bit, and K10's checkpoints hold the plain walk's states
+                (K11's layout).
                 Then the grouped and per-row scan entry points at d_state
                 17 and 40 (slices of 16 on K1 / K3) against their plain
                 versions. Timed (CUDA events): K10, K11 and K5 launched
@@ -241,6 +244,20 @@ def _inputs(kw, dtype, device, gen):
     )
 
 
+def _streams(kw, x):
+    """The streamed kernel's dt, B, C: projections outside the kernel (and
+    outside its time), as the main path makes them with torch.matmul, C
+    swapped between the chain pair under CroMB; made once per input."""
+    import torch
+
+    if "dts" not in x:
+        x["dts"], x["bs"], x["cs"] = (
+            torch.matmul(x["u"], x[k]) for k in ("w_dt", "w_b", "w_c"))
+        if kw.get("swap", False):
+            x["cs"] = x["cs"].flip(1)
+    return x["dts"], x["bs"], x["cs"]
+
+
 def _run_case(kernel, kw, x, reverse, use_kernel):
     """One call of the kernel's wrapper (use_kernel) or of its plain
     version on the same inputs. The reversed call carries y_accum, as the
@@ -270,15 +287,8 @@ def _run_case(kernel, kw, x, reverse, use_kernel):
         return scan_g.selective_scan_g_proj_plain(
             x["u"], x["w_dt"], x["w_b"], x["w_c"], x["A"], y_accum=ya,
             **common)
-    # streamed: projections outside the kernel (and outside its time), as
-    # the main path makes them with torch.matmul
     u = x["u"]
-    if "dts" not in x:
-        x["dts"], x["bs"], x["cs"] = (
-            torch.matmul(u, x[k]) for k in ("w_dt", "w_b", "w_c"))
-        if swap:
-            x["cs"] = x["cs"].flip(1)
-    dts, bs, cs = x["dts"], x["bs"], x["cs"]
+    dts, bs, cs = _streams(kw, x)
     if use_kernel:
         return scan_g.launch_scan_fwd(u, dts, x["A"], bs, cs, y_accum=ya,
                                       **common)
@@ -357,9 +367,12 @@ def _work(kernel, kw, reverse=False):
 
 
 def _tf32_ops(kernel, kw):
-    """The operations of `_work` that run on the tensor cores (TF32): K2's
-    and K4's projections and K5's two products; the rest run on the fp32
-    cores."""
+    """The operations of `_work` that run on the tensor cores (TF32): K2's,
+    K4's and K10's projections and K5's two products; the rest run on the
+    fp32 cores."""
+    if kernel == "scan_img_fwd":
+        return 2 * 4 * kw["B"] * kw["H"] * kw["W"] * kw["dg"] * (
+            kw["dg"] + 2 * kw["N"])
     if kernel not in ("scan_proj_fwd", "scan_proj_bwd", "proj_grad"):
         return 0
     G = kw.get("G", 2 if kw["ml"] else 1)
@@ -489,8 +502,8 @@ def kernel_phase(device, cases=None, reps=5):
                 print(line, flush=True)
                 if not ok:
                     failures.append(line)
-            if kernel == "scan_proj_fwd" and dtype == torch.float32:
-                line = _k2_checks(kw, x)
+            if dtype == torch.float32:
+                line = _checkpoint_checks(kernel, kw, x)
                 print(f"kernel: {kernel} {tag} {line}", flush=True)
                 if "FAIL" in line:
                     failures.append(line)
@@ -501,42 +514,51 @@ def kernel_phase(device, cases=None, reps=5):
     return summary
 
 
-def _k2_checks(kw, x):
-    """K2 reversed with y_accum and checkpoints, as the train step's second
-    direction group runs it, twice: the same bits (the carries run in a
-    fixed order); y as eval computes it (no checkpoints) has the same
-    bits; the checkpoints hold the states of K1's sequential walk over the
-    same projections (torch.matmul, fp32) at the fp32 tier. Returns the
-    line to print (FAIL in it on a failure)."""
+def _checkpoint_checks(kernel, kw, x):
+    """K1 or K2 reversed with y_accum and checkpoints, as the train step's
+    second direction group runs it, twice: the same bits (the carries run
+    in a fixed order); y as eval computes it (no checkpoints) has the same
+    bits; the checkpoints hold the states of the plain token-by-token walk
+    over the same dt and B (K2: projected by torch.matmul, fp32) at the
+    fp32 tier. Returns the line to print (FAIL in it on a failure)."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
 
-    ml, swap = kw["ml"], kw.get("swap", False)
-    us = (x["u"][:, 0], x["u"][:, 1]) if ml else (x["u"],)
-    yas = (x["ya"][:, 0], x["ya"][:, 1]) if ml else (x["ya"],)
-    args = (x["w_dt"], x["w_b"], x["w_c"], x["A"])
     opts = dict(D=x["D"], delta_bias=x["bias"], delta_softplus=True,
-                reverse=True, swap_groups_c=swap, y_accum=yas)
+                reverse=True)
     with torch.inference_mode():
-        y1, h1 = scan_g.launch_scan_proj_fwd(us, *args, with_hck=True, **opts)
-        y2, h2 = scan_g.launch_scan_proj_fwd(us, *args, with_hck=True, **opts)
-        y0 = scan_g.launch_scan_proj_fwd(us, *args, **opts)
-        rerun = torch.equal(h1, h2) and all(
-            torch.equal(a, b) for a, b in zip(y1, y2))
-        same = all(torch.equal(a, b) for a, b in zip(y0, y1))
-        dts, bs, cs = (torch.matmul(x["u"], w) for w in args[:3])
-        if swap:
-            cs = scan_g._pair_swap(cs)
-        _, hk1 = scan_g.launch_scan_fwd(x["u"], dts, x["A"], bs, cs,
-                                        D=x["D"], delta_bias=x["bias"],
-                                        delta_softplus=True, reverse=True,
-                                        with_hck=True)
-    err, ok = _scaled_err(h1, hk1)
-    del y1, y2, y0, h1, h2, hk1, dts, bs, cs
+        if kernel == "scan_proj_fwd":
+            ml = kw["ml"]
+            us = (x["u"][:, 0], x["u"][:, 1]) if ml else (x["u"],)
+            yas = (x["ya"][:, 0], x["ya"][:, 1]) if ml else (x["ya"],)
+            args = (x["w_dt"], x["w_b"], x["w_c"], x["A"])
+            dts, bs = (torch.matmul(x["u"], w) for w in args[:2])
+
+            def run(with_hck):  # ([y per layout], hck or None)
+                out = scan_g.launch_scan_proj_fwd(
+                    us, *args, swap_groups_c=kw.get("swap", False),
+                    y_accum=yas, with_hck=with_hck, **opts)
+                return (list(out[0]), out[1]) if with_hck else (out, None)
+        else:
+            dts, bs, cs = _streams(kw, x)
+
+            def run(with_hck):
+                out = scan_g.launch_scan_fwd(x["u"], dts, x["A"], bs, cs,
+                                             y_accum=x["ya"],
+                                             with_hck=with_hck, **opts)
+                return ([out[0]], out[1]) if with_hck else ([out], None)
+
+        (y1, h1), (y2, h2), (y0, _) = run(True), run(True), run(False)
+        rerun = torch.equal(h1, h2) and all(map(torch.equal, y1, y2))
+        same = all(map(torch.equal, y0, y1))
+        want = scan_g.scan_checkpoints_plain(x["u"], dts, x["A"], bs,
+                                             x["bias"], True, True)
+    err, ok = _scaled_err(h1, want)
+    del y1, y2, y0, h1, h2, want, dts, bs
     return (f"rev=1 with checkpoints: rerun bit for bit "
             f"{'ok' if rerun else 'FAIL'}; y as eval computes it, same bits "
-            f"{'ok' if same else 'FAIL'}; hck against K1's sequential walk "
+            f"{'ok' if same else 'FAIL'}; hck against the plain walk "
             f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
 
 
@@ -1230,7 +1252,7 @@ def ops_phase(device, reps=3):
               + " ".join(f"{k}={ms[k]:.4f} ({plain_ms[k]:.4f}, "
                          f"{bounds[k][0]:.4f} {bounds[k][1]})"
                          for k in ms)
-              + f"; same scan, chunk-parallel K8 / sequential K1 per row: "
+              + f"; same scan, channel-first K8 / per-row K1: "
                 f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms", flush=True)
         for k in ms:
             m = (summary if k in OPS else per_row)[k]
@@ -1370,10 +1392,11 @@ def image_phase(device, reps=3):
     480x640, batch 2: fp32 and bf16 forward at every stage and all seven
     gradients (fp32) at stages 0 and 3 against the plain version, with the
     launches checked (counters zeroed before these calls and read after);
-    the d_state 17 / 40 entry points; then K10, K11 (run twice: the same
-    bits) and K5 alone, the plain version and the two-call route the
-    port's SS2D takes today, timed. Returns (per-kernel summaries, the
-    counts); raises on disagreement."""
+    the d_state 17 / 40 entry points; then K10 and K11 (each run twice: the
+    same bits; K10's checkpoints against the plain walk) and K5 alone, the
+    plain version and the two-call route the port's SS2D takes today,
+    timed. Returns (per-kernel summaries, the counts); raises on
+    disagreement."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g, scan_img
@@ -1474,16 +1497,27 @@ def image_phase(device, reps=3):
                 torch.autograd.grad(y, list(leaves.values()), dy)
 
         with torch.no_grad():
-            _, hck = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
-                                                  with_hck=True)
+            y1, hck = scan_img.launch_scan_img_fwd(
+                *args, delta_softplus=True, with_hck=True)
+            y2, hck2 = scan_img.launch_scan_img_fwd(
+                *args, delta_softplus=True, with_hck=True)
             first = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
             again = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
             du4, dd, dB, dC = first[:4]
-        # a rerun of K11 gives the same bits (no atomics)
+            want_hck = scan_img.scan_checkpoints_img_plain(
+                x["x"], x["w_dt"], x["w_b"], x["A"], x["delta_bias"], True)
+        # reruns of K10 and K11 give the same bits (no atomics); K10's
+        # checkpoints hold the plain walk's states
+        rerun10 = torch.equal(y1, y2) and torch.equal(hck, hck2)
         rerun = all(torch.equal(a, b) for a, b in zip(first, again))
-        if not rerun:
-            failures.append(f"image: {tag} K11 rerun changed bits")
-        del again
+        hck_err, hck_ok = _scaled_err(hck, want_hck)
+        for ok, what in ((rerun10, "K10 rerun changed bits"),
+                         (rerun, "K11 rerun changed bits"),
+                         (hck_ok, f"K10 hck against the plain walk "
+                                  f"{hck_err:.3e}")):
+            if not ok:
+                failures.append(f"image: {tag} {what}")
+        del again, y1, y2, hck2, want_hck
         with torch.no_grad():
             ms = {
                 "scan_img_fwd": _time_ms(lambda: scan_img.launch_scan_img_fwd(
@@ -1521,8 +1555,11 @@ def image_phase(device, reps=3):
               + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
               + " bound " + " ".join(f"{k}={b[0]:.4f} ({b[1]})"
                                      for k, b in bounds.items())
-              + f"; two-call route agrees max_abs_err={err:.3e}; K11 rerun "
-                f"bit for bit {'ok' if rerun else 'FAIL'}", flush=True)
+              + f"; two-call route agrees max_abs_err={err:.3e}; K10 hck "
+                f"against the plain walk max_abs_err={hck_err:.3e} "
+                f"{'ok' if hck_ok else 'FAIL'}; K10 (y, hck) rerun bit for "
+                f"bit {'ok' if rerun10 else 'FAIL'}; K11 rerun bit for bit "
+                f"{'ok' if rerun else 'FAIL'}", flush=True)
         for k, plain_key in (("scan_img_fwd", "plain_fwd"),
                              ("scan_img_bwd", "plain_bwd")):
             m = summary[k]

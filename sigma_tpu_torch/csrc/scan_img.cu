@@ -3,8 +3,8 @@
 //
 // Replaces sigma_tpu/ops/pallas_scan_g.py's image kernels, reached through
 // selective_scan_ss2d_proj (:2371):
-//   K10 scan_img_fwd_kernel — _fwd_kernel_img (:1856), via _fwd_call_img
-//       (:2217, pallas_call :2249);
+//   K10 — _fwd_kernel_img (:1856), via _fwd_call_img (:2217, pallas_call
+//       :2249): img_proj_kernel, then the chunk scan of csrc/chunk_fwd.cuh;
 //   K11 scan_img_bwd_kernel — _bwd_kernel_img (:1942), via _bwd_call_img
 //       (:2270, pallas_call :2323); its weight gradients and du chain term
 //       (the TPU body's dots :2086-2108) run on K5 (csrc/scan_g_bwd.cu).
@@ -19,58 +19,70 @@
 // and the CrossMerge output is the sum of the four chains' y in image
 // order (the wrapper sums the four planes K10 writes, as the JAX wrapper
 // sums outside its kernel, :2341). Token t of the wh layout is pixel
-// (t % H, t / H): the transpose is only addressing, and a warp's 32
-// channels at one pixel are one coalesced row segment in either layout.
-// No transposed copy of x, y, dy or du exists.
+// (t % H, t / H): the transpose is only addressing, and the channels of one
+// pixel are one contiguous row in either layout. No transposed copy of x,
+// y, dy or du exists.
 //
-// Bound: the projections, 2 dg (dg + 2N) operations per token and chain
-// (fp32 CUDA cores; at sigma_tiny's trunk stage 0 about three times the
-// scan's 9 N), then the sequential walk of each chain.
+// K10. Bound: operations, the projections (2 dg (dg + 2N) per token and
+// chain, tensor cores) and the scan (~9 N per token, chain, channel and
+// state, fp32 cores). Design: K2's (csrc/scan_g_fwd.cu), four launches
+// counted as one call by the wrapper.
+//   img_proj_kernel — [dt | B | C] once per (chain, batch) on the tensor
+//     cores with K2a's tiles (tc::proj_tile; 3xTF32 at fp32 io, exact
+//     1xTF32 at bf16) into an fp32 scratch P (batch, 4, L, dg + 2N) in each
+//     chain's token order; the x rows of a wh tile are gathered through the
+//     pixel map, one contiguous row per token (the tile's loads are per row
+//     anyway).
+//   then the chunk scan of csrc/chunk_fwd.cuh over the four chains (ImgSrc):
+//     128-token chunks from a zero state, a fixed-order carry pass, the
+//     emission, u read and y written through the same pixel map, dir 1
+//     reversed in place. d_state up to 256: the chunk body walks state
+//     tiles of 16 inside the block (TILED), y summed over the tiles in a
+//     fixed order by the thread that owns it.
+//   It writes y as one plane per chain, and under a gradient the
+//   checkpoints K11 reads: hck[c][b][j] = h as chain c's walk enters
+//   32-token segment j of its sequence.
 //
-// Design. A block of 288 threads owns one (32-channel tile, chain, batch)
-// and walks its chain's tokens in tiles of 32, which are also the
-// backward's checkpoint segments. Warps 0-7 (the producers) compute the
-// tile's projections as a small GEMM: x rows of the tile (32 tokens) times
-// [W_dt columns of the block's channels | W_B | W_C], with both operands
-// streamed through shared memory in 32-deep k-tiles (W_dt at dg 1536 is
-// 9.4 MB per chain in fp32 and never fits whole). Warp 8 (the scanner)
-// walks the recurrence, one lane per channel. K10 double-buffers the
-// projections: the producers project tile i + 1 while the scanner walks
-// tile i, so the walk hides the projection (or the reverse), with one
-// block barrier per tile. The producers also add the dt bias and apply the
-// softplus, and A arrives prescaled by log2 e, so the scanner's issue
-// slots (shared with two producer warps on its scheduler) go to the
-// recurrence. B/C are recomputed by each channel tile of a chain (dg / 32
-// times), accepted in this first version.
+// K11 walks each chain's segments against the forward's order from those
+// checkpoints, re-projecting dt/B/C itself on the fp32 cores (the
+// checkpoints come from K10's TF32 projections: fp32's accuracy at fp32
+// io). A block of 288 threads owns one (32-channel tile, chain, batch):
+// warps 0-7 (the producers) compute each segment's projections as a small
+// GEMM, x rows of the segment (32 tokens) times [W_dt columns of the
+// block's channels | W_B | W_C], with both operands streamed through
+// shared memory in 32-deep k-tiles (double-buffered when shared memory
+// allows), and add the dt bias and the softplus; warp 8 (the scanner) walks
+// the recurrence, one lane per channel, with A prescaled by log2 e. Per
+// segment and state tile (NT of 4, 8 or 16; the carry of every state in
+// shared memory): the scanner recomputes h through the segment into shared
+// memory; all 288 threads reduce dC_t = sum_e h_t dy_t over the block's
+// channels; the scanner sweeps dh back through the segment, leaving dh d u
+// in the slot of the h it no longer needs; all threads reduce those into
+// dB. The channel sums cross blocks, so each block writes its own partial
+// and the wrapper sums them, as K4 does; dA / dbias / dD are owned by one
+// block per (chain, batch, channel) and the wrapper sums the batch. No
+// atomics anywhere: a rerun gives the same bits. dd, dB and dC are written
+// in image order per (dir, batch, layout), so K5 contracts them with x
+// itself (us = (x, x)), and the direct du term goes to one plane per
+// chain.
 //
-// d_state up to 256: the scanner walks state tiles of NT (4, 8 or 16)
-// states in registers, the carry of every state kept in shared memory.
-//
-// K11 walks each chain's segments against the forward's order from the
-// checkpoints K10 wrote (hck[c][b][j] = h as the walk enters segment j),
-// re-projecting dt/B/C as K10 does (double-buffered when shared memory
-// allows). Per segment and state tile: the scanner recomputes h through
-// the segment into shared memory; all 288 threads reduce dC_t = sum_e h_t
-// dy_t over the block's channels; the scanner sweeps dh back through the
-// segment, leaving dh d u in the slot of the h it no longer needs; all
-// threads reduce those into dB. The channel sums cross blocks, so each
-// block writes its own partial and the wrapper sums them, as K4 does; dA
-// / dbias / dD are owned by one block per (chain, batch, channel) and the
-// wrapper sums the batch. No atomics anywhere: a rerun gives the same
-// bits. dd, dB and dC are written in image order per (dir, batch,
-// layout), so K5 contracts them with x itself (us = (x, x)), and the
-// direct du term goes to one plane per chain.
-//
-// Both kernels launch on the caller's stream, allocate nothing, and
-// return cudaGetLastError(). K10 takes fp32 or bf16 io (fp32 state and
-// arithmetic); K11 is fp32.
+// Both launch on the caller's stream, allocate nothing (scratch comes from
+// the wrapper), and return cudaGetLastError(). K10 takes fp32 or bf16 io
+// (fp32 state and arithmetic); K11 is fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "chunk_fwd.cuh"
+#include "tc_gemm.cuh"
+
 namespace {
+
+using chunk::from_f;
+using chunk::softplus_f;
+using chunk::to_f;
 
 constexpr int kCh = 32;       // channels per block, one scanner lane each
 constexpr int kTok = 32;      // tokens per tile = checkpoint segment
@@ -85,6 +97,7 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block
 static_assert(kKt == kCh, "the x k-tile of the block's own channels is u");
+static_assert(kTok == chunk::kSeg, "K11's segments are K10's checkpoints");
 static_assert(kTok * kKt % kProj == 0 && kKt * kCols % kProj == 0 &&
                   kProj == 16 * (kTok / 2) && kCols == 16 * 4,
               "the producers stage whole tiles; 16 x 16 threads own 2 "
@@ -93,23 +106,6 @@ static_assert(kTok * kKt % kProj == 0 && kKt * kCols % kProj == 0 &&
 constexpr int kErrStateWidth = 10001;
 constexpr int kErrSharedMemory = 10002;
 constexpr int kErrArguments = 10003;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
-}
 
 // the barrier of the producer warps alone (barrier 0 is __syncthreads)
 __device__ __forceinline__ void producer_sync() {
@@ -134,19 +130,126 @@ __device__ __forceinline__ int pixel(int t, int layout, int H, int W) {
   return layout ? (t % H) * W + t / H : t;
 }
 
+// the pixel map of one layout as a row map (tc::proj_tile, ImgSrc)
+struct PixelMap {
+  int layout, H, W;
+  __device__ __forceinline__ int operator()(int t) const {
+    return pixel(t, layout, H, W);
+  }
+};
+
+// ---------------------------------------------------------------- K10
+// K10's operands for the chunk scan (csrc/chunk_fwd.cuh), G = 4 chains per
+// image: x (batch, H, W, dg); P (batch, 4, L, dg + 2N) fp32 scratch, each
+// chain's [dt | B | C] in its token order; y (4, batch, H, W, dg), one
+// plane per chain in image order; hck (4, batch, n_ck, N, dg).
 template <typename T>
+struct ImgSrc : chunk::FwdArgs {
+  const T* x;
+  const T* wdt;  // (4, dg, dg)
+  const T* wbc;  // (4, dg, 2N): [W_B | W_C]
+  T* y;
+  float* P;
+  int batch, H, W;
+
+  struct View {
+    const T* x;
+    T* y;
+    const float* P;
+    float* hck;
+    PixelMap px;
+    int dg, N;
+    __device__ float u_at(int t, int e) const {
+      return to_f(x[(size_t)px(t) * dg + e]);
+    }
+    __device__ float dt_at(int t, int e) const {
+      return P[(size_t)t * (dg + 2 * N) + e];
+    }
+    __device__ float b_at(int t, int n) const {
+      return P[(size_t)t * (dg + 2 * N) + dg + n];
+    }
+    __device__ float c_at(int t, int n) const {
+      return P[(size_t)t * (dg + 2 * N) + dg + N + n];
+    }
+    __device__ void put_y(int t, int e, float v) const {
+      y[(size_t)px(t) * dg + e] = from_f<T>(v);
+    }
+  };
+  __device__ bool rev(int c) const { return c >> 1; }
+  __device__ View view(int b, int c) const {
+    const size_t bc = (size_t)b * 4 + c, cb = (size_t)c * batch + b;
+    return View{x + (size_t)b * L * dg, y + cb * L * dg,
+                P + bc * L * (dg + 2 * N),
+                hck ? hck + cb * chunk::n_ck_of(L) * N * dg : nullptr,
+                PixelMap{c & 1, H, W}, dg, N};
+  }
+};
+
+// [dt | B | C] of chain c = blockIdx.z % 4 of image b = blockIdx.z / 4, a
+// 64 x 64 tile of (token, column) per block, x's rows through the pixel map
+template <typename T>
+__global__ void __launch_bounds__(tc::kGemmThreads)
+img_proj_kernel(const ImgSrc<T> p) {
+  const int c = blockIdx.z % 4, b = blockIdx.z / 4;
+  const int dg = p.dg, N = p.N;
+  tc::proj_tile<T>(p.x + (size_t)b * p.L * dg, p.wdt + (size_t)c * dg * dg,
+                   p.wbc + (size_t)c * dg * 2 * N,
+                   p.P + ((size_t)b * 4 + c) * p.L * (dg + 2 * N), p.L, dg,
+                   N, blockIdx.x * tc::kBM, blockIdx.y,
+                   PixelMap{c & 1, p.H, p.W});
+}
+
+template <typename T, int NT, bool TILED>
+int launch_img(const ImgSrc<T>& p, cudaStream_t stream) {
+  const int chains = 4 * p.batch;
+  img_proj_kernel<T><<<tc::proj_grid(p.L, p.dg, p.N, chains),
+                        tc::kGemmThreads, tc::proj_smem<T>(), stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return chunk::launch_chunk_scan<ImgSrc<T>, NT, TILED>(p, chains, stream);
+}
+
+template <typename T>
+int fwd_entry(const void* x, const void* wdt, const void* wbc,
+              const float* A, const float* bias, const float* Dk, void* y4,
+              float* P, float* hloc, float* sd, int n_chunk, float* hck,
+              int nck, int batch, int H, int W, int dg, int N, int softplus,
+              cudaStream_t stream) {
+  if (batch <= 0 || H <= 0 || W <= 0 || dg <= 0 || N <= 0 ||
+      batch > 65535 / 4 || (long long)H * W > 2147483647LL)
+    return kErrArguments;
+  if (N > kMaxState) return kErrStateWidth;
+  const int L = H * W;
+  if (n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk ||
+      (hck && nck != chunk::n_ck_of(L)))
+    return kErrArguments;
+  ImgSrc<T> p{};
+  chunk::set_fwd_args(p, A, bias, Dk, hloc, sd, hck, 4, L, dg, N, softplus,
+                      n_chunk);
+  p.x = static_cast<const T*>(x);
+  p.wdt = static_cast<const T*>(wdt);
+  p.wbc = static_cast<const T*>(wbc);
+  p.y = static_cast<T*>(y4);
+  p.P = P;
+  p.batch = batch;
+  p.H = H;
+  p.W = W;
+  if (N <= 4) return launch_img<T, 4, false>(p, stream);
+  if (N <= 8) return launch_img<T, 8, false>(p, stream);
+  if (N <= 16) return launch_img<T, 16, false>(p, stream);
+  return launch_img<T, 16, true>(p, stream);
+}
+
+// K11's arguments
 struct ImgArgs {
-  const T* x;        // (batch, H, W, dg)
-  const T* wdt;      // (4, dg, dg), chain c = 2 dir + layout
-  const T* wb;       // (4, dg, N)
-  const T* wc;       // (4, dg, N)
+  const float* x;    // (batch, H, W, dg)
+  const float* wdt;  // (4, dg, dg), chain c = 2 dir + layout
+  const float* wb;   // (4, dg, N)
+  const float* wc;   // (4, dg, N)
   const float* A;    // (4, N, dg)
   const float* bias;  // (4, dg)
   const float* Dk;   // (4, dg)
   float* hck;        // (4, batch, nck, N, dg): K10 writes, K11 reads
-  // K10
-  T* y;              // (4, batch, H, W, dg): one plane per chain
-  // K11
   const float* dy;   // (batch, H, W, dg)
   float* du;         // (4, batch, H, W, dg) direct term per chain
   float* dd;         // (2, batch, 2, H*W, dg) raw-dt cotangent
@@ -172,10 +275,11 @@ struct ImgArgs {
 // x tile is staged k-major (Uk[k][t]); thread (ty, tx) owns tokens 2 ty,
 // 2 ty + 1 and columns 4 tx .. 4 tx + 3 of the pass: one float2 and one
 // float4 read of shared memory per 8 multiply-adds.
-template <typename T>
-__device__ __forceinline__ void project_tile(const ImgArgs<T>& p,
-                                             const T* x_b, const T* wdt_c,
-                                             const T* wb_c, const T* wc_c,
+__device__ __forceinline__ void project_tile(const ImgArgs& p,
+                                             const float* x_b,
+                                             const float* wdt_c,
+                                             const float* wb_c,
+                                             const float* wc_c,
                                              const float* bias_c, int layout,
                                              int e0, int t0, int tl,
                                              float* Uk, float* Wk, float* P,
@@ -202,10 +306,10 @@ __device__ __forceinline__ void project_tile(const ImgArgs<T>& p,
     const int j0 = step / nk * kCols, k0 = step % nk * kKt;
 #pragma unroll
     for (int r = 0; r < kRu; ++r)
-      ru[r] = xoff[r] >= 0 && k0 + kx < dg ? to_f(x_b[xoff[r] + k0 + kx])
-                                           : 0.f;
+      ru[r] = xoff[r] >= 0 && k0 + kx < dg ? x_b[xoff[r] + k0 + kx] : 0.f;
     const int j = j0 + jw;
-    const T* src = nullptr;  // W column j of this pass, rows strided by ld
+    // W column j of this pass, rows strided by ld
+    const float* src = nullptr;
     int ld = 0;
     if (j < kCh && e0 + j < dg) {
       src = wdt_c + e0 + j;
@@ -220,7 +324,7 @@ __device__ __forceinline__ void project_tile(const ImgArgs<T>& p,
 #pragma unroll
     for (int r = 0; r < kRw; ++r) {
       const int d = k0 + kw + r * (kProj / kCols);
-      rw[r] = src && d < dg ? to_f(src[(size_t)d * ld]) : 0.f;
+      rw[r] = src && d < dg ? src[(size_t)d * ld] : 0.f;
     }
   };
   load(0);
@@ -276,119 +380,10 @@ __device__ __forceinline__ void project_tile(const ImgArgs<T>& p,
   }
 }
 
-// ---------------------------------------------------------------- K10
-template <typename T, int NT, bool CK>
-__global__ void __launch_bounds__(kThreads)
-scan_img_fwd_kernel(const ImgArgs<T> p) {
-  extern __shared__ __align__(16) float smem[];
-  const int dg = p.dg, N = p.N, NP = p.NP, L = p.L, ldp = p.ldp;
-  // two buffers, each kTok x ldp projections then kTok x kCh u
-  const int bufsz = kTok * (ldp + kCh);
-  float* Uk = smem + 2 * bufsz;   // kKt x kLdU
-  float* Wk = Uk + kKt * kLdU;    // kKt x kCols
-  float* hc = Wk + kKt * kCols;   // NP x kCh: the carry of every state
-  float* yt = hc + NP * kCh;      // kTok x kCh: y over the state tiles
-
-  const int blk = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int dir = c >> 1, layout = c & 1;
-  const int e0 = blk * kCh;
-  const T* x_b = p.x + (size_t)b * L * dg;
-  const T* wdt_c = p.wdt + (size_t)c * dg * dg;
-  const T* wb_c = p.wb + (size_t)c * dg * N;
-  const T* wc_c = p.wc + (size_t)c * dg * N;
-  const float* bias_c = p.bias + (size_t)c * dg;
-  const int nt = (L + kTok - 1) / kTok;
-  const bool producer = threadIdx.x < kProj;
-
-  auto tile_of = [&](int it) { return dir ? nt - 1 - it : it; };
-  if (producer) {
-    const int t0 = tile_of(0) * kTok;
-    project_tile<T>(p, x_b, wdt_c, wb_c, wc_c, bias_c, layout, e0, t0,
-                    min(kTok, L - t0), Uk, Wk, smem, smem + kTok * ldp);
-  } else {
-    for (int i = threadIdx.x - kProj; i < NP * kCh; i += 32) hc[i] = 0.f;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x - kProj;
-  const int e = e0 + lane;
-  const bool active = !producer && e < dg;
-  const int ec = active ? e : e0;
-  const float* A_c = p.A + (size_t)c * N * dg;
-  const float d_e = producer ? 0.f : p.Dk[(size_t)c * dg + ec];
-  T* y_c = p.y + ((size_t)c * p.batch + b) * L * dg;
-  float* hck_c = CK ? p.hck + ((size_t)c * p.batch + b) * p.nck * N * dg
-                    : nullptr;
-
-  for (int it = 0; it < nt; ++it) {
-    const int buf = it & 1;
-    if (producer) {
-      if (it + 1 < nt) {
-        const int t0 = tile_of(it + 1) * kTok;
-        float* next = smem + (buf ^ 1) * bufsz;
-        project_tile<T>(p, x_b, wdt_c, wb_c, wc_c, bias_c, layout, e0, t0,
-                        min(kTok, L - t0), Uk, Wk, next, next + kTok * ldp);
-      }
-    } else {
-      const int t0 = tile_of(it) * kTok;
-      const int tl = min(kTok, L - t0);
-      const float* P = smem + buf * bufsz;
-      const float* us = P + kTok * ldp;
-      for (int s0 = 0; s0 < NP; s0 += NT) {
-        const bool last = s0 + NT >= NP;
-        float a[NT], h[NT];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          a[n] = s0 + n < N ? A_c[(size_t)(s0 + n) * dg + ec] * kLog2e
-                            : 0.f;
-          h[n] = hc[(s0 + n) * kCh + lane];
-        }
-        // the tile is a checkpoint segment: h as the walk enters it
-        if (CK && active)
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-            if (s0 + n < N)
-              hck_c[((size_t)(t0 / kTok) * N + s0 + n) * dg + e] = h[n];
-        // unrolled: a token's loads and exps need only the previous
-        // token's h, so they can issue while its y sum finishes
-#pragma unroll 4
-        for (int k = 0; k < tl; ++k) {
-          const int t = dir ? tl - 1 - k : k;
-          const float* Pt = P + t * ldp;
-          const float dv = Pt[lane];
-          const float uv = us[t * kCh + lane];
-          const float du = dv * uv;
-          float Bv[NT], Cv[NT];
-          load_row<NT>(Pt + kCh + s0, Bv);
-          load_row<NT>(Pt + kCh + NP + s0, Cv);
-          float acc = s0 == 0 ? 0.f : yt[t * kCh + lane], acc1 = 0.f;
-#pragma unroll
-          for (int n = 0; n < NT; n += 2) {
-            h[n] = fmaf(exp2f(dv * a[n]), h[n], du * Bv[n]);
-            h[n + 1] = fmaf(exp2f(dv * a[n + 1]), h[n + 1], du * Bv[n + 1]);
-            acc = fmaf(Cv[n], h[n], acc);
-            acc1 = fmaf(Cv[n + 1], h[n + 1], acc1);
-          }
-          acc += acc1;
-          if (!last) {
-            yt[t * kCh + lane] = acc;
-          } else if (active) {
-            const int px = pixel(t0 + t, layout, p.H, p.W);
-            y_c[(size_t)px * dg + e] = from_f<T>(fmaf(d_e, uv, acc));
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) hc[(s0 + n) * kCh + lane] = h[n];
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------- K11
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
-scan_img_bwd_kernel(const ImgArgs<float> p) {
+scan_img_bwd_kernel(const ImgArgs p) {
   extern __shared__ __align__(16) float smem[];
   const int dg = p.dg, N = p.N, NP = p.NP, L = p.L, ldp = p.ldp;
   const int nbuf = p.nbuf;
@@ -426,7 +421,7 @@ scan_img_bwd_kernel(const ImgArgs<float> p) {
     const int t0 = seg_of(it) * kTok;
     const int tl = min(kTok, L - t0);
     float* P = smem + buf * bufsz;
-    project_tile<float>(p, x_b, wdt_c, wb_c, wc_c, bias_c, layout, e0, t0,
+    project_tile(p, x_b, wdt_c, wb_c, wc_c, bias_c, layout, e0, t0,
                         tl, Uk, Wk, P, P + kTok * ldp);
     float* dys = P + kTok * (ldp + kCh);
     for (int i = threadIdx.x; i < kTok * kCh; i += kProj) {
@@ -608,13 +603,6 @@ scan_img_bwd_kernel(const ImgArgs<float> p) {
 // producers' two token rows of a warp write distinct banks
 int proj_ld(int NP) { return (kCh + 2 * NP + 31) / 32 * 32 + 16; }
 
-size_t fwd_smem(int NP) {
-  const int ldp = proj_ld(NP);
-  return sizeof(float) * (2 * (size_t)kTok * (ldp + kCh) +
-                          (size_t)kKt * kLdU + (size_t)kKt * kCols +
-                          (size_t)NP * kCh + (size_t)kTok * kCh);
-}
-
 size_t bwd_smem(int NP, int NT, int nbuf) {
   const int ldp = proj_ld(NP);
   return sizeof(float) * ((size_t)nbuf * kTok * (ldp + 2 * kCh) +
@@ -623,8 +611,7 @@ size_t bwd_smem(int NP, int NT, int nbuf) {
                           2 * (size_t)kTok * kCh);
 }
 
-template <typename T>
-int fill(ImgArgs<T>& p, int batch, int H, int W, int dg, int N, int nck,
+int fill(ImgArgs& p, int batch, int H, int W, int dg, int N, int nck,
          int softplus, int NT) {
   if (batch <= 0 || H <= 0 || W <= 0 || dg <= 0 || N <= 0 ||
       batch > 65535 || (long long)H * W > 2147483647LL)
@@ -647,46 +634,8 @@ int fill(ImgArgs<T>& p, int batch, int H, int W, int dg, int N, int nck,
 
 int state_tile(int N) { return N <= 4 ? 4 : N <= 8 ? 8 : 16; }
 
-template <typename T, int NT>
-int launch_fwd(ImgArgs<T> p, bool ck, cudaStream_t stream) {
-  const size_t smem = fwd_smem(p.NP);
-  if (smem > kMaxSmem) return kErrSharedMemory;
-  auto kernel = ck ? scan_img_fwd_kernel<T, NT, true>
-                   : scan_img_fwd_kernel<T, NT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.nblk, 4, p.batch);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int fwd_entry(const void* x, const void* wdt, const void* wb, const void* wc,
-              const float* A, const float* bias, const float* Dk, void* y4,
-              float* hck, int nck, int batch, int H, int W, int dg, int N,
-              int softplus, cudaStream_t stream) {
-  const int NT = state_tile(N);
-  ImgArgs<T> p = {};
-  const int code = fill(p, batch, H, W, dg, N, nck, softplus, NT);
-  if (code) return code;
-  p.x = static_cast<const T*>(x);
-  p.wdt = static_cast<const T*>(wdt);
-  p.wb = static_cast<const T*>(wb);
-  p.wc = static_cast<const T*>(wc);
-  p.A = A;
-  p.bias = bias;
-  p.Dk = Dk;
-  p.hck = hck;
-  p.y = static_cast<T*>(y4);
-  if (NT == 4) return launch_fwd<T, 4>(p, hck != nullptr, stream);
-  if (NT == 8) return launch_fwd<T, 8>(p, hck != nullptr, stream);
-  return launch_fwd<T, 16>(p, hck != nullptr, stream);
-}
-
 template <int NT>
-int launch_bwd(ImgArgs<float> p, cudaStream_t stream) {
+int launch_bwd(ImgArgs p, cudaStream_t stream) {
   p.nbuf = 2;
   if (bwd_smem(p.NP, NT, 2) > kMaxSmem) p.nbuf = 1;
   const size_t smem = bwd_smem(p.NP, NT, p.nbuf);
@@ -704,22 +653,28 @@ int launch_bwd(ImgArgs<float> p, cudaStream_t stream) {
 
 extern "C" {
 
-// K10. x: (batch, H, W, dg); wdt: (4, dg, dg); wb, wc: (4, dg, N), all in
-// the io type (bf16 when bf16, else fp32); A: (4, N, dg), bias, Dk: (4, dg)
-// fp32, chain c = 2 dir + layout. y4: (4, batch, H, W, dg) in the io type,
-// one plane per chain in image order. hck, null or (4, batch, nck, N, dg)
-// fp32 with nck = ceil(H W / 32), receives the state checkpoints.
-int sigma_scan_img_fwd(const void* x, const void* wdt, const void* wb,
-                       const void* wc, const float* A, const float* bias,
-                       const float* Dk, void* y4, float* hck, int nck,
-                       int batch, int H, int W, int dg, int N, int softplus,
-                       int bf16, void* stream) {
+// K10. x: (batch, H, W, dg); wdt: (4, dg, dg); wbc: (4, dg, 2N) ([W_B |
+// W_C]), all in the io type (bf16 when bf16, else fp32); A: (4, N, dg),
+// bias, Dk: (4, dg) fp32, chain c = 2 dir + layout. y4: (4, batch, H, W,
+// dg) in the io type, one plane per chain in image order. Scratch, fp32:
+// P (batch, 4, H W, dg + 2N), hloc (batch, 4, n_chunk, N, dg), sd (batch,
+// 4, n_chunk, dg) with n_chunk = ceil(H W / 128). hck, null or (4, batch,
+// nck, N, dg) fp32 with nck = ceil(H W / 32), receives the state
+// checkpoints.
+int sigma_scan_img_fwd(const void* x, const void* wdt, const void* wbc,
+                       const float* A, const float* bias, const float* Dk,
+                       void* y4, float* P, float* hloc, float* sd,
+                       int n_chunk, float* hck, int nck, int batch, int H,
+                       int W, int dg, int N, int softplus, int bf16,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return fwd_entry<__nv_bfloat16>(x, wdt, wb, wc, A, bias, Dk, y4, hck, nck,
-                                    batch, H, W, dg, N, softplus, s);
-  return fwd_entry<float>(x, wdt, wb, wc, A, bias, Dk, y4, hck, nck, batch,
-                          H, W, dg, N, softplus, s);
+    return fwd_entry<__nv_bfloat16>(x, wdt, wbc, A, bias, Dk, y4, P, hloc,
+                                    sd, n_chunk, hck, nck, batch, H, W, dg,
+                                    N, softplus, s);
+  return fwd_entry<float>(x, wdt, wbc, A, bias, Dk, y4, P, hloc, sd,
+                          n_chunk, hck, nck, batch, H, W, dg, N, softplus,
+                          s);
 }
 
 // K11, fp32. x, wdt, wb, wc, A, bias, Dk as for K10; hck as K10 wrote it;
@@ -735,7 +690,7 @@ int sigma_scan_img_bwd(const float* x, const float* wdt, const float* wb,
                        int H, int W, int dg, int N, int softplus,
                        void* stream) {
   const int NT = state_tile(N);
-  ImgArgs<float> p = {};
+  ImgArgs p = {};
   const int code = fill(p, batch, H, W, dg, N, nck, softplus, NT);
   if (code) return code;
   p.x = x;

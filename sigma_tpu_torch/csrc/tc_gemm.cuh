@@ -1,6 +1,7 @@
-// Tensor-core tile products for the grouped-scan kernels (sm_90a), shared by
-// csrc/scan_g_fwd.cu (K2's projections) and csrc/scan_g_bwd.cu (K4's
-// projections, the same tiles as K2's, and K5).
+// Tensor-core tile products for the scan kernels (sm_90a), shared by
+// csrc/scan_g_fwd.cu (K2's projections), csrc/scan_g_bwd.cu (K4's
+// projections, the same tiles as K2's, and K5) and csrc/scan_img.cu (K10's
+// projections, the same tiles with a row map).
 //
 // A block of kGemmThreads = 128 threads (four warps, 2 x 2) computes one
 // kBM x kBN = 64 x 64 fp32 tile of a product C = A B over k-tiles of
@@ -104,24 +105,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
+// The rows of an operand in order: row m of the tile's matrix is row m of
+// memory. A row map (m -> memory row) lets a tile gather its rows, each
+// still contiguous (K10's column-major image layout).
+struct IdentityRows {
+  __device__ __forceinline__ int operator()(int m) const { return m; }
+};
+
 // One operand tile of 64 rows x 32 contiguous elements: row r of the tile
-// is src + (row0 + r) * ld, elements [c0, c0 + 32) of it; rows from
+// is src + map(row0 + r) * ld, elements [c0, c0 + 32) of it; rows from
 // `rows` on and elements from `cols` on are zero. Row r, quad q of the
 // tile is load slot (r * 8 + q): eight threads read one 128-byte run.
 // Stored k-inner: the row is the m / n index, the elements are k.
 template <typename T>
 struct RowTile {
   float4 v[kLoads];
+  template <class Rows = IdentityRows>
   __device__ __forceinline__ void load(const T* src, int ld, int row0,
                                        int rows, int c0, int cols,
-                                       bool vec) {
+                                       bool vec, Rows map = Rows()) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = threadIdx.x + j * kGemmThreads;
       const int r = i / (kBK / 4), c = c0 + (i % (kBK / 4)) * 4;
       v[j] = row0 + r < rows && c < cols
-                 ? ld4_masked(src + (size_t)(row0 + r) * ld + c, cols - c,
-                              vec)
+                 ? ld4_masked(src + (size_t)map(row0 + r) * ld + c,
+                              cols - c, vec)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -136,16 +145,18 @@ struct RowTile {
 };
 
 // the same tile copied straight into shared memory (fp32 operands)
+template <class Rows = IdentityRows>
 __device__ __forceinline__ void row_tile_async(float* s, const float* src,
                                                int ld, int row0, int rows,
-                                               int c0, int cols, bool vec) {
+                                               int c0, int cols, bool vec,
+                                               Rows map = Rows()) {
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int i = threadIdx.x + j * kGemmThreads;
     const int r = i / (kBK / 4), q = (i % (kBK / 4)) * 4, c = c0 + q;
     const int n = row0 + r < rows ? min(max(cols - c, 0), 4) : 0;
-    cp_async4x(s + r * kPitchIn + q, src + (size_t)(row0 + r) * ld + c, n,
-               vec, src);
+    cp_async4x(s + r * kPitchIn + q, src + (size_t)map(row0 + r) * ld + c,
+               n, vec, src);
   }
 }
 
@@ -379,15 +390,17 @@ __device__ __forceinline__ void gemm_loop_async(int ntiles, int mrows,
 }
 
 // One 64 x 64 tile of a chain's projection P = u [W_dt | W_B | W_C]: ub
-// is the chain's u (L x dg), wdt its W_dt (dg x dg), wbc its [W_B | W_C]
-// (dg x 2N), P its (L x (dg + 2N)) fp32 rows. Rows m0.. of tokens, column
-// tile ty: tiles below ceil(dg / 64) lie in W_dt, the rest in [W_B | W_C],
-// decided once. 3xTF32 at fp32 io, exact 1xTF32 at bf16. K2 and K4 call it
-// with the same arguments, so K4 recomputes the bits K2 scanned.
-template <typename T>
+// is the chain's u (token m at row map(m) of ub, dg values each), wdt its
+// W_dt (dg x dg), wbc its [W_B | W_C] (dg x 2N), P its (L x (dg + 2N))
+// fp32 rows in token order. Rows m0.. of tokens, column tile ty: tiles
+// below ceil(dg / 64) lie in W_dt, the rest in [W_B | W_C], decided once.
+// 3xTF32 at fp32 io, exact 1xTF32 at bf16. K2 and K4 call it with the same
+// arguments, so K4 recomputes the bits K2 scanned.
+template <typename T, class Rows = IdentityRows>
 __device__ __forceinline__ void proj_tile(const T* ub, const T* wdt,
                                           const T* wbc, float* P, int L,
-                                          int dg, int N, int m0, int ty) {
+                                          int dg, int N, int m0, int ty,
+                                          Rows map = Rows()) {
   const int ntd = (dg + kBN - 1) / kBN;
   const bool in_dt = ty < ntd;
   const int n0 = (in_dt ? ty : ty - ntd) * kBN;
@@ -402,7 +415,7 @@ __device__ __forceinline__ void proj_tile(const T* ub, const T* wdt,
     gemm_loop_async<false, true, true>(
         ntiles, L - m0, nw - n0,
         [=](int kt, float* sa, float* sb) {
-          row_tile_async(sa, ub, dg, m0, L, kt * kBK, dg, vu);
+          row_tile_async(sa, ub, dg, m0, L, kt * kBK, dg, vu, map);
           k_tile_async(sb, wb, nw, kt * kBK, dg, n0, nw, vw);
         },
         [=](int kt) { return dg - kt * kBK; }, acc);
@@ -411,7 +424,7 @@ __device__ __forceinline__ void proj_tile(const T* ub, const T* wdt,
     gemm_loop<false, true, false, RowTile<T>, KTile<T>>(
         ntiles, L - m0, nw - n0,
         [=](int kt, RowTile<T>& ta, KTile<T>& tb) {
-          ta.load(ub, dg, m0, L, kt * kBK, dg, vu);
+          ta.load(ub, dg, m0, L, kt * kBK, dg, vu, map);
           tb.load(wb, nw, kt * kBK, dg, n0, nw, vw);
           return dg - kt * kBK;
         },

@@ -42,9 +42,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fwd": {
-        # u, dt, A, B, C, bias, D, y_accum, y, hck, nck, batch, G, L, dg,
-        # N, softplus, reverse, bf16, stream
-        "sigma_scan_fwd": [_P] * 10 + [_I] * 9 + [_P],
+        # u, dt, A, B, C, bias, D, y_accum, y, hloc, sd, n_chunk, hck, nck,
+        # batch, G, L, dg, N, softplus, reverse, bf16, stream
+        "sigma_scan_fwd": [_P] * 11 + [_I] + [_P] + [_I] * 9 + [_P],
         # u0, u1, wdt, wbc, A, bias, D, ya0, ya1, y0, y1, P, hloc, sd,
         # n_chunk, hck, nck, batch, G, L, dg, N, n_u, softplus, reverse,
         # swap_c, bf16, stream
@@ -79,9 +79,9 @@ _SIGNATURES = {
         "sigma_scan_cf_bwd": [_P] * 12 + [_I] * 6 + [_P],
     },
     "img": {
-        # x, wdt, wb, wc, A, bias, D, y4, hck, nck, batch, H, W, dg, N,
-        # softplus, bf16, stream
-        "sigma_scan_img_fwd": [_P] * 9 + [_I] * 8 + [_P],
+        # x, wdt, wbc, A, bias, D, y4, P, hloc, sd, n_chunk, hck, nck,
+        # batch, H, W, dg, N, softplus, bf16, stream
+        "sigma_scan_img_fwd": [_P] * 10 + [_I] + [_P] + [_I] * 8 + [_P],
         # x, wdt, wb, wc, A, bias, D, hck, dy, du4, dd, dA, dbias, dD, dBp,
         # dCp, nck, batch, H, W, dg, N, softplus, stream
         "sigma_scan_img_bwd": [_P] * 16 + [_I] * 7 + [_P],

@@ -17,17 +17,18 @@ the device of `u`: a CPU tensor takes the plain version (differentiated by
 autograd); a CUDA tensor launches the kernels or raises — there is no
 fallback.
 
-Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`):
-    K1 scan_fwd       streamed forward
+Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`,
+`csrc/chunk.cuh`, `csrc/chunk_fwd.cuh`):
+    K1 scan_fwd       streamed forward, chunk-parallel
     K2 scan_proj_fwd  forward that projects its own dt/B/C (tensor cores,
-                      into a scratch stream), then a chunk-parallel scan
+                      into a scratch stream), then K1's chunk-parallel scan
     K3 scan_bwd       streamed backward, chunk-parallel
     K4 scan_proj_bwd  backward that re-projects dt/B/C as K2 does (tensor
                       cores, into a scratch stream), then K3's body
     K5 proj_grad      weight gradients and the du chain term of K4
                       (tensor cores, TF32)
-`LAUNCHES` counts each wrapper's calls: K2's and K4's four launches, K3's
-three and K5's two count once per call.
+`LAUNCHES` counts each wrapper's calls: K2's and K4's four launches, K1's
+and K3's three and K5's two count once per call.
 
 K1-K4 hold the state in registers, at most 16 states (K1_MAX_STATE). A
 call with a wider state runs on CUDA tensors as slices of at most 16
@@ -170,6 +171,41 @@ def selective_scan_g_proj_ml_plain(us, w_dt, w_b, w_c, A, D=None,
     return y[:, 0], y[:, 1]
 
 
+def scan_checkpoints_plain(u, dts, A, bs, delta_bias=None,
+                           delta_softplus=False, reverse=False):
+    """The state checkpoints the forward kernels write, from a plain
+    token-by-token walk: (B, G, ceil(L / CK_TOKENS), N, dg), entry j the
+    state h (B, G, N, dg) as the walk enters 32-token segment j — before
+    token 32 j forward, before its last token (or L - 1) reversed. u, dts
+    (B, G, L, dg) (dts the raw delta), A (G, N, dg), bs (B, G, L, N),
+    delta_bias (G, dg). fp32 math (fp64 for fp64 inputs). A reference for
+    the chunk-parallel kernels' `hck` that shares no code with them."""
+    batch, G, L, dg = u.shape
+    N = A.shape[1]
+    ft = torch.promote_types(u.dtype, torch.float32)
+    u, d, A, bs = u.to(ft), dts.to(ft), A.to(ft), bs.to(ft)
+    if delta_bias is not None:
+        d = d + delta_bias.to(ft).reshape(G, dg)[None, :, None, :]
+    if delta_softplus:
+        d = torch.nn.functional.softplus(d)
+    du = d * u
+    h = torch.zeros((batch, G, N, dg), dtype=ft, device=u.device)
+    hck = torch.zeros((batch, G, _n_ck(L), N, dg), dtype=ft, device=u.device)
+    order = range(L - 1, -1, -1) if reverse else range(L)
+    block = 256  # tokens whose decays and inputs are formed at once
+    for i0 in range(0, L, block):
+        ps = list(order[i0:i0 + block])
+        idx = torch.tensor(ps, device=u.device)
+        a = torch.exp(d[:, :, idx, None, :] * A[None, :, None])
+        b = du[:, :, idx, None, :] * bs[:, :, idx, :, None]
+        for k, p in enumerate(ps):
+            if (p == L - 1 or (p + 1) % CK_TOKENS == 0) if reverse \
+                    else p % CK_TOKENS == 0:
+                hck[:, :, p // CK_TOKENS] = h
+            h = torch.addcmul(b[:, :, k], a[:, :, k], h)
+    return hck
+
+
 def proj_grad_plain(us, dd, dB, dC, w_dt, w_b, w_c):
     """K5's products: per chain, [dW_dt | dW_B | dW_C] = u^T [dd | dB | dC]
     and du_chain = [dd | dB | dC] [W_dt | W_B | W_C]^T, dC already routed
@@ -257,12 +293,22 @@ def _hck(batch, G, L, N, dg, like):
                        device=like.device)
 
 
+def _chunk_scratch(batch, G, L, N, dg, like):
+    """The chunk scans' scratch (K1, K2, K10): the chunk states, then the
+    carries, and the chunks' sums of d."""
+    n_chunk = -(-L // PROJ_CHUNK)
+    f32 = dict(dtype=torch.float32, device=like.device)
+    return (torch.empty((batch, G, n_chunk, N, dg), **f32),
+            torch.empty((batch, G, n_chunk, dg), **f32))
+
+
 def launch_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
                     delta_softplus=False, reverse=False, y_accum=None,
                     with_hck=False):
     """K1 on CUDA tensors of one io type (fp32 or bf16). Returns y like u,
     and with `with_hck` also the (B, G, ceil(L / CK_TOKENS), N, dg)
-    checkpoints."""
+    checkpoints. Its three launches (chunk states, carries, emission)
+    count as one."""
     batch, G, L, dg = u.shape
     N = A.shape[1]
     io = u.dtype
@@ -282,12 +328,14 @@ def launch_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
     dk = _param(D, (G, dg), u)
     y = torch.empty_like(streams[0])
     hck = _hck(batch, G, L, N, dg, u) if with_hck else None
+    hloc, sd = _chunk_scratch(batch, G, L, N, dg, u)
     lib = _build.library("fwd")
     with torch.cuda.device(u.device):
         code = lib.sigma_scan_fwd(
             streams[0].data_ptr(), streams[1].data_ptr(), a32.data_ptr(),
             streams[2].data_ptr(), streams[3].data_ptr(), bias.data_ptr(),
-            dk.data_ptr(), _ptr(ya), y.data_ptr(), _ptr(hck), _n_ck(L),
+            dk.data_ptr(), _ptr(ya), y.data_ptr(), hloc.data_ptr(),
+            sd.data_ptr(), hloc.shape[2], _ptr(hck), _n_ck(L),
             batch, G, L, dg, N, int(bool(delta_softplus)), int(bool(reverse)),
             int(io == torch.bfloat16), _stream(u),
         )
@@ -341,13 +389,11 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     dk = _param(D, (G, dg), us[0])
     ys = [torch.empty_like(u) for u in us]
     hck = _hck(batch, G, L, N, dg, us[0]) if with_hck else None
-    # scratch: the projected [dt | B | C] stream, the chunk states (then
-    # carries) and the chunks' sums of d
-    n_chunk = -(-L // PROJ_CHUNK)
-    f32 = dict(dtype=torch.float32, device=us[0].device)
-    proj = torch.empty((batch, G, L, dg + 2 * N), **f32)
-    hloc = torch.empty((batch, G, n_chunk, N, dg), **f32)
-    sd = torch.empty((batch, G, n_chunk, dg), **f32)
+    # scratch: the projected [dt | B | C] stream and the chunk scan's
+    proj = torch.empty((batch, G, L, dg + 2 * N), dtype=torch.float32,
+                       device=us[0].device)
+    hloc, sd = _chunk_scratch(batch, G, L, N, dg, us[0])
+    n_chunk = hloc.shape[2]
     pad = [None] * (2 - n_u)  # the second layout pointers are null at n_u 1
     lib = _build.library("fwd")
     with torch.cuda.device(us[0].device):
@@ -715,6 +761,7 @@ __all__ = [
     "launch_scan_proj_fwd",
     "proj_grad_plain",
     "reset_launches",
+    "scan_checkpoints_plain",
     "selective_scan_g",
     "selective_scan_g_plain",
     "selective_scan_g_proj",

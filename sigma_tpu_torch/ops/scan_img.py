@@ -10,14 +10,17 @@ sum in image order. Weights are indexed [direction, layout]:
     A (2, 2, N, dg) negative; D, delta_bias (2, 2, dg) optional
 
 Kernels (`csrc/scan_img.cu`):
-    K10 scan_img_fwd  all four chains in one launch, y as one plane per
-                      chain (summed here); with a gradient it also writes
-                      the state checkpoints `hck`
+    K10 scan_img_fwd  all four chains in one call: their projections on the
+                      tensor cores into a scratch stream, then the chunk-
+                      parallel scan K1 and K2 run (`csrc/chunk_fwd.cuh`),
+                      y as one plane per chain (summed here); with a
+                      gradient it also writes the state checkpoints `hck`
     K11 scan_img_bwd  the reverse sweep of every chain from `hck`
 and the weight gradients and du's chain term run on K5
 (`launch_proj_grad`, `csrc/scan_g_bwd.cu`), once per direction with the
 two layouts' cotangents in image order and us = (x, x). `LAUNCHES` counts
-K10 / K11; K5's launches count in `scan_g.LAUNCHES`.
+K10 (its four launches once) / K11; K5's launches count in
+`scan_g.LAUNCHES`.
 
 Dispatch goes by the device of `x`: a CPU tensor takes the plain version
 (`selective_scan_ss2d_proj_plain`, differentiated by autograd); a CUDA
@@ -84,6 +87,29 @@ def selective_scan_ss2d_proj_plain(x, w_dt, w_b, w_c, A, D=None,
     return out.to(x.dtype)
 
 
+def scan_checkpoints_img_plain(x, w_dt, w_b, A, delta_bias=None,
+                               delta_softplus=False):
+    """The state checkpoints K10 writes, in K11's layout (2, 2, B,
+    ceil(H W / 32), N, dg), from the plain token-by-token walk
+    (`scan_g.scan_checkpoints_plain`): per direction, the row-major and the
+    transposed sequence as two chains, reversed for direction 1. fp32
+    math (fp64 for fp64 inputs)."""
+    b, H, W, dg = x.shape
+    ft = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ft)
+    u = torch.stack([xf.reshape(b, H * W, dg),
+                     xf.transpose(1, 2).reshape(b, H * W, dg)], 1)
+    out = []
+    for d in range(2):
+        dts = torch.einsum("bgld,gde->bgle", u, w_dt[d].to(ft))
+        bs = torch.einsum("bgld,gdn->bgln", u, w_b[d].to(ft))
+        hck = scan_g.scan_checkpoints_plain(
+            u, dts, A[d], bs, _opt(delta_bias, d), delta_softplus,
+            reverse=d == 1)
+        out.append(hck.transpose(0, 1))  # (layout, B, n_ck, N, dg)
+    return torch.stack(out)
+
+
 # ------------------------------------------------------------ kernel launches
 def _n_ck(L):
     return -(-L // IMG_CK_TOKENS)
@@ -120,7 +146,8 @@ def launch_scan_img_fwd(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     if io not in (torch.float32, torch.bfloat16):
         raise TypeError(f"scan io dtype {io}")
     x = x.contiguous()
-    ws = [w.to(io).contiguous() for w in (w_dt, w_b, w_c)]
+    wdt = w_dt.to(io).contiguous()
+    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
     a32 = scan_g._param(A, (2, 2, N, dg), x)
     bias = scan_g._param(delta_bias, (2, 2, dg), x)
     dk = scan_g._param(D, (2, 2, dg), x)
@@ -128,14 +155,19 @@ def launch_scan_img_fwd(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     y4 = torch.empty((2, 2, batch, H, W, dg), dtype=io, device=x.device)
     hck = (torch.empty((2, 2, batch, _n_ck(L), N, dg), dtype=torch.float32,
                        device=x.device) if with_hck else None)
+    # scratch: each chain's projected [dt | B | C] in its token order and
+    # the chunk scan's
+    proj = torch.empty((batch, 4, L, dg + 2 * N), dtype=torch.float32,
+                       device=x.device)
+    hloc, sd = scan_g._chunk_scratch(batch, 4, L, N, dg, x)
     lib = _build.library("img")
     with torch.cuda.device(x.device):
         code = lib.sigma_scan_img_fwd(
-            x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
-            ws[2].data_ptr(), a32.data_ptr(), bias.data_ptr(), dk.data_ptr(),
-            y4.data_ptr(), scan_g._ptr(hck), _n_ck(L), batch, H, W, dg, N,
-            int(bool(delta_softplus)), int(io == torch.bfloat16),
-            scan_g._stream(x),
+            x.data_ptr(), wdt.data_ptr(), wbc.data_ptr(), a32.data_ptr(),
+            bias.data_ptr(), dk.data_ptr(), y4.data_ptr(), proj.data_ptr(),
+            hloc.data_ptr(), sd.data_ptr(), hloc.shape[2], scan_g._ptr(hck),
+            _n_ck(L), batch, H, W, dg, N, int(bool(delta_softplus)),
+            int(io == torch.bfloat16), scan_g._stream(x),
         )
         LAUNCHES["scan_img_fwd"] += 1
     _build.check(code, "scan_img_fwd", "img")
@@ -249,6 +281,7 @@ __all__ = [
     "launch_scan_img_bwd",
     "launch_scan_img_fwd",
     "reset_launches",
+    "scan_checkpoints_img_plain",
     "selective_scan_ss2d_proj",
     "selective_scan_ss2d_proj_plain",
 ]

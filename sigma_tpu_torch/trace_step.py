@@ -8,7 +8,7 @@ Builds the MFNet preset's train step as the train CLI does
 step to warm up, then traces one more with torch.profiler (CPU + CUDA
 activities) and prints: the host wall time of the traced step, the device's busy time
 (the union of its kernel and copy intervals) and idle share, the time of
-each kernel group (the port's seven kernels by name, then the rest), and
+each kernel group (the port's kernels by name, then the rest), and
 the 15 kernels with the most device time. Synthetic seeded uint8 inputs
 (`synthetic_batch`); needs a CUDA card (it raises without one). The SS2D
 epilogue is fused when SIGMA_FUSED_EPILOGUE is set (models/ss2d.py).
@@ -28,16 +28,18 @@ import torch
 TRAIN_BATCH = 2
 
 # kernel groups, first match wins (the scan kernels' C++ names; K3 and K4
-# share their chunk passes, told apart by the template's PROJ)
+# share their chunk passes, told apart by the template's PROJ; K1, K2 and
+# K10 share theirs, told apart by the operand source they are built on)
 GROUPS = (
     ("K4 scan_proj_bwd", ("bwd_proj_kernel", "adjoint_carry_kernel<true>")
      + tuple(f"adjoint_{p}_kernel<{n}, true>" for p in ("local", "emit")
              for n in (4, 8, 16))),
     ("K3 scan_bwd", ("adjoint_local_kernel", "adjoint_carry_kernel",
                      "adjoint_emit_kernel")),
-    ("K2 scan_proj_fwd", ("proj_gemm_kernel", "chunk_scan_kernel",
-                          "carry_kernel")),
-    ("K1 scan_fwd", ("scan_fwd_kernel",)),
+    ("K2 scan_proj_fwd", ("proj_gemm_kernel", "ProjSrc")),
+    ("K1 scan_fwd", ("StreamSrc",)),
+    ("K10 scan_img_fwd", ("img_proj_kernel", "ImgSrc")),
+    ("K11 scan_img_bwd", ("scan_img_bwd_kernel",)),
     ("K5 proj_grad", ("weight_grad_kernel", "du_chain_kernel")),
     ("K6 merge_ln_gate_fwd", ("merge_ln_gate_fwd_kernel",)),
     ("K7 merge_ln_gate_bwd", ("merge_ln_gate_bwd_kernel",)),

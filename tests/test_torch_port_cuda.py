@@ -10,8 +10,9 @@ take the edges it does not reach: channel and token counts that do not
 fill a tile, a chunk or a checkpoint segment, sequences below one chunk,
 ragged and over several chunks in both directions, every d_state width the
 kernels are built for, chain pairs beside n_u = 1, wide channel counts,
-the routing of the entry points, and the errors a wrapper raises. K2's
-checkpoints are held to K1's sequential walk, and K2, K3, K4 and K5 rerun
+the routing of the entry points, and the errors a wrapper raises. The
+checkpoints of K1, K2 and K10 are held to a plain token-by-token walk
+(`scan_g.scan_checkpoints_plain`), and K1, K2, K3, K4, K5 and K10 rerun
 bit for bit. The backward kernels (K3-K5) are held to autograd of the
 plain versions, every cotangent of each entry point, and bf16 with a
 gradient returns bf16 gradients at every scan entry point. The
@@ -100,9 +101,9 @@ def _projected(G, dg, N, dtype, dev, seed):
 @pytest.mark.parametrize("N", [1, 5, 16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_streamed_kernel_matches_plain(dev, dtype, N, reverse):
-    """K1 at 50 channels (a partial 64-channel block) and 77 tokens (a
-    partial 64-token tile); the reversed call carries y_accum, as the
-    main path's second direction group does."""
+    """K1 at 50 channels (a partial 32-channel tile) and 77 tokens (one
+    ragged chunk); the reversed call carries y_accum, as the main path's
+    second direction group does."""
     t = _streamed(2, 3, 77, 50, N, dtype, dev, seed=N)
     ya = t["ya"] if reverse else None
     kw = dict(D=t["D"], delta_bias=t["bias"], delta_softplus=True,
@@ -117,6 +118,47 @@ def test_streamed_kernel_matches_plain(dev, dtype, N, reverse):
             want = want + ya.float()
     assert got.dtype == dtype and got.shape == t["u"].shape
     _close(got, want.to(dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", [1, 77, 128, 129, 300, 1000])
+def test_streamed_kernel_over_chunks(dev, dtype, reverse, L):
+    """K1 (chunk-parallel) below one chunk, on one, one past it, ragged and
+    over several, both directions, with y_accum, at 40 channels (a partial
+    channel tile), against the plain scan."""
+    t = _streamed(2, 2, L, 40, 16, dtype, dev, seed=L)
+    kw = dict(D=t["D"], delta_bias=t["bias"], delta_softplus=True,
+              reverse=reverse)
+    with torch.inference_mode():
+        got = scan_g.launch_scan_fwd(t["u"], t["dt"], t["A"], t["B"],
+                                     t["C"], y_accum=t["ya"], **kw)
+        want = scan_g.selective_scan_g_plain(
+            t["u"].float(), t["dt"].float(), t["A"], t["B"].float(),
+            t["C"].float(), **kw) + t["ya"].float()
+    assert got.dtype == dtype and got.shape == t["u"].shape
+    _close(got, want.to(dtype), dtype)
+
+
+@pytest.mark.parametrize("L", [77, 300, 1000])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_streamed_checkpoints_and_reruns(dev, L, reverse):
+    """K1 with checkpoints: its hck equals the plain walk's states; a rerun
+    gives the same bits (y and hck); y without checkpoints (eval) has the
+    same bits as y with them."""
+    t = _streamed(2, 3, L, 40, 16, torch.float32, dev, seed=L + 5)
+    args = (t["u"], t["dt"], t["A"], t["B"], t["C"])
+    kw = dict(D=t["D"], delta_bias=t["bias"], delta_softplus=True,
+              reverse=reverse, y_accum=t["ya"])
+    with torch.inference_mode():
+        y1, h1 = scan_g.launch_scan_fwd(*args, with_hck=True, **kw)
+        y2, h2 = scan_g.launch_scan_fwd(*args, with_hck=True, **kw)
+        y0 = scan_g.launch_scan_fwd(*args, **kw)
+        want = scan_g.scan_checkpoints_plain(
+            t["u"], t["dt"], t["A"], t["B"], t["bias"], True, reverse)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(y0, y1)
+    _close(h1, want, torch.float32)
 
 
 PROJ_CASES = [
@@ -417,9 +459,9 @@ def test_proj_grad_matches_plain(dev):
 @pytest.mark.parametrize("L", [77, 300, 1000])
 def test_fused_projection_checkpoints_and_reruns(dev, L):
     """K2 (chunk-parallel) with checkpoints, reversed with y_accum and the
-    C swap: its hck equals the states of K1's sequential walk over the
-    same projections; a rerun gives the same bits; y without checkpoints
-    (eval) has the same bits as y with them."""
+    C swap: its hck equals the states of the plain walk over the same
+    projections; a rerun gives the same bits; y without checkpoints (eval)
+    has the same bits as y with them."""
     G, dg, N = 2, 40, 16
     p = _projected(G, dg, N, torch.float32, dev, seed=L)
     a = _arrays(L + 1, u=(2, G, L, dg), ya=(2, G, L, dg))
@@ -433,11 +475,9 @@ def test_fused_projection_checkpoints_and_reruns(dev, L):
         (y2,), h2 = scan_g.launch_scan_proj_fwd((u,), *ws, with_hck=True,
                                                 **kw)
         (y0,) = scan_g.launch_scan_proj_fwd((u,), *ws, **kw)
-        dts, bs, cs = (u @ w for w in ws[:3])
-        _, want = scan_g.launch_scan_fwd(
-            u, dts, p["A"], bs, scan_g._pair_swap(cs), D=p["D"],
-            delta_bias=p["bias"], delta_softplus=True, reverse=True,
-            with_hck=True)
+        dts, bs = (u @ w for w in ws[:2])
+        want = scan_g.scan_checkpoints_plain(u, dts, p["A"], bs, p["bias"],
+                                             True, True)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
     assert torch.equal(y0, y1)
     _close(h1, want, torch.float32)
@@ -933,6 +973,29 @@ def test_image_kernel_bf16_and_bounds(dev):
     wide = _image(1, 2, 3, 8, 257, dev, seed=121)
     with pytest.raises(ValueError, match="at most 256"):
         scan_g.selective_scan_ss2d_proj(**wide)
+
+
+@pytest.mark.parametrize("b,H,W,dg,N", [(2, 7, 9, 40, 16), (1, 12, 25, 64, 4),
+                                        (1, 5, 6, 24, 20)])
+def test_image_forward_checkpoints_and_reruns(dev, b, H, W, dg, N):
+    """K10 (chunk-parallel) with checkpoints: its hck, in K11's layout,
+    equals the plain walk's states (below one chunk, over several with the
+    last ragged, two state tiles); a rerun gives the same bits (y and hck);
+    y without checkpoints has the same bits."""
+    t = _image(b, H, W, dg, N, dev, seed=140 + N)
+    args = [t[k] for k in ("x", "w_dt", "w_b", "w_c", "A", "D",
+                           "delta_bias")]
+    with torch.inference_mode():
+        y1, h1 = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
+                                              with_hck=True)
+        y2, h2 = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
+                                              with_hck=True)
+        y0 = scan_img.launch_scan_img_fwd(*args, delta_softplus=True)
+        want = scan_img.scan_checkpoints_img_plain(
+            t["x"], t["w_dt"], t["w_b"], t["A"], t["delta_bias"], True)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(y0, y1)
+    _close(h1, want, torch.float32)
 
 
 def test_image_backward_reruns_bit_for_bit(dev):

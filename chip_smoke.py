@@ -61,7 +61,10 @@ its findings:
                 its kernels once and nothing else; the counters are zeroed
                 before these calls and read after them. Then K8, K9, K1
                 and K3 are timed launched alone against the plain
-                versions and their bounds, K8 beside K1 on the same scan.
+                versions and their bounds, K8 beside K1 on the same scan;
+                K8 (y, hck) reruns bit for bit and its carries into each
+                256-token chunk hold the plain token-by-token walk's
+                states (`scan_g.scan_checkpoints_plain`).
   6. image    — the image-layout SS2D scan `selective_scan_ss2d_proj` (K10
                 forward, K11 + K5 backward) at sigma_tiny's four trunk SS2D
                 shapes at 480x640, batch 2 (RGB and X stacked), d_state
@@ -78,7 +81,9 @@ its findings:
                 alone, the plain version, and the same function through
                 the route the port's SS2D takes today (the wh transpose
                 copy, two selective_scan_g_proj_ml calls, the
-                un-transpose), forward and forward + backward.
+                un-transpose), forward and forward + backward, the image
+                route's forward + backward beside the two-call route's on
+                one line per stage.
   7. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
                 seeded 480x640 RGB-X pairs through the port's
                 SlidingEvaluator.run under the MFNet preset, with the fused
@@ -315,7 +320,8 @@ def _work(kernel, kw, reverse=False):
     image's four chains: K10 reads x once and writes y once, with its
     projections (the JAX package's count); K11 reads x, dy and the
     checkpoints and writes du once, dd / dB / dC per chain and dA /
-    dbias / dD, with the scan backward and the re-projections."""
+    dbias / dD, with the scan backward and the re-projections (K10's and
+    K11's projections count at the TF32 rate, `_tf32_ops`)."""
     from sigma_tpu_torch.ops.scan_cf import CF_CHUNK
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
     from sigma_tpu_torch.ops.scan_img import IMG_CK_TOKENS
@@ -368,9 +374,9 @@ def _work(kernel, kw, reverse=False):
 
 def _tf32_ops(kernel, kw):
     """The operations of `_work` that run on the tensor cores (TF32): K2's,
-    K4's and K10's projections and K5's two products; the rest run on the
-    fp32 cores."""
-    if kernel == "scan_img_fwd":
+    K4's, K10's and K11's projections and K5's two products; the rest run
+    on the fp32 cores."""
+    if kernel in IMAGE:
         return 2 * 4 * kw["B"] * kw["H"] * kw["W"] * kw["dg"] * (
             kw["dg"] + 2 * kw["N"])
     if kernel not in ("scan_proj_fwd", "scan_proj_bwd", "proj_grad"):
@@ -1079,6 +1085,11 @@ def _per_row(x, kw):
                     G, dg))
 
 
+def _rows(t, batch, G, width):
+    """(batch, G*width, L) channel-first -> (batch, G, L, width)."""
+    return t.reshape(batch, G, width, -1).transpose(2, 3)
+
+
 def _ops_grads(fn, x, dy):
     """y = fn(**x) and the gradients of sum(y * dy) w.r.t. all seven
     inputs."""
@@ -1101,8 +1112,10 @@ def ops_phase(device, reps=3):
     fp32 and bf16 io forward at every stage and all seven gradients (fp32)
     at stages 0 and 3, against the plain versions (autograd, each chunk
     recomputed). Counters are zeroed before and read after these calls;
-    each must launch its kernels once and nothing else. Then K8, K9 and
-    K1 / K3 on the per-row scan are timed launched alone. Returns
+    each must launch its kernels once (one call per wrapper) and nothing
+    else. Then K8, K9 and K1 / K3 on the per-row scan are timed launched
+    alone; K8 reruns bit for bit and its checkpoints hold the plain
+    walk's states. Returns
     (summary of K8 / K9, summary of K1 / K3 on the per-row calls, the
     counts); raises on disagreement."""
     import torch
@@ -1215,8 +1228,25 @@ def ops_phase(device, reps=3):
         dy = torch.randn(x["u"].shape, device=device)
         dyg = torch.randn(grouped["u"].shape, device=device)
         with torch.no_grad():
-            _, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+            y8, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+            y8b, hck8b = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
             _, hck1 = scan_g.launch_scan_fwd(*streamed, with_hck=True)
+            # K8's carries into each CF_CHUNK-token chunk against the plain
+            # token-by-token walk (every CF_CHUNK / CK_TOKENS-th checkpoint)
+            walk = scan_g.scan_checkpoints_plain(
+                _rows(x["u"], batch, G, dg), _rows(d_eff, batch, G, dg),
+                xr["A"], grouped["B"])
+            want_hck = walk[:, :, ::scan_cf.CF_CHUNK // scan_g.CK_TOKENS] \
+                .transpose(-1, -2).reshape(hck.shape)
+        hck_err, hck_ok = _scaled_err(hck, want_hck)
+        rerun8 = torch.equal(y8, y8b) and torch.equal(hck, hck8b)
+        for ok, what in ((rerun8, "K8 (y, hck) rerun changed bits"),
+                         (hck_ok, f"K8 hck against the plain walk "
+                                  f"{hck_err:.3e}")):
+            if not ok:
+                failures.append(f"ops: {tag} {what}")
+        del y8, y8b, hck8b, walk, want_hck
+        with torch.no_grad():
             ms = {
                 "scan_cf_fwd": _time_ms(
                     lambda: scan_cf.launch_scan_cf_fwd(*core), reps),
@@ -1253,7 +1283,10 @@ def ops_phase(device, reps=3):
                          f"{bounds[k][0]:.4f} {bounds[k][1]})"
                          for k in ms)
               + f"; same scan, channel-first K8 / per-row K1: "
-                f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms", flush=True)
+                f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms; K8 hck "
+                f"against the plain walk max_abs_err={hck_err:.3e} "
+                f"{'ok' if hck_ok else 'FAIL'}; K8 (y, hck) rerun bit for bit "
+                f"{'ok' if rerun8 else 'FAIL'}", flush=True)
         for k in ms:
             m = (summary if k in OPS else per_row)[k]
             if ms[k] > m["ms"]:
@@ -1551,6 +1584,11 @@ def image_phase(device, reps=3):
                 _time_ms(lambda: fwd_bwd(plain), 1, warm=False)
                 - _time_ms(lambda: fwd_bwd(plain, False), 1, warm=False))
         bounds = {k: _bound(k, kw) for k in IMAGE}
+        print(f"image: {tag} forward + backward ms: image route (K10 + K11 "
+              f"+ 2 K5) {ms['image_fwd_bwd']:.4f}, two-call route "
+              f"{ms['two_call_fwd_bwd']:.4f}; forward: K10 "
+              f"{ms['scan_img_fwd']:.4f}, two-call route "
+              f"{ms['two_call_fwd']:.4f}", flush=True)
         print(f"image: {tag} {kw} ms "
               + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
               + " bound " + " ".join(f"{k}={b[0]:.4f} ({b[1]})"

@@ -1,5 +1,6 @@
-// Chunk-parallel machinery shared by the grouped scan's forward (K2,
-// csrc/scan_g_fwd.cu) and backward (K3 / K4, csrc/scan_g_bwd.cu).
+// Chunk-parallel machinery shared by the forward chunk scan
+// (csrc/chunk_fwd.cuh: K1, K2, K8, K10) and the backward one
+// (csrc/chunk_bwd.cuh: K3, K4, K11).
 //
 // Both cut a chain's sequence into chunks of kChunk = 128 physical tokens
 // (aligned with the kSeg = 32-token checkpoint segments, the last chunk
@@ -28,6 +29,9 @@ constexpr unsigned kFull = 0xffffffffu;
 static_assert(kChunk % kSeg == 0, "chunks must align with hck segments");
 static_assert(kSeg % kItems == 0, "a segment entry starts a lane's run");
 
+// checkpoint segments of a sequence of L tokens
+__host__ __device__ inline int n_ck_of(int L) { return (L + kSeg - 1) / kSeg; }
+
 // log(1 + e^x) without overflow: max(x, 0) + log1p(e^-|x|)
 __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
@@ -42,6 +46,13 @@ __device__ __forceinline__ int phys(int c, int k, int reverse) {
 // l * (kItems + 1), so 32 lanes reading item j of their runs from rows of
 // odd pitch hit 32 banks
 __device__ __forceinline__ int slot(int k) { return k + k / kItems; }
+
+// the sum over a warp's 32 lanes, in a fixed order
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
 
 // inclusive scans over groups of W lanes, the group's first lane first, of
 // h -> a h + b, for Q independent maps at once (their shuffles interleave):

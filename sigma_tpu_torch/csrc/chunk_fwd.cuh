@@ -1,5 +1,6 @@
-// The chunk-parallel forward scan shared by K1 and K2 (csrc/scan_g_fwd.cu)
-// and K10 (csrc/scan_img.cu). Per chain g, channel e, state n:
+// The chunk-parallel forward scan shared by K1 and K2 (csrc/scan_g_fwd.cu),
+// K8 (csrc/scan_cf.cu) and K10 (csrc/scan_img.cu). Per chain g, channel
+// e, state n:
 //     d_t = softplus(dt_t + bias_e)                 (softplus optional)
 //     h_t = exp(d_t A_ne) h_{t-1} + d_t u_t B_tn    (fp32 state)
 //     y_t = sum_n C_tn h_tn + D_e u_t (+ y_accum_t)
@@ -24,10 +25,13 @@
 //     launches the instantiation without it, so serving pays nothing for
 //     checkpoints.
 // u, d, B, C and y pass through shared memory in walk order, so every
-// global access is a row of 32 channels (or of the states) of one token;
-// A and the carries of the block's channels are staged there too, so the
-// scan's inner loop reads no device memory. Tokens past L walk as
-// identities (d = 0: a = 1, b = 0).
+// global access is a row of 32 channels (or of the states) of one token —
+// or, for a source whose tokens are contiguous (kTokenMajor: K8's
+// channel-first layout), a run of the chunk's 128 tokens of one channel
+// (or state), which the staging transposes into the same walk slots; A and
+// the carries of the block's channels are staged there too, so the scan's
+// inner loop reads no device memory. Tokens past L walk as identities
+// (d = 0: a = 1, b = 0).
 //
 // State tiles. A block holds NT <= 16 states (4, 8 or 16). K1 and K2 take
 // N <= NT. K10 takes N up to 256 with TILED: the block walks the states in
@@ -41,8 +45,11 @@
 //                              position:
 //     float u_at(t, e), dt_at(t, e) (raw, before the bias), b_at(t, n),
 //     c_at(t, n) (n < N); void put_y(t, e, v) stores y (adding y_accum if
-//     the source has one); float* hck, the chain's (n_ck, N, dg)
-//     checkpoints (read only under CK).
+//     the source has one); void put_hck(j, n, e, v) stores entry j of the
+//     chain's checkpoints (called only under CK; K8 keeps every 8th);
+//   float a_at(g, n, e)        A of chain g (FwdArgs: A as (G, N, dg));
+//   kTokenMajor                the staging order (FwdArgs: false).
+// A null bias or D counts as zero (K8: the caller applies them).
 // Chain instance z = b * G + g (blockIdx.z) indexes hloc and sd.
 
 #pragma once
@@ -78,13 +85,17 @@ static_assert(4 % kFwdIlp == 0, "the state tiles hold whole groups");
 // What every source carries. hloc, sd: scratch of (chains, n_chunk, N, dg)
 // and (chains, n_chunk, dg) fp32, chains = batch * G; hck may be null.
 struct FwdArgs {
-  const float* A;     // (G, N, dg)
-  const float* bias;  // (G, dg)
-  const float* Dk;    // (G, dg)
+  static constexpr bool kTokenMajor = false;  // a source's rows are tokens
+  const float* A;     // (G, N, dg), or as the source's a_at reads it
+  const float* bias;  // (G, dg), may be null
+  const float* Dk;    // (G, dg), may be null
   float* hloc;
   float* sd;
   float* hck;
   int G, L, dg, N, softplus, n_chunk;
+  __device__ float a_at(int g, int n, int e) const {
+    return A[((size_t)g * N + n) * dg + e];
+  }
 };
 
 inline void set_fwd_args(FwdArgs& p, const float* A, const float* bias,
@@ -104,8 +115,6 @@ inline void set_fwd_args(FwdArgs& p, const float* A, const float* bias,
   p.softplus = softplus;
   p.n_chunk = n_chunk;
 }
-
-__host__ __device__ inline int n_ck_of(int L) { return (L + kSeg - 1) / kSeg; }
 
 // EMIT false: the chunk's state from zero and sum of d. EMIT true: y and,
 // under CK, the checkpoints. Warp w walks channels w, w + 8, w + 16, w + 24
@@ -136,12 +145,13 @@ chunk_scan_kernel(const S p) {
   // stage the chunk's u and d in walk order
 #pragma unroll 4
   for (int i = threadIdx.x; i < kChunk * kFwdChan; i += kFwdThreads) {
-    const int k = i / kFwdChan, ch = i % kFwdChan, e = e0 + ch;
+    const int k = S::kTokenMajor ? i % kChunk : i / kFwdChan;
+    const int ch = S::kTokenMajor ? i / kChunk : i % kFwdChan, e = e0 + ch;
     const int t = phys(c, k, rev);
     float uv = 0.f, dv = 0.f;
     if (t < L && e < dg) {
       uv = v.u_at(t, e);
-      dv = v.dt_at(t, e) + p.bias[(size_t)g * dg + e];
+      dv = v.dt_at(t, e) + (p.bias ? p.bias[(size_t)g * dg + e] : 0.f);
       if (p.softplus) dv = softplus_f(dv);
     }
     us[slot(k) * kLdC + ch] = uv;
@@ -153,7 +163,8 @@ chunk_scan_kernel(const S p) {
     const bool last = !TILED || s0 + NT >= N;
     if (TILED && s0 > 0) __syncthreads();  // the last tile is written out
     for (int i = threadIdx.x; i < kChunk * NT; i += kFwdThreads) {
-      const int k = i / NT, n = i % NT;
+      const int k = S::kTokenMajor ? i % kChunk : i / NT;
+      const int n = S::kTokenMajor ? i / kChunk : i % NT;
       const int t = phys(c, k, rev);
       const bool ok = t < L && n < ns;
       bs[slot(k) * kLdN + n] = ok ? v.b_at(t, s0 + n) : 0.f;
@@ -163,7 +174,7 @@ chunk_scan_kernel(const S p) {
     for (int i = threadIdx.x; i < NT * kFwdChan; i += kFwdThreads) {
       const int n = i / kFwdChan, e = e0 + i % kFwdChan;
       const bool ok = n < ns && e < dg;
-      as[i] = ok ? p.A[((size_t)g * N + s0 + n) * dg + e] : 0.f;
+      as[i] = ok ? p.a_at(g, s0 + n, e) : 0.f;
       if (EMIT) hs[i] = ok ? p.hloc[slab + (size_t)(s0 + n) * dg + e] : 0.f;
     }
     __syncthreads();
@@ -227,7 +238,7 @@ chunk_scan_kernel(const S p) {
         }
       }
       if (EMIT && last) {
-        const float d_e = p.Dk[(size_t)g * dg + e];
+        const float d_e = p.Dk ? p.Dk[(size_t)g * dg + e] : 0.f;
 #pragma unroll
         for (int j = 0; j < kItems; ++j)
           us[slot(lane * kItems + j) * kLdC + ch] = fmaf(d_e, uk[j], yk[j]);
@@ -261,14 +272,14 @@ chunk_scan_kernel(const S p) {
         const int ch = i % kFwdChan, e = e0 + ch;
         const int j = phys(c, s * kSeg, rev) / kSeg;
         if (j < n_ck && e < dg)
-          v.hck[((size_t)j * N + s0 + n) * dg + e] =
-              hk[(s * NT + n) * kFwdChan + ch];
+          v.put_hck(j, s0 + n, e, hk[(s * NT + n) * kFwdChan + ch]);
       }
     }
   }
   if (!EMIT) return;
   for (int i = threadIdx.x; i < kChunk * kFwdChan; i += kFwdThreads) {
-    const int k = i / kFwdChan, ch = i % kFwdChan, e = e0 + ch;
+    const int k = S::kTokenMajor ? i % kChunk : i / kFwdChan;
+    const int ch = S::kTokenMajor ? i / kChunk : i % kFwdChan, e = e0 + ch;
     const int t = phys(c, k, rev);
     if (t < L && e < dg) v.put_y(t, e, us[slot(k) * kLdC + ch]);
   }
@@ -285,7 +296,7 @@ __global__ void carry_kernel(const S p, int chains) {
   const int e = i % dg, n = (i / dg) % N;
   const size_t bg = i / ((size_t)N * dg);
   const int g = bg % p.G;
-  const float an = p.A[((size_t)g * N + n) * dg + e];
+  const float an = p.a_at(g, n, e);
   walk_carries(p.hloc + (bg * p.n_chunk * N + n) * dg + e,
                p.sd + bg * p.n_chunk * dg + e, (size_t)N * dg, dg, an,
                p.n_chunk, p.rev(g));

@@ -2,8 +2,8 @@
 // interface for ctypes. Built by sigma_tpu_torch/ops/_build.py with nvcc.
 //
 // Replaces the core of selective_scan(backend="pallas"):
-//   K8 scan_cf_fwd_kernel — sigma_tpu/ops/pallas_scan.py::_fwd_kernel (:41,
-//      pallas_call :94 in _fwd_call);
+//   K8 — sigma_tpu/ops/pallas_scan.py::_fwd_kernel (:41, pallas_call :94 in
+//      _fwd_call): the chunk scan of csrc/chunk_fwd.cuh (CfSrc);
 //   K9 scan_cf_bwd_kernel — sigma_tpu/ops/pallas_scan_bwd.py::_bwd_kernel
 //      (:49, pallas_call :176 in selective_scan_pallas_bwd).
 // Layout of the reference's CUDA extension: a row r = (batch, group g) holds
@@ -17,30 +17,27 @@
 //     dA_en = sum_t dh_t a_t h_{t-1} d_t  dB_nt = sum_e dh_t d_t u_t
 //     dC_nt = sum_e h_t dy_t
 //
-// Bound: device memory. K8 reads u and d and writes y, 12 bytes per token
-// and channel, plus B and C once per row (at sigma_tiny's stage 0, batch
-// 2, 4 directions: about 374 MB, 0.11 ms at 3.35 TB/s), against 9N flops
-// (0.06 ms at 67 TFLOP/s). K9 moves 20 bytes per token and channel.
+// K8. Bound: device memory. It reads u and d and writes y, 12 bytes per
+// token and channel, plus B and C once per row (at sigma_tiny's stage 0,
+// batch 2, 4 directions: about 374 MB, 0.11 ms at 3.35 TB/s), against 9N
+// flops (0.06 ms at 67 TFLOP/s). Design: the three-pass chunk scan that
+// K1, K2 and K10 run (csrc/chunk_fwd.cuh), over a channel-first operand
+// source (CfSrc): 128-token chunks from a zero state, the fixed-order
+// carry pass, the emission. Work spreads over (chunk, 32 channels, row):
+// 7,200 blocks at sigma_tiny's trunk stage 0. The body's other sources
+// read one row of 32 channels per token; here each channel's (and
+// state's) tokens are contiguous, so the source is token-major
+// (kTokenMajor): a block's u / d tile is 32 runs of 512 bytes, transposed
+// into the body's walk slots as it is staged, and y leaves the same way.
+// d_state up to 256 through the body's state tiles (TILED). A is read in
+// the reference's (G dg, N) layout (a_at). For K9, the source keeps every
+// 8th 32-token checkpoint of the body, the carry into each kChunk =
+// 256-token chunk, in K9's layout hck (rows, nl, dg, N).
 //
-// Design (after the reference's chunked cub scan, not the TPU's lane-roll
-// doubling scan). The TPU walked chunks in grid order with the carry in
-// VMEM; here the tokens of a chunk are scanned in parallel:
-//   - one warp owns one channel; a block owns kWarps channels of one row,
-//     so the B/C rows it stages in shared memory (coalesced along L, one
-//     pad word per lane run against bank conflicts) serve kWarps channels;
-//   - a chunk is kChunk = 32 x kItems tokens: each lane takes kItems
-//     consecutive tokens and folds them sequentially into one (a, b) pair
-//     per state; a warp-shuffle scan combines the 32 pairs with
-//     (a1 a0, a1 b0 + b1) (selective_scan.py's operator); each lane then
-//     starts from the chunk's carry and its exclusive prefix and forms
-//     h_t and y_t for its tokens;
-//   - states run in a loop (kStates of B/C staged at a time), so
-//     registers stay flat in N; N is capped at 256, the reference's bound;
-//   - the carry into each chunk is kept in shared memory per (channel,
-//     state) and, when the caller asks for it, stored to hck
-//     (rows, n_chunks, dg, N) for K9.
-// K9 walks the chunks last to first. Per chunk and state it recomputes h
-// from the saved carry with the same forward scan, then runs the adjoint
+// K9 (after the reference's chunked cub scan; still sequential over the
+// chunks) walks the 256-token chunks last to first, one warp per channel.
+// Per chunk and state it recomputes h from the saved carry with a forward
+// shuffle scan over 32 lanes of 8 tokens, then runs the adjoint
 // as a suffix scan of the same operator over the lanes (shuffle down):
 // a_{t+1} at a lane's last token is the next lane's first a, or, at the
 // chunk's end, exp(d A) of the next chunk's first token
@@ -59,6 +56,8 @@
 
 #include <cstddef>
 
+#include "chunk_fwd.cuh"
+
 namespace {
 
 constexpr int kItems = 8;                        // consecutive tokens a lane scans
@@ -66,7 +65,6 @@ constexpr int kChunk = 32 * kItems;              // tokens per chunk
 constexpr int kLdT = kChunk + kChunk / kItems;   // padded staging row
 constexpr int kStates = 16;                      // B/C states staged at a time
 constexpr int kMaxState = 256;
-constexpr int kWarpsF = 4;                       // K8: channels per block
 constexpr int kWarpsB = kChunk / 32;             // K9: one thread per token sums
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -118,90 +116,55 @@ __device__ __forceinline__ void stage_bc(float* Bs, float* Cs,
 }
 
 // ---------------------------------------------------------------- K8
-__global__ void __launch_bounds__(kWarpsF * 32)
-scan_cf_fwd_kernel(const float* __restrict__ u, const float* __restrict__ d,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ Cm, float* __restrict__ y,
-                   float* __restrict__ hck, int G, int dg, int L, int N,
-                   int nl) {
-  __shared__ float Bs[kStates * kLdT];
-  __shared__ float Cs[kStates * kLdT];
-  __shared__ float hs[kWarpsF * kMaxState];  // carry per (channel, state)
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int r = blockIdx.y, g = r % G;
-  const int e = blockIdx.x * kWarpsF + w;
-  const bool active = e < dg;  // warp-uniform
-  const int ec = active ? e : dg - 1;
-  const size_t row = (size_t)r * dg + ec;
-  const float* u_r = u + row * L;
-  const float* d_r = d + row * L;
-  float* y_r = y + row * L;
-  const float* A_r = A + ((size_t)g * dg + ec) * N;
-  const float* B_r = Bm + (size_t)r * N * L;
-  const float* C_r = Cm + (size_t)r * N * L;
-  float* h_w = hs + w * kMaxState;
-  for (int i = threadIdx.x; i < kWarpsF * kMaxState; i += blockDim.x)
-    hs[i] = 0.f;
+// K8's operands for the chunk scan (csrc/chunk_fwd.cuh): u, d, y (rows, dg,
+// L) and Bm, Cm (rows, N, L), row r = b G + g; hck null or (rows, nl, dg,
+// N); A (G dg, N). The body's bias and D are null: the caller applies
+// them.
+struct CfSrc : chunk::FwdArgs {
+  static constexpr bool kTokenMajor = true;
+  const float* u;
+  const float* d;
+  const float* Bm;
+  const float* Cm;
+  float* y;
+  int nl;
 
-  for (int c = 0; c < nl; ++c) {
-    const int t0 = c * kChunk + lane * kItems;  // this lane's first token
-    float dl[kItems], du[kItems], yv[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const bool ok = t0 + k < L;
-      dl[k] = ok ? d_r[t0 + k] : 0.f;
-      du[k] = ok ? dl[k] * u_r[t0 + k] : 0.f;
-      yv[k] = 0.f;
+  struct View {
+    const float *u, *d, *Bm, *Cm;
+    float* y;
+    float* hck;
+    int L, dg, N;
+    __device__ float u_at(int t, int e) const { return u[(size_t)e * L + t]; }
+    __device__ float dt_at(int t, int e) const {
+      return d[(size_t)e * L + t];
     }
-    __syncthreads();  // the carries (and at c = 0 their zeros) are written
-    if (hck && active)
-      for (int n = lane; n < N; n += 32)
-        hck[(((size_t)r * nl + c) * dg + e) * N + n] = h_w[n];
-    for (int n0 = 0; n0 < N; n0 += kStates) {
-      const int ns = min(kStates, N - n0);
-      __syncthreads();  // the previous states' B/C are consumed
-      stage_bc(Bs, Cs, B_r, C_r, n0, ns, c, L);
-      __syncthreads();
-      for (int j = 0; j < ns; ++j) {
-        const int n = n0 + j;
-        const float an = A_r[n];
-        const float* Bj = Bs + j * kLdT + lane * (kItems + 1);
-        const float* Cj = Cs + j * kLdT + lane * (kItems + 1);
-        float a[kItems], b[kItems], pa = 1.f, pb = 0.f;
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          a[k] = __expf(dl[k] * an);
-          b[k] = du[k] * Bj[k];
-          pb = fmaf(a[k], pb, b[k]);
-          pa *= a[k];
-        }
-        scan_up(pa, pb, lane);
-        float ea = __shfl_up_sync(kFull, pa, 1);
-        float eb = __shfl_up_sync(kFull, pb, 1);
-        if (lane == 0) {
-          ea = 1.f;
-          eb = 0.f;
-        }
-        const float hc = h_w[n];
-        float h = fmaf(ea, hc, eb);
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          h = fmaf(a[k], h, b[k]);
-          yv[k] = fmaf(Cj[k], h, yv[k]);
-        }
-        const float hn = fmaf(__shfl_sync(kFull, pa, 31), hc,
-                              __shfl_sync(kFull, pb, 31));
-        __syncwarp();  // every lane has read the old carry
-        if (lane == 0) h_w[n] = hn;
-      }
+    __device__ float b_at(int t, int n) const {
+      return Bm[(size_t)n * L + t];
     }
-    if (active) {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
-        if (t0 + k < L) y_r[t0 + k] = yv[k];
+    __device__ float c_at(int t, int n) const {
+      return Cm[(size_t)n * L + t];
     }
+    __device__ void put_y(int t, int e, float v) const {
+      y[(size_t)e * L + t] = v;
+    }
+    // checkpoint j enters token 32 j: every kChunk / 32-th is K9's carry
+    __device__ void put_hck(int j, int n, int e, float v) const {
+      constexpr int kEvery = kChunk / chunk::kSeg;
+      if (j % kEvery == 0) hck[((size_t)(j / kEvery) * dg + e) * N + n] = v;
+    }
+  };
+  __device__ float a_at(int g, int n, int e) const {
+    return A[((size_t)g * dg + e) * N + n];
   }
-}
+  __device__ bool rev(int) const { return false; }
+  __device__ View view(int b, int g) const {
+    const size_t r = (size_t)b * G + g;
+    return View{u + r * dg * L, d + r * dg * L, Bm + r * N * L,
+                Cm + r * N * L, y + r * dg * L,
+                hck ? hck + r * nl * dg * N : nullptr, L, dg, N};
+  }
+};
+static_assert(kChunk % chunk::kSeg == 0, "K9's chunks hold whole segments");
 
 // ---------------------------------------------------------------- K9
 __global__ void __launch_bounds__(kWarpsB * 32)
@@ -367,20 +330,32 @@ bool bad_args(int rows, int G, int dg, int L, int N, int nl) {
 extern "C" {
 
 // u, d, y: (rows, dg, L) with rows = batch * G, row r of group r % G;
-// A: (G * dg, N); Bm, Cm: (rows, N, L); all fp32. hck, null or
-// (rows, nl, dg, N) with nl = ceil(L / 256), receives the carry into each
-// chunk.
+// A: (G * dg, N); Bm, Cm: (rows, N, L); all fp32. Scratch hloc (rows,
+// n_chunk, N, dg), sd (rows, n_chunk, dg), n_chunk = ceil(L / 128). hck,
+// null or (rows, nl, dg, N) with nl = ceil(L / 256), receives the carry
+// into each 256-token chunk.
 int sigma_scan_cf_fwd(const float* u, const float* d, const float* A,
-                      const float* Bm, const float* Cm, float* y, float* hck,
-                      int rows, int G, int dg, int L, int N, int nl,
-                      void* stream) {
-  if (bad_args(rows, G, dg, L, N, nl)) return kErrArguments;
+                      const float* Bm, const float* Cm, float* y, float* hloc,
+                      float* sd, int n_chunk, float* hck, int rows, int G,
+                      int dg, int L, int N, int nl, void* stream) {
+  if (bad_args(rows, G, dg, L, N, nl) ||
+      n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk)
+    return kErrArguments;
   if (N > kMaxState) return kErrStateWidth;
-  const dim3 grid((dg + kWarpsF - 1) / kWarpsF, rows);
-  scan_cf_fwd_kernel<<<grid, kWarpsF * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      u, d, A, Bm, Cm, y, hck, G, dg, L, N, nl);
-  return static_cast<int>(cudaGetLastError());
+  CfSrc p{};
+  chunk::set_fwd_args(p, A, nullptr, nullptr, hloc, sd, hck, G, L, dg, N, 0,
+                      n_chunk);
+  p.u = u;
+  p.d = d;
+  p.Bm = Bm;
+  p.Cm = Cm;
+  p.y = y;
+  p.nl = nl;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 4) return chunk::launch_chunk_scan<CfSrc, 4, false>(p, rows, s);
+  if (N <= 8) return chunk::launch_chunk_scan<CfSrc, 8, false>(p, rows, s);
+  if (N <= 16) return chunk::launch_chunk_scan<CfSrc, 16, false>(p, rows, s);
+  return chunk::launch_chunk_scan<CfSrc, 16, true>(p, rows, s);
 }
 
 // Operands as for sigma_scan_cf_fwd, hck as it wrote it, dy like y.

@@ -104,6 +104,9 @@ struct StreamSrc : FwdArgs {
       if (ya) v += to_f(ya[o]);
       y[o] = from_f<T>(v);
     }
+    __device__ void put_hck(int j, int n, int e, float v) const {
+      hck[((size_t)j * N + n) * dg + e] = v;
+    }
   };
   __device__ bool rev(int) const { return reverse; }
   __device__ View view(int b, int g) const {
@@ -153,6 +156,9 @@ struct ProjSrc : FwdArgs {
       const size_t o = (size_t)t * dg + e;
       if (ya) v += to_f(ya[o]);
       y[o] = from_f<T>(v);
+    }
+    __device__ void put_hck(int j, int n, int e, float v) const {
+      hck[((size_t)j * N + n) * dg + e] = v;
     }
   };
   __device__ __host__ size_t chain_offset(int b, int g) const {

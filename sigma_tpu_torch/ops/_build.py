@@ -72,8 +72,9 @@ _SIGNATURES = {
         "sigma_mlg_bwd": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
     "cf": {
-        # u, d, A, B, C, y, hck, rows, G, dg, L, N, nl, stream
-        "sigma_scan_cf_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        # u, d, A, B, C, y, hloc, sd, n_chunk, hck, rows, G, dg, L, N, nl,
+        # stream
+        "sigma_scan_cf_fwd": [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_P],
         # u, d, A, B, C, hck, dy, du, dd, dA, dBp, dCp, rows, G, dg, L, N,
         # nl, stream
         "sigma_scan_cf_bwd": [_P] * 12 + [_I] * 6 + [_P],
@@ -82,9 +83,9 @@ _SIGNATURES = {
         # x, wdt, wbc, A, bias, D, y4, P, hloc, sd, n_chunk, hck, nck,
         # batch, H, W, dg, N, softplus, bf16, stream
         "sigma_scan_img_fwd": [_P] * 10 + [_I] + [_P] + [_I] * 8 + [_P],
-        # x, wdt, wb, wc, A, bias, D, hck, dy, du4, dd, dA, dbias, dD, dBp,
-        # dCp, nck, batch, H, W, dg, N, softplus, stream
-        "sigma_scan_img_bwd": [_P] * 16 + [_I] * 7 + [_P],
+        # x, wdt, wbc, A, bias, D, hck, dy, du4, P, dd, dA, dbias, dD, dBp,
+        # dCp, lam, sd, n_chunk, nck, batch, H, W, dg, N, softplus, stream
+        "sigma_scan_img_bwd": [_P] * 18 + [_I] * 8 + [_P],
     },
 }
 _ERROR_STRING = {"fwd": "sigma_scan_error_string",

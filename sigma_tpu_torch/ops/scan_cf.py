@@ -6,8 +6,11 @@ Layout of the reference's CUDA extension: u, delta (batch, G*dg, L);
 A (G*dg, N); B, C (batch, G, N, L); D, delta_bias (G*dg,).
 
 Kernels (`csrc/scan_cf.cu`), on the core (u, delta_eff, A, B, C) -> y:
-    K8 scan_cf_fwd  chunk-parallel forward; with a gradient it also writes
-                    the carry into each 256-token chunk (`hck`)
+    K8 scan_cf_fwd  the chunk-parallel forward K1, K2 and K10 run
+                    (`csrc/chunk_fwd.cuh`: 128-token chunks, a carry pass,
+                    the emission; three launches, counted once); with a
+                    gradient it also writes the carry into each 256-token
+                    chunk of K9 (`hck`)
     K9 scan_cf_bwd  reverse chunk sweep from `hck`: du, dd, dA per row,
                     dB / dC as per-channel-tile partials summed here
 `LAUNCHES` counts each wrapper's launches. As in JAX, the bias, the
@@ -28,7 +31,13 @@ from __future__ import annotations
 import torch
 
 from sigma_tpu_torch.ops import _build
-from sigma_tpu_torch.ops.scan_g import _expect, _needs_grad, _on_cuda, _stream
+from sigma_tpu_torch.ops.scan_g import (
+    _chunk_scratch,
+    _expect,
+    _needs_grad,
+    _on_cuda,
+    _stream,
+)
 from sigma_tpu_torch.ops.selective_scan import (
     _effective_delta,
     selective_scan_chunked,
@@ -37,8 +46,8 @@ from sigma_tpu_torch.ops.selective_scan import (
 # launches of each kernel; reset with reset_launches()
 LAUNCHES = {"scan_cf_fwd": 0, "scan_cf_bwd": 0}
 
-# tokens per chunk of K8 / K9 (kChunk in csrc/scan_cf.cu); hck has one
-# carry per chunk
+# tokens per chunk of K9 (kChunk in csrc/scan_cf.cu); K8's hck has one
+# carry per such chunk
 CF_CHUNK = 256
 # channels per block of K9: its dB / dC partials have ceil(dg / 8)
 CF_BWD_CHANNELS = 8
@@ -92,11 +101,13 @@ def launch_scan_cf_fwd(u, delta, A, B, C, with_hck=False):
     if with_hck:
         hck = torch.empty((batch * G, _n_chunks(L), dg, N),
                           dtype=torch.float32, device=u.device)
+    hloc, sd = _chunk_scratch(batch, G, L, N, dg, u)
     lib = _build.library("cf")
     with torch.cuda.device(u.device):
         code = lib.sigma_scan_cf_fwd(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), None if hck is None else hck.data_ptr(),
+            C.data_ptr(), y.data_ptr(), hloc.data_ptr(), sd.data_ptr(),
+            hloc.shape[2], None if hck is None else hck.data_ptr(),
             batch * G, G, dg, L, N, _n_chunks(L), _stream(u),
         )
         LAUNCHES["scan_cf_fwd"] += 1

@@ -77,8 +77,7 @@ PROJ_BUDGET_BYTES = 12 * 1024 * 1024
 # state checkpoint spacing of the forward kernels (kSeg in csrc/*.cu); every
 # kernel entry takes n_ck = ceil(L / CK_TOKENS) and refuses another value
 CK_TOKENS = 32
-# tokens per chunk of the chunk-parallel scans K2, K3 and K4 (kChunk in
-# csrc/chunk.cuh)
+# tokens per chunk of the chunk-parallel scans (kChunk in csrc/chunk.cuh)
 PROJ_CHUNK = 128
 # channels per block of K3/K4: their dB/dC partials have ceil(dg / 32)
 BWD_CHANNELS = 32
@@ -294,8 +293,8 @@ def _hck(batch, G, L, N, dg, like):
 
 
 def _chunk_scratch(batch, G, L, N, dg, like):
-    """The chunk scans' scratch (K1, K2, K10): the chunk states, then the
-    carries, and the chunks' sums of d."""
+    """The chunk scans' scratch (K1, K2, K8, K10; K11's adjoints): the
+    chunk states, then the carries, and the chunks' sums of d."""
     n_chunk = -(-L // PROJ_CHUNK)
     f32 = dict(dtype=torch.float32, device=like.device)
     return (torch.empty((batch, G, n_chunk, N, dg), **f32),

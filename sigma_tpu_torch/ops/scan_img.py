@@ -15,11 +15,13 @@ Kernels (`csrc/scan_img.cu`):
                       parallel scan K1 and K2 run (`csrc/chunk_fwd.cuh`),
                       y as one plane per chain (summed here); with a
                       gradient it also writes the state checkpoints `hck`
-    K11 scan_img_bwd  the reverse sweep of every chain from `hck`
+    K11 scan_img_bwd  K10's projections again, then the chunk-parallel
+                      backward K3 and K4 run (`csrc/chunk_bwd.cuh`) over
+                      the four chains from `hck`
 and the weight gradients and du's chain term run on K5
 (`launch_proj_grad`, `csrc/scan_g_bwd.cu`), once per direction with the
 two layouts' cotangents in image order and us = (x, x). `LAUNCHES` counts
-K10 (its four launches once) / K11; K5's launches count in
+K10 / K11 once per call (four launches each); K5's launches count in
 `scan_g.LAUNCHES`.
 
 Dispatch goes by the device of `x`: a CPU tensor takes the plain version
@@ -48,7 +50,7 @@ LAUNCHES = {"scan_img_fwd": 0, "scan_img_bwd": 0}
 # checkpoint spacing in tokens (kTok in csrc/scan_img.cu)
 IMG_CK_TOKENS = 32
 # channels per block of K11: its dB / dC partials have ceil(dg / 32)
-IMG_BWD_CHANNELS = 32
+IMG_BWD_CHANNELS = scan_g.BWD_CHANNELS
 # the widest d_state K10 / K11 take
 IMG_MAX_STATE = 256
 
@@ -177,19 +179,19 @@ def launch_scan_img_fwd(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
 
 def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
                         delta_softplus=False):
-    """K11: the reverse sweep from K10's checkpoints, fp32 CUDA tensors.
-    Returns (du planes (2, 2, B, H*W, dg) — the direct term per (direction,
-    layout), K5 adds the chain term —, dd (2, B, 2, H*W, dg), dB, dC
-    (2, B, 2, H*W, N), dA (2, 2, N, dg), dbias, dD (2, 2, dg)): dd / dB / dC
-    are the cotangents of the projected streams, in image order per
-    (direction, batch, layout); the channel-tile and batch partials are
-    summed here."""
+    """K11: the chunk-parallel backward from K10's checkpoints, fp32 CUDA
+    tensors. Returns (du planes (2, 2, B, H*W, dg) — the direct term per
+    (direction, layout), K5 adds the chain term —, dd (2, B, 2, H*W, dg),
+    dB, dC (2, B, 2, H*W, N), dA (2, 2, N, dg), dbias, dD (2, 2, dg)): dd /
+    dB / dC are the cotangents of the projected streams, in image order per
+    (direction, batch, layout); the channel-block, chunk and batch partials
+    are summed here, a fixed order."""
     batch, H, W, dg, N = _check(x, w_dt, w_b, w_c, A, D, delta_bias)
     L = H * W
     scan_g._expect(dy, x.shape, "dy")
     scan_g._expect(hck, (2, 2, batch, _n_ck(L), N, dg), "hck")
-    x, dy, hck = (scan_g._f32(t) for t in (x, dy, hck))
-    ws = [scan_g._f32(w) for w in (w_dt, w_b, w_c)]
+    x, dy, hck, wdt = (scan_g._f32(t) for t in (x, dy, hck, w_dt))
+    wbc = torch.cat([scan_g._f32(w_b), scan_g._f32(w_c)], -1).contiguous()
     a32 = scan_g._param(A, (2, 2, N, dg), x)
     bias = scan_g._param(delta_bias, (2, 2, dg), x)
     dk = scan_g._param(D, (2, 2, dg), x)
@@ -197,25 +199,29 @@ def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
     f = dict(dtype=torch.float32, device=x.device)
     du4 = torch.empty((2, 2, batch, L, dg), **f)
     dd = torch.empty((2, batch, 2, L, dg), **f)
-    dA = torch.empty((2, 2, batch, N, dg), **f)
-    dbias = torch.empty((2, 2, batch, dg), **f)
-    dD = torch.empty((2, 2, batch, dg), **f)
     dBp = torch.empty((2, batch, nblk, 2, L, N), **f)
     dCp = torch.empty((2, batch, nblk, 2, L, N), **f)
+    # scratch: K10's projections, the chunks' adjoints and sums of d; the
+    # per-chunk partials of dA / dbias / dD share their shapes
+    proj = torch.empty((batch, 4, L, dg + 2 * N), **f)
+    lam, sd = scan_g._chunk_scratch(batch, 4, L, N, dg, x)
+    dA, dbias, dD = (torch.empty_like(t) for t in (lam, sd, sd))
     lib = _build.library("img")
     with torch.cuda.device(x.device):
         code = lib.sigma_scan_img_bwd(
-            x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
-            ws[2].data_ptr(), a32.data_ptr(), bias.data_ptr(), dk.data_ptr(),
-            hck.data_ptr(), dy.data_ptr(), du4.data_ptr(), dd.data_ptr(),
-            dA.data_ptr(), dbias.data_ptr(), dD.data_ptr(), dBp.data_ptr(),
-            dCp.data_ptr(), _n_ck(L), batch, H, W, dg, N,
-            int(bool(delta_softplus)), scan_g._stream(x),
+            x.data_ptr(), wdt.data_ptr(), wbc.data_ptr(), a32.data_ptr(),
+            bias.data_ptr(), dk.data_ptr(), hck.data_ptr(), dy.data_ptr(),
+            du4.data_ptr(), proj.data_ptr(), dd.data_ptr(), dA.data_ptr(),
+            dbias.data_ptr(), dD.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            lam.data_ptr(), sd.data_ptr(), lam.shape[2], _n_ck(L), batch, H,
+            W, dg, N, int(bool(delta_softplus)), scan_g._stream(x),
         )
         LAUNCHES["scan_img_bwd"] += 1
     _build.check(code, "scan_img_bwd", "img")
-    return (du4, dd, dBp.sum(2), dCp.sum(2), dA.sum(2), dbias.sum(2),
-            dD.sum(2))
+    return (du4, dd, dBp.sum(2), dCp.sum(2),
+            dA.sum((0, 2)).reshape(2, 2, N, dg),
+            dbias.sum((0, 2)).reshape(2, 2, dg),
+            dD.sum((0, 2)).reshape(2, 2, dg))
 
 
 def _chain_grads(x, du4, dd, dB, dC, w_dt, w_b, w_c):

@@ -27,19 +27,19 @@ import torch
 
 TRAIN_BATCH = 2
 
-# kernel groups, first match wins (the scan kernels' C++ names; K3 and K4
-# share their chunk passes, told apart by the template's PROJ; K1, K2 and
-# K10 share theirs, told apart by the operand source they are built on)
+# kernel groups, first match wins (the scan kernels' C++ names; the chunk
+# passes are shared, told apart by the operand source in the template: K3,
+# K4 and K11 by StreamBwdSrc, ProjBwdSrc and ImgBwdSrc; K1, K2, K8 and K10
+# by StreamSrc, ProjSrc, CfSrc and ImgSrc)
 GROUPS = (
-    ("K4 scan_proj_bwd", ("bwd_proj_kernel", "adjoint_carry_kernel<true>")
-     + tuple(f"adjoint_{p}_kernel<{n}, true>" for p in ("local", "emit")
-             for n in (4, 8, 16))),
-    ("K3 scan_bwd", ("adjoint_local_kernel", "adjoint_carry_kernel",
-                     "adjoint_emit_kernel")),
+    ("K4 scan_proj_bwd", ("bwd_proj_kernel", "ProjBwdSrc")),
+    ("K3 scan_bwd", ("StreamBwdSrc",)),
+    ("K11 scan_img_bwd", ("img_proj_bwd_kernel", "ImgBwdSrc")),
     ("K2 scan_proj_fwd", ("proj_gemm_kernel", "ProjSrc")),
     ("K1 scan_fwd", ("StreamSrc",)),
     ("K10 scan_img_fwd", ("img_proj_kernel", "ImgSrc")),
-    ("K11 scan_img_bwd", ("scan_img_bwd_kernel",)),
+    ("K8 scan_cf_fwd", ("CfSrc",)),
+    ("K9 scan_cf_bwd", ("scan_cf_bwd_kernel",)),
     ("K5 proj_grad", ("weight_grad_kernel", "du_chain_kernel")),
     ("K6 merge_ln_gate_fwd", ("merge_ln_gate_fwd_kernel",)),
     ("K7 merge_ln_gate_bwd", ("merge_ln_gate_bwd_kernel",)),

@@ -20,12 +20,14 @@ fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
 channel-first kernels (K8, K9) at one token, ragged chunks and channel
-tiles, odd dg, d_state 1-40 and above their bound, with a K9 rerun bit for
-bit, and the per-row route onto K1 + K3. The grouped and per-row entry
+tiles, odd dg, d_state 1-40 and above their bound, with K8 (y and its
+256-token carries, against the plain walk) and K9 rerun bit for bit, and
+the per-row route onto K1 + K3. The grouped and per-row entry
 points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
 SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
 image, odd and small images, dg not a multiple of 32, d_state 1-256 and
-above its bound, in bf16, with its counts and a K11 rerun bit for bit.
+above its bound, in bf16, with its counts and K11 reruns bit for bit (one
+state tile and three).
 Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
 against max(|ref|, 1).
 """
@@ -763,6 +765,34 @@ def test_channel_first_bf16_io_and_bounds(dev):
                                      .split()))
 
 
+@pytest.mark.parametrize("batch,G,dg,L,N", [(2, 3, 9, 513, 16),
+                                            (1, 2, 33, 600, 40)])
+def test_channel_first_checkpoints_and_reruns(dev, batch, G, dg, L, N):
+    """K8 (chunk-parallel, on the shared forward body) with checkpoints:
+    its carries into each 256-token chunk equal the plain token-by-token
+    walk's states (one token past two chunks; three state tiles, a partial
+    channel tile); a rerun gives the same bits (y and hck), and y without
+    checkpoints the same bits as with them."""
+    t = _channel_first(batch, G, dg, L, N, dev, seed=44 + N)
+    core = (t["u"], t["delta"].abs(), t["A"], t["B"], t["C"])
+    with torch.inference_mode():
+        y1, h1 = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+        y2, h2 = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
+        y0 = scan_cf.launch_scan_cf_fwd(*core)
+
+        def rows(x, width):
+            return x.reshape(batch, G, width, L).transpose(2, 3)
+
+        walk = scan_g.scan_checkpoints_plain(
+            rows(core[0], dg), rows(core[1], dg),
+            core[2].reshape(G, dg, N).transpose(1, 2), core[3].transpose(2, 3))
+    every = scan_cf.CF_CHUNK // scan_g.CK_TOKENS
+    want = walk[:, :, ::every].transpose(-1, -2).reshape(h1.shape)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(y0, y1)
+    _close(h1, want, torch.float32)
+
+
 def test_channel_first_backward_reruns_bit_for_bit(dev):
     """dB / dC are channel-tile partials summed in a fixed order (40
     channels: five tiles): a rerun of K9 gives the same bits."""
@@ -907,7 +937,7 @@ IMG_CASES = [
     (2, 7, 9, 40, 16),     # odd image, dg not a multiple of 32
     (1, 15, 20, 64, 1),    # stage-3 geometry of 480x640, d_state 1
     (2, 5, 6, 24, 40),     # d_state in three state tiles
-    (1, 3, 11, 36, 256),   # the widest state: single-buffered K11
+    (1, 3, 11, 36, 256),   # the widest state: sixteen state tiles
 ]
 
 
@@ -998,11 +1028,8 @@ def test_image_forward_checkpoints_and_reruns(dev, b, H, W, dg, N):
     _close(h1, want, torch.float32)
 
 
-def test_image_backward_reruns_bit_for_bit(dev):
-    """dB / dC are channel-tile partials and dA / dbias / dD per-batch
-    values summed in a fixed order (80 channels: three tiles): a rerun of
-    K11 gives the same bits."""
-    t = _image(2, 10, 14, 80, 16, dev, seed=130)
+def _image_backward_reruns(dev, N, seed):
+    t = _image(2, 10, 14, 80, N, dev, seed=seed)
     args = [t[k] for k in ("x", "w_dt", "w_b", "w_c", "A", "D",
                            "delta_bias")]
     _, hck = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
@@ -1012,3 +1039,16 @@ def test_image_backward_reruns_bit_for_bit(dev):
     again = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
     for a_, b_ in zip(first, again):
         assert torch.equal(a_, b_)
+
+
+def test_image_backward_reruns_bit_for_bit(dev):
+    """dB / dC are channel-block partials and dA / dbias / dD per-chunk
+    values summed in a fixed order (80 channels: three blocks; 140 tokens:
+    two chunks): a rerun of K11 gives the same bits."""
+    _image_backward_reruns(dev, 16, seed=130)
+
+
+def test_image_backward_reruns_bit_for_bit_over_state_tiles(dev):
+    """The same at d_state 40: three state tiles, each token's du / dd
+    terms summed over the tiles in a fixed order."""
+    _image_backward_reruns(dev, 40, seed=131)

@@ -61,10 +61,13 @@ its findings:
                 its kernels once and nothing else; the counters are zeroed
                 before these calls and read after them. Then K8, K9, K1
                 and K3 are timed launched alone against the plain
-                versions and their bounds, K8 beside K1 on the same scan;
-                K8 (y, hck) reruns bit for bit and its carries into each
-                256-token chunk hold the plain token-by-token walk's
-                states (`scan_g.scan_checkpoints_plain`).
+                versions and their bounds, K8 beside K1 and K9 beside K3
+                on the same scan; K8 (y, hck) and K9 rerun bit for bit
+                and every 32-token checkpoint of K8 holds the plain
+                token-by-token walk's state
+                (`scan_g.scan_checkpoints_plain`). Last, K1-K4, K10 and
+                K11 at the four trunk stages give the bits recorded
+                before K9 joined their backward body (`BODY_BITS`).
   6. image    — the image-layout SS2D scan `selective_scan_ss2d_proj` (K10
                 forward, K11 + K5 backward) at sigma_tiny's four trunk SS2D
                 shapes at 480x640, batch 2 (RGB and X stacked), d_state
@@ -315,14 +318,13 @@ def _work(kernel, kw, reverse=False):
     and dout and writes three gradients (28 bytes) for 32 operations; both
     read gamma and beta, K7 writes their gradients. K8 / K9 count as K1 /
     K3 on the scan core (no bias, D or their gradients; A read, dA
-    written), with K9's chunk carries every CF_CHUNK tokens. `kw` may name
+    written), K9 reading K8's checkpoints every CK_TOKENS. `kw` may name
     the streamed kernels' G (the per-row layout's). K10 / K11 count the
     image's four chains: K10 reads x once and writes y once, with its
     projections (the JAX package's count); K11 reads x, dy and the
     checkpoints and writes du once, dd / dB / dC per chain and dA /
     dbias / dD, with the scan backward and the re-projections (K10's and
     K11's projections count at the TF32 rate, `_tf32_ops`)."""
-    from sigma_tpu_torch.ops.scan_cf import CF_CHUNK
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
     from sigma_tpu_torch.ops.scan_img import IMG_CK_TOKENS
 
@@ -349,7 +351,7 @@ def _work(kernel, kw, reverse=False):
         a, work = 4 * kw["G"] * dg * N, rows * dg * L * N
         if kernel == "scan_cf_fwd":
             return 3 * big + 2 * small + a, 9 * work
-        hck = 4 * rows * -(-L // CF_CHUNK) * dg * N
+        hck = 4 * rows * -(-L // CK_TOKENS) * dg * N
         return 5 * big + 4 * small + hck + 2 * a, 22 * work
 
     G = kw.get("G", 2 if kw["ml"] else 1)
@@ -1114,8 +1116,8 @@ def ops_phase(device, reps=3):
     recomputed). Counters are zeroed before and read after these calls;
     each must launch its kernels once (one call per wrapper) and nothing
     else. Then K8, K9 and K1 / K3 on the per-row scan are timed launched
-    alone; K8 reruns bit for bit and its checkpoints hold the plain
-    walk's states. Returns
+    alone; K8 and K9 rerun bit for bit and K8's checkpoints hold the plain
+    walk's states; K1-K4, K10 and K11 keep their recorded bits. Returns
     (summary of K8 / K9, summary of K1 / K3 on the per-row calls, the
     counts); raises on disagreement."""
     import torch
@@ -1231,21 +1233,22 @@ def ops_phase(device, reps=3):
             y8, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
             y8b, hck8b = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
             _, hck1 = scan_g.launch_scan_fwd(*streamed, with_hck=True)
-            # K8's carries into each CF_CHUNK-token chunk against the plain
-            # token-by-token walk (every CF_CHUNK / CK_TOKENS-th checkpoint)
+            # K8's checkpoints, every one, against the plain token-by-token
+            # walk (the same (rows, n_ck, N, dg) layout)
             walk = scan_g.scan_checkpoints_plain(
                 _rows(x["u"], batch, G, dg), _rows(d_eff, batch, G, dg),
                 xr["A"], grouped["B"])
-            want_hck = walk[:, :, ::scan_cf.CF_CHUNK // scan_g.CK_TOKENS] \
-                .transpose(-1, -2).reshape(hck.shape)
-        hck_err, hck_ok = _scaled_err(hck, want_hck)
+            rerun9 = _same_bits(scan_cf.launch_scan_cf_bwd(*core, hck, dy),
+                                scan_cf.launch_scan_cf_bwd(*core, hck, dy))
+        hck_err, hck_ok = _scaled_err(hck, walk.reshape(hck.shape))
         rerun8 = torch.equal(y8, y8b) and torch.equal(hck, hck8b)
         for ok, what in ((rerun8, "K8 (y, hck) rerun changed bits"),
+                         (rerun9, "K9 rerun changed bits"),
                          (hck_ok, f"K8 hck against the plain walk "
                                   f"{hck_err:.3e}")):
             if not ok:
                 failures.append(f"ops: {tag} {what}")
-        del y8, y8b, hck8b, walk, want_hck
+        del y8, y8b, hck8b, walk
         with torch.no_grad():
             ms = {
                 "scan_cf_fwd": _time_ms(
@@ -1283,10 +1286,12 @@ def ops_phase(device, reps=3):
                          f"{bounds[k][0]:.4f} {bounds[k][1]})"
                          for k in ms)
               + f"; same scan, channel-first K8 / per-row K1: "
-                f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms; K8 hck "
-                f"against the plain walk max_abs_err={hck_err:.3e} "
+                f"{ms['scan_cf_fwd']:.4f} / {ms['scan_fwd']:.4f} ms, K9 / "
+                f"K3: {ms['scan_cf_bwd']:.4f} / {ms['scan_bwd']:.4f} ms; K8 "
+                f"hck against the plain walk max_abs_err={hck_err:.3e} "
                 f"{'ok' if hck_ok else 'FAIL'}; K8 (y, hck) rerun bit for bit "
-                f"{'ok' if rerun8 else 'FAIL'}", flush=True)
+                f"{'ok' if rerun8 else 'FAIL'}; K9 rerun bit for bit "
+                f"{'ok' if rerun9 else 'FAIL'}", flush=True)
         for k in ms:
             m = (summary if k in OPS else per_row)[k]
             if ms[k] > m["ms"]:
@@ -1294,10 +1299,99 @@ def ops_phase(device, reps=3):
                          kw=kw if k in OPS else row_kw, bound=bounds[k])
         del x, xr, core, streamed, hck, hck1, dy, dyg, grouped, d_eff
         torch.cuda.empty_cache()
+    failures += body_bits_check(device)
     _reset_launches()
     if failures:
         raise AssertionError(f"{len(failures)} ops comparisons failed")
     return summary, per_row, counts
+
+
+# sha256 of the outputs of the backward body's other sources (K3, K4,
+# K11) and of the forwards that write their checkpoints (K1, K2, K10) on
+# fixed inputs, recorded with `body_bits` on an NVIDIA H100 80GB HBM3 from
+# the tree before K9 joined the body (`csrc/chunk_bwd.cuh`): joining it
+# must not move their bits
+BODY_BITS = ROOT / "tests" / "fixtures" / "chunk_bwd_bits.json"
+
+
+def body_bits(device, cases):
+    """{"<kernel> <tag>": sha256 of its outputs} for K1 / K3, K2 / K4 and
+    K10 / K11 on seeded inputs at each (tag, kw) of `cases` (kw as
+    `image_scans` gives it; the image's x drawn on the host, so the inputs
+    do not depend on the card): K10 / K11 on the image, K2 / K4 on its two
+    layouts (direction 0's weights), K1 / K3 on the two layouts with dt, B,
+    C drawn (d_state <= 16 only), all with softplus."""
+    import hashlib
+    import zlib
+
+    import torch
+
+    from sigma_tpu_torch.ops import scan_g, scan_img
+
+    def digest(*outs):
+        h = hashlib.sha256()
+        for t in outs:
+            if isinstance(t, (list, tuple)):
+                h.update(digest(*t).encode())
+            else:
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    bits = {}
+    for tag, kw in cases:
+        B, H, W, dg, N = (kw[k] for k in ("B", "H", "W", "dg", "N"))
+        L = H * W
+        seed = SEED + zlib.crc32(tag.encode())  # the case's own inputs
+        x = _img_inputs(kw, torch.float32, device, seed)
+        gen = torch.Generator().manual_seed(seed + 1)
+        rnd = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen).to(device)
+        with torch.no_grad():
+            dy = rnd(B, H, W, dg)
+            y, hck = scan_img.launch_scan_img_fwd(**x, delta_softplus=True,
+                                                  with_hck=True)
+            bits[f"K10 {tag}"] = digest(y, hck)
+            bits[f"K11 {tag}"] = digest(scan_img.launch_scan_img_bwd(
+                **x, hck=hck, dy=dy, delta_softplus=True))
+            del y, hck
+            if N > 16:
+                continue
+            xi = x["x"]
+            us = (xi.reshape(B, L, dg),
+                  xi.transpose(1, 2).reshape(B, L, dg).contiguous())
+            ws = [x[k][0] for k in ("w_dt", "w_b", "w_c", "A", "D",
+                                    "delta_bias")]
+            dys = (rnd(B, L, dg), rnd(B, L, dg))
+            ys, hck = scan_g.launch_scan_proj_fwd(us, *ws,
+                                                  delta_softplus=True,
+                                                  with_hck=True)
+            bits[f"K2 {tag}"] = digest(ys, hck)
+            bits[f"K4 {tag}"] = digest(scan_g.launch_scan_proj_bwd(
+                us, *ws, hck, dys, delta_softplus=True))
+            u = torch.stack(us, 1)
+            dt, Bm, Cm = 0.5 * rnd(B, 2, L, dg), rnd(B, 2, L, N), rnd(
+                B, 2, L, N)
+            streamed = (u, dt, ws[3], Bm, Cm, ws[4], ws[5])
+            y, hck = scan_g.launch_scan_fwd(*streamed, delta_softplus=True,
+                                            with_hck=True)
+            bits[f"K1 {tag}"] = digest(y, hck)
+            bits[f"K3 {tag}"] = digest(scan_g.launch_scan_bwd(
+                *streamed, hck, torch.stack(dys, 1), delta_softplus=True))
+        del x, us, dys, u, dt, Bm, Cm, y, hck
+        torch.cuda.empty_cache()
+    return bits
+
+
+def body_bits_check(device):
+    """K1-K4, K10 and K11 at the four trunk stages against the recorded
+    bits (`BODY_BITS`). Returns the failures."""
+    want = json.loads(BODY_BITS.read_text())
+    got = body_bits(device, image_scans())
+    wrong = sorted(k for k in got if got[k] != want.get(k))
+    print(f"ops: K1 / K3, K2 / K4, K10 / K11 at trunk0-3 give the recorded "
+          f"bits ({len(got)} outputs): "
+          f"{'ok' if not wrong else 'FAIL ' + str(wrong)}", flush=True)
+    return [f"ops: recorded bits differ: {wrong}"] if wrong else []
 
 
 def image_scans(H=480, W=640, batch=2):

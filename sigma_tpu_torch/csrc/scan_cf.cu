@@ -4,8 +4,9 @@
 // Replaces the core of selective_scan(backend="pallas"):
 //   K8 — sigma_tpu/ops/pallas_scan.py::_fwd_kernel (:41, pallas_call :94 in
 //      _fwd_call): the chunk scan of csrc/chunk_fwd.cuh (CfSrc);
-//   K9 scan_cf_bwd_kernel — sigma_tpu/ops/pallas_scan_bwd.py::_bwd_kernel
-//      (:49, pallas_call :176 in selective_scan_pallas_bwd).
+//   K9 — sigma_tpu/ops/pallas_scan_bwd.py::_bwd_kernel (:49, pallas_call
+//      :176 in selective_scan_pallas_bwd): the chunk backward of
+//      csrc/chunk_bwd.cuh (CfBwdSrc).
 // Layout of the reference's CUDA extension: a row r = (batch, group g) holds
 // dg channels, each with its L tokens contiguous. Per channel e, state n:
 //     a_t = exp(d_t A_en)    h_t = a_t h_{t-1} + d_t u_t B_nt
@@ -30,95 +31,61 @@
 // (kTokenMajor): a block's u / d tile is 32 runs of 512 bytes, transposed
 // into the body's walk slots as it is staged, and y leaves the same way.
 // d_state up to 256 through the body's state tiles (TILED). A is read in
-// the reference's (G dg, N) layout (a_at). For K9, the source keeps every
-// 8th 32-token checkpoint of the body, the carry into each kChunk =
-// 256-token chunk, in K9's layout hck (rows, nl, dg, N).
+// the reference's (G dg, N) layout (a_at). With a gradient, the source
+// keeps every 32-token checkpoint of the body for K9, in the layout K3
+// reads: hck (rows, n_ck, N, dg).
 //
-// K9 (after the reference's chunked cub scan; still sequential over the
-// chunks) walks the 256-token chunks last to first, one warp per channel.
-// Per chunk and state it recomputes h from the saved carry with a forward
-// shuffle scan over 32 lanes of 8 tokens, then runs the adjoint
-// as a suffix scan of the same operator over the lanes (shuffle down):
-// a_{t+1} at a lane's last token is the next lane's first a, or, at the
-// chunk's end, exp(d A) of the next chunk's first token
-// (pallas_scan_bwd.py:86-89). du, dd accumulate per token in registers, dA
-// per (channel, state) in shared memory. dB/dC sum over the channels of
-// a group, which span blocks: each warp leaves its per-token terms in
-// shared memory, the block sums them (one thread per token, a fixed
-// order) and writes one partial per channel tile, (tiles, rows, N, L);
-// the caller sums the partials. No atomics: a rerun gives the same bits.
+// K9. Bound: device memory. It reads u, d, dy and writes du, dd (20 bytes
+// per token and channel), reads B, C and writes dB, dC per row, and reads
+// the checkpoints (at stage 0 about 0.69 GB, 0.21 ms at 3.35 TB/s), against
+// 22N flops. Design: the three passes of the chunk backward K3, K4 and
+// K11 run (csrc/chunk_bwd.cuh) over a channel-first source (CfBwdSrc):
+// each 128-token chunk's adjoint from a zero exit adjoint, the fixed-order
+// carry pass against the walk, then the emission, which recomputes h in
+// every 32-token segment from K8's checkpoints and forms every output.
+// The grid is (chunk, 32 channels, row): 7,200 blocks at stage 0, where
+// the sequential design it replaces ran 192 blocks, each walking the 75
+// chunks of its rows one after another. The source is token-major: a lane
+// holds 4 consecutive tokens of a channel, so u, d and dy go from device
+// memory straight into its registers and du, dd straight back, 16 bytes
+// per lane, with no staging; B, C and the dB / dC partials move as runs
+// of the chunk's tokens per state. The registers those three take come
+// from the thread's sums over the states, kept in its own slots of shared
+// memory (the emission's shared memory at 16 states: 83 KB, where the
+// staged body takes 114). Then the shuffles' latency binds, so the body's
+// token-major path also reduces many terms over the lanes at once (its
+// local pass composes all the tile's states in one exchange, the
+// emission sums a group's dA terms so). The emission keeps 2 blocks of
+// 256 threads a SM (16 of 64 warps: 128 registers a thread); at 16
+// states ptxas reports 156 bytes of spill (336 TILED). dB / dC: one
+// partial per 32-channel block, (ceil(dg / 32), rows, N, L); dA: one per
+// chunk, (rows, n_chunk, N, dg); the caller sums both in a fixed order, so
+// a rerun gives the same bits. d_state up to 256 through the body's state
+// tiles (TILED).
 //
 // Both launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError(). Ragged chunks and channel tiles are masked: a token
+// cudaGetLastError(). Ragged chunks and channel blocks are masked: a token
 // past L has d = 0 (a = 1, b = 0) and is not written.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
+#include "chunk_bwd.cuh"
 #include "chunk_fwd.cuh"
 
 namespace {
 
-constexpr int kItems = 8;                        // consecutive tokens a lane scans
-constexpr int kChunk = 32 * kItems;              // tokens per chunk
-constexpr int kLdT = kChunk + kChunk / kItems;   // padded staging row
-constexpr int kStates = 16;                      // B/C states staged at a time
 constexpr int kMaxState = 256;
-constexpr int kWarpsB = kChunk / 32;             // K9: one thread per token sums
-constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kErrStateWidth = 10001;
 constexpr int kErrArguments = 10003;
 
-// staging slot of chunk token t: lane l's run starts at l * (kItems + 1),
-// so the 32 lanes reading item k of their runs hit 32 distinct banks
-__device__ __forceinline__ int slot(int t) { return t + t / kItems; }
-
-// inclusive scan over the lanes, lane 0 first, of h -> a h + b: each lane
-// ends with the composition of lanes 0..lane
-__device__ __forceinline__ void scan_up(float& a, float& b, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    const float qa = __shfl_up_sync(kFull, a, off);
-    const float qb = __shfl_up_sync(kFull, b, off);
-    if (lane >= off) {
-      b = fmaf(a, qb, b);
-      a *= qa;
-    }
-  }
-}
-
-// suffix scan over the lanes, lane 31 first, of x -> s + p x (x the
-// adjoint after the run): each lane ends with lanes lane..31 composed
-__device__ __forceinline__ void scan_down(float& p, float& s, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    const float qp = __shfl_down_sync(kFull, p, off);
-    const float qs = __shfl_down_sync(kFull, s, off);
-    if (lane + off < 32) {
-      s = fmaf(p, qs, s);
-      p *= qp;
-    }
-  }
-}
-
-// rows of B/C states [n0, n0 + ns) at chunk c into the staging buffers
-__device__ __forceinline__ void stage_bc(float* Bs, float* Cs,
-                                         const float* B_r, const float* C_r,
-                                         int n0, int ns, int c, int L) {
-  for (int i = threadIdx.x; i < ns * kChunk; i += blockDim.x) {
-    const int j = i / kChunk, t = i % kChunk, tt = c * kChunk + t;
-    const size_t off = (size_t)(n0 + j) * L + tt;
-    Bs[j * kLdT + slot(t)] = tt < L ? B_r[off] : 0.f;
-    Cs[j * kLdT + slot(t)] = tt < L ? C_r[off] : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------- K8
 // K8's operands for the chunk scan (csrc/chunk_fwd.cuh): u, d, y (rows, dg,
-// L) and Bm, Cm (rows, N, L), row r = b G + g; hck null or (rows, nl, dg,
-// N); A (G dg, N). The body's bias and D are null: the caller applies
+// L) and Bm, Cm (rows, N, L), row r = b G + g; hck null or (rows, n_ck, N,
+// dg); A (G dg, N). The body's bias and D are null: the caller applies
 // them.
 struct CfSrc : chunk::FwdArgs {
   static constexpr bool kTokenMajor = true;
@@ -127,7 +94,6 @@ struct CfSrc : chunk::FwdArgs {
   const float* Bm;
   const float* Cm;
   float* y;
-  int nl;
 
   struct View {
     const float *u, *d, *Bm, *Cm;
@@ -147,10 +113,8 @@ struct CfSrc : chunk::FwdArgs {
     __device__ void put_y(int t, int e, float v) const {
       y[(size_t)e * L + t] = v;
     }
-    // checkpoint j enters token 32 j: every kChunk / 32-th is K9's carry
     __device__ void put_hck(int j, int n, int e, float v) const {
-      constexpr int kEvery = kChunk / chunk::kSeg;
-      if (j % kEvery == 0) hck[((size_t)(j / kEvery) * dg + e) * N + n] = v;
+      hck[((size_t)j * N + n) * dg + e] = v;
     }
   };
   __device__ float a_at(int g, int n, int e) const {
@@ -161,168 +125,88 @@ struct CfSrc : chunk::FwdArgs {
     const size_t r = (size_t)b * G + g;
     return View{u + r * dg * L, d + r * dg * L, Bm + r * N * L,
                 Cm + r * N * L, y + r * dg * L,
-                hck ? hck + r * nl * dg * N : nullptr, L, dg, N};
+                hck ? hck + r * chunk::n_ck_of(L) * N * dg : nullptr, L, dg,
+                N};
   }
 };
-static_assert(kChunk % chunk::kSeg == 0, "K9's chunks hold whole segments");
 
 // ---------------------------------------------------------------- K9
-__global__ void __launch_bounds__(kWarpsB * 32)
-scan_cf_bwd_kernel(const float* __restrict__ u, const float* __restrict__ d,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ Cm,
-                   const float* __restrict__ hck,
-                   const float* __restrict__ dy, float* __restrict__ du_o,
-                   float* __restrict__ dd_o, float* __restrict__ dA,
-                   float* __restrict__ dBp, float* __restrict__ dCp, int G,
-                   int dg, int L, int N, int nl) {
-  extern __shared__ float smem[];
-  float* Bs = smem;                      // kStates x kLdT
-  float* Cs = Bs + kStates * kLdT;       // kStates x kLdT
-  float* rB = Cs + kStates * kLdT;       // kWarpsB x kLdT: each channel's dB_t
-  float* rC = rB + kWarpsB * kLdT;       // kWarpsB x kLdT: each channel's dC_t
-  float* dhs = rC + kWarpsB * kLdT;      // kWarpsB x N: dh at the later chunk's start
-  float* dAs = dhs + kWarpsB * N;        // kWarpsB x N
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int r = blockIdx.y, g = r % G, rows = gridDim.y;
-  const int e = blockIdx.x * kWarpsB + w;
-  const bool active = e < dg;  // warp-uniform
-  const int ec = active ? e : dg - 1;
-  const size_t row = (size_t)r * dg + ec;
-  const float* u_r = u + row * L;
-  const float* d_r = d + row * L;
-  const float* dy_r = dy + row * L;
-  const float* A_r = A + ((size_t)g * dg + ec) * N;
-  const float* B_r = Bm + (size_t)r * N * L;
-  const float* C_r = Cm + (size_t)r * N * L;
-  float* rB_l = rB + w * kLdT + lane * (kItems + 1);
-  float* rC_l = rC + w * kLdT + lane * (kItems + 1);
-  for (int i = threadIdx.x; i < 2 * kWarpsB * N; i += blockDim.x)
-    dhs[i] = 0.f;  // dhs and dAs
+// K9's operands for the chunk backward (csrc/chunk_bwd.cuh), token-major:
+// u, d, dy, du, dd (rows, dg, L); Bm, Cm (rows, N, L); hck (rows, n_ck, N,
+// dg) as K8 wrote it; dBp, dCp (ceil(dg / 32), rows, N, L); A (G dg, N).
+// d is the effective delta: bias, softplus and D stay with the caller.
+struct CfBwdSrc : chunk::BwdArgs {
+  static constexpr bool kTokenMajor = true;
+  const float* u;
+  const float* d;
+  const float* dy;
+  const float* Bm;
+  const float* Cm;
+  const float* hck;
+  float* du;
+  float* dd;
+  float* dBp;
+  float* dCp;
+  int rows;
+  bool vec;  // u, d, dy, du, dd 16-byte aligned and L % 4 == 0
 
-  for (int c = nl - 1; c >= 0; --c) {
-    const int t0 = c * kChunk + lane * kItems;
-    float dl[kItems], uv[kItems], gy[kItems], gu[kItems], gd[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const bool ok = t0 + k < L;
-      dl[k] = ok ? d_r[t0 + k] : 0.f;
-      uv[k] = ok ? u_r[t0 + k] : 0.f;
-      gy[k] = ok ? dy_r[t0 + k] : 0.f;
-      gu[k] = gd[k] = 0.f;
+  struct View {
+    const float *u, *d, *dy, *Bm, *Cm, *hck;
+    float *du, *dd, *dB, *dC;
+    size_t blk_step;  // between two channel blocks' partials
+    int L;
+    bool vec;
+    __device__ const float* u_run(int e) const { return u + (size_t)e * L; }
+    __device__ const float* dt_run(int e) const { return d + (size_t)e * L; }
+    __device__ const float* dy_run(int e) const {
+      return dy + (size_t)e * L;
     }
-    const int tn = (c + 1) * kChunk;  // the next chunk's first token
-    const float dnext = tn < L ? d_r[tn] : 0.f;
-    const float* h0_r = hck + (((size_t)r * nl + c) * dg + ec) * N;
-    for (int n0 = 0; n0 < N; n0 += kStates) {
-      const int ns = min(kStates, N - n0);
-      __syncthreads();
-      stage_bc(Bs, Cs, B_r, C_r, n0, ns, c, L);
-      __syncthreads();
-      for (int j = 0; j < ns; ++j) {
-        const int n = n0 + j;
-        const float an = A_r[n];
-        const float* Bj = Bs + j * kLdT + lane * (kItems + 1);
-        const float* Cj = Cs + j * kLdT + lane * (kItems + 1);
-        // recompute h_{t-1} for the lane's tokens from the chunk's carry
-        float a[kItems], b[kItems], hp[kItems], pa = 1.f, pb = 0.f;
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          a[k] = __expf(dl[k] * an);
-          b[k] = dl[k] * uv[k] * Bj[k];
-          pb = fmaf(a[k], pb, b[k]);
-          pa *= a[k];
-        }
-        scan_up(pa, pb, lane);
-        float ea = __shfl_up_sync(kFull, pa, 1);
-        float eb = __shfl_up_sync(kFull, pb, 1);
-        if (lane == 0) {
-          ea = 1.f;
-          eb = 0.f;
-        }
-        float h = fmaf(ea, h0_r[n], eb);
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          hp[k] = h;
-          h = fmaf(a[k], h, b[k]);
-        }
-        // a1[k] = a_{t+1}: after the lane's last token, the next lane's
-        // first a, or the next chunk's first
-        float a1[kItems];
-#pragma unroll
-        for (int k = 0; k + 1 < kItems; ++k) a1[k] = a[k + 1];
-        a1[kItems - 1] = __shfl_down_sync(kFull, a[0], 1);
-        if (lane == 31) a1[kItems - 1] = __expf(dnext * an);
-        float p = 1.f, s = 0.f;
-#pragma unroll
-        for (int k = kItems - 1; k >= 0; --k) {
-          s = fmaf(a1[k], s, Cj[k] * gy[k]);
-          p *= a1[k];
-        }
-        scan_down(p, s, lane);
-        float ep = __shfl_down_sync(kFull, p, 1);
-        float es = __shfl_down_sync(kFull, s, 1);
-        if (lane == 31) {
-          ep = 1.f;
-          es = 0.f;
-        }
-        float dh = fmaf(ep, dhs[w * N + n], es);  // dh after the lane's run
-        float dA_l = 0.f;
-#pragma unroll
-        for (int k = kItems - 1; k >= 0; --k) {
-          dh = fmaf(a1[k], dh, Cj[k] * gy[k]);
-          const float ah = a[k] * hp[k];
-          gu[k] = fmaf(dh * dl[k], Bj[k], gu[k]);
-          gd[k] = fmaf(dh, fmaf(an, ah, uv[k] * Bj[k]), gd[k]);
-          dA_l = fmaf(dh * ah, dl[k], dA_l);
-          rB_l[k] = active ? dh * dl[k] * uv[k] : 0.f;
-          rC_l[k] = active ? (ah + b[k]) * gy[k] : 0.f;
-        }
-        const float dh0 = __shfl_sync(kFull, dh, 0);  // dh at the chunk's start
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2)
-          dA_l += __shfl_xor_sync(kFull, dA_l, off);
-        __syncwarp();  // every lane has read the old dh carry
-        if (lane == 0) {
-          dhs[w * N + n] = dh0;
-          dAs[w * N + n] += dA_l;
-        }
-        __syncthreads();  // every channel's dB_t / dC_t is in shared memory
-        {
-          const int t = threadIdx.x, tt = c * kChunk + t;
-          float sb = 0.f, sc = 0.f;
-#pragma unroll
-          for (int v = 0; v < kWarpsB; ++v) {
-            sb += rB[v * kLdT + slot(t)];
-            sc += rC[v * kLdT + slot(t)];
-          }
-          if (tt < L) {
-            const size_t o =
-                (((size_t)blockIdx.x * rows + r) * N + n) * L + tt;
-            dBp[o] = sb;
-            dCp[o] = sc;
-          }
-        }
-        __syncthreads();  // the sums are read before the next state writes
-      }
+    __device__ float* du_run(int e) const { return du + (size_t)e * L; }
+    __device__ float* dd_run(int e) const { return dd + (size_t)e * L; }
+    __device__ float b_at(int t, int n) const {
+      return Bm[(size_t)n * L + t];
     }
-    if (active) {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
-        if (t0 + k < L) {
-          du_o[row * L + t0 + k] = gu[k];
-          dd_o[row * L + t0 + k] = gd[k];
-        }
+    __device__ float c_at(int t, int n) const {
+      return Cm[(size_t)n * L + t];
     }
+    __device__ void put_dbc(int blk, int t, int n, float vb, float vc) const {
+      const size_t o = blk * blk_step + (size_t)n * L + t;
+      dB[o] = vb;
+      dC[o] = vc;
+    }
+  };
+  __device__ float a_at(int g, int n, int e) const {
+    return A[((size_t)g * dg + e) * N + n];
   }
-  __syncwarp();
-  if (active)
-    for (int n = lane; n < N; n += 32) dA[row * N + n] = dAs[w * N + n];
+  __device__ bool rev(int) const { return false; }
+  __device__ View view(int b, int g) const {
+    const size_t r = (size_t)b * G + g, ch = r * dg * L, st = r * N * L;
+    return View{u + ch,
+                d + ch,
+                dy + ch,
+                Bm + st,
+                Cm + st,
+                hck + r * chunk::n_ck_of(L) * N * dg,
+                du + ch,
+                dd + ch,
+                dBp + st,
+                dCp + st,
+                (size_t)rows * N * L,
+                L,
+                vec};
+  }
+};
+
+bool aligned16(const void* q) {
+  return reinterpret_cast<std::uintptr_t>(q) % 16 == 0;
 }
 
-bool bad_args(int rows, int G, int dg, int L, int N, int nl) {
+// the rows fit the grid, the checkpoints and the chunk scratch have the
+// bodies' spacing
+bool bad_args(int rows, int G, int dg, int L, int N, int nck, int n_chunk) {
   return rows <= 0 || G <= 0 || rows % G || rows > 65535 || dg <= 0 ||
-         L <= 0 || N <= 0 || nl != (L + kChunk - 1) / kChunk;
+         L <= 0 || N <= 0 || nck != chunk::n_ck_of(L) ||
+         n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk;
 }
 
 }  // namespace
@@ -332,15 +216,13 @@ extern "C" {
 // u, d, y: (rows, dg, L) with rows = batch * G, row r of group r % G;
 // A: (G * dg, N); Bm, Cm: (rows, N, L); all fp32. Scratch hloc (rows,
 // n_chunk, N, dg), sd (rows, n_chunk, dg), n_chunk = ceil(L / 128). hck,
-// null or (rows, nl, dg, N) with nl = ceil(L / 256), receives the carry
-// into each 256-token chunk.
+// null or (rows, nck, N, dg) with nck = ceil(L / 32), receives h as the
+// scan enters every 32-token segment.
 int sigma_scan_cf_fwd(const float* u, const float* d, const float* A,
                       const float* Bm, const float* Cm, float* y, float* hloc,
                       float* sd, int n_chunk, float* hck, int rows, int G,
-                      int dg, int L, int N, int nl, void* stream) {
-  if (bad_args(rows, G, dg, L, N, nl) ||
-      n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk)
-    return kErrArguments;
+                      int dg, int L, int N, int nck, void* stream) {
+  if (bad_args(rows, G, dg, L, N, nck, n_chunk)) return kErrArguments;
   if (N > kMaxState) return kErrStateWidth;
   CfSrc p{};
   chunk::set_fwd_args(p, A, nullptr, nullptr, hloc, sd, hck, G, L, dg, N, 0,
@@ -350,7 +232,6 @@ int sigma_scan_cf_fwd(const float* u, const float* d, const float* A,
   p.Bm = Bm;
   p.Cm = Cm;
   p.y = y;
-  p.nl = nl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 4) return chunk::launch_chunk_scan<CfSrc, 4, false>(p, rows, s);
   if (N <= 8) return chunk::launch_chunk_scan<CfSrc, 8, false>(p, rows, s);
@@ -359,27 +240,40 @@ int sigma_scan_cf_fwd(const float* u, const float* d, const float* A,
 }
 
 // Operands as for sigma_scan_cf_fwd, hck as it wrote it, dy like y.
-// du, dd: (rows, dg, L); dA: (rows, dg, N), per row (the caller sums the
-// batch); dBp, dCp: (ceil(dg / 8), rows, N, L) partials over channel tiles.
+// du, dd: (rows, dg, L); dA: (rows, n_chunk, N, dg) per-chunk partials;
+// dBp, dCp: (ceil(dg / 32), rows, N, L) per-channel-block partials (the
+// caller sums both); scratch lam (rows, n_chunk, N, dg), sd (rows,
+// n_chunk, dg).
 int sigma_scan_cf_bwd(const float* u, const float* d, const float* A,
                       const float* Bm, const float* Cm, const float* hck,
                       const float* dy, float* du, float* dd, float* dA,
-                      float* dBp, float* dCp, int rows, int G, int dg, int L,
-                      int N, int nl, void* stream) {
-  if (bad_args(rows, G, dg, L, N, nl)) return kErrArguments;
+                      float* dBp, float* dCp, float* lam, float* sd,
+                      int n_chunk, int rows, int G, int dg, int L, int N,
+                      int nck, void* stream) {
+  if (bad_args(rows, G, dg, L, N, nck, n_chunk)) return kErrArguments;
   if (N > kMaxState) return kErrStateWidth;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)(kStates + kWarpsB) * kLdT +
-                       2 * (size_t)kWarpsB * N);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_cf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((dg + kWarpsB - 1) / kWarpsB, rows);
-  scan_cf_bwd_kernel<<<grid, kWarpsB * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      u, d, A, Bm, Cm, hck, dy, du, dd, dA, dBp, dCp, G, dg, L, N, nl);
-  return static_cast<int>(cudaGetLastError());
+  CfBwdSrc p{};
+  chunk::set_bwd_args(p, A, nullptr, nullptr, lam, sd, dA, nullptr, nullptr,
+                      G, L, dg, N, 0, n_chunk);
+  p.u = u;
+  p.d = d;
+  p.dy = dy;
+  p.Bm = Bm;
+  p.Cm = Cm;
+  p.hck = hck;
+  p.du = du;
+  p.dd = dd;
+  p.dBp = dBp;
+  p.dCp = dCp;
+  p.rows = rows;
+  p.vec = L % chunk::kItems == 0 && aligned16(u) && aligned16(d) &&
+          aligned16(dy) && aligned16(du) && aligned16(dd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 4) return chunk::launch_chunk_bwd<CfBwdSrc, 4, false>(p, rows, s);
+  if (N <= 8) return chunk::launch_chunk_bwd<CfBwdSrc, 8, false>(p, rows, s);
+  if (N <= 16)
+    return chunk::launch_chunk_bwd<CfBwdSrc, 16, false>(p, rows, s);
+  return chunk::launch_chunk_bwd<CfBwdSrc, 16, true>(p, rows, s);
 }
 
 const char* sigma_scan_cf_error_string(int code) {

@@ -72,12 +72,12 @@ _SIGNATURES = {
         "sigma_mlg_bwd": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
     "cf": {
-        # u, d, A, B, C, y, hloc, sd, n_chunk, hck, rows, G, dg, L, N, nl,
+        # u, d, A, B, C, y, hloc, sd, n_chunk, hck, rows, G, dg, L, N, nck,
         # stream
         "sigma_scan_cf_fwd": [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_P],
-        # u, d, A, B, C, hck, dy, du, dd, dA, dBp, dCp, rows, G, dg, L, N,
-        # nl, stream
-        "sigma_scan_cf_bwd": [_P] * 12 + [_I] * 6 + [_P],
+        # u, d, A, B, C, hck, dy, du, dd, dA, dBp, dCp, lam, sd, n_chunk,
+        # rows, G, dg, L, N, nck, stream
+        "sigma_scan_cf_bwd": [_P] * 14 + [_I] * 7 + [_P],
     },
     "img": {
         # x, wdt, wbc, A, bias, D, y4, P, hloc, sd, n_chunk, hck, nck,

@@ -9,10 +9,13 @@ Kernels (`csrc/scan_cf.cu`), on the core (u, delta_eff, A, B, C) -> y:
     K8 scan_cf_fwd  the chunk-parallel forward K1, K2 and K10 run
                     (`csrc/chunk_fwd.cuh`: 128-token chunks, a carry pass,
                     the emission; three launches, counted once); with a
-                    gradient it also writes the carry into each 256-token
-                    chunk of K9 (`hck`)
-    K9 scan_cf_bwd  reverse chunk sweep from `hck`: du, dd, dA per row,
-                    dB / dC as per-channel-tile partials summed here
+                    gradient it also writes h as the scan enters every
+                    32-token segment (`hck`, K3's layout)
+    K9 scan_cf_bwd  the chunk-parallel backward K3, K4 and K11 run
+                    (`csrc/chunk_bwd.cuh`: each chunk's adjoint, a carry
+                    pass, the emission from `hck`; three launches, counted
+                    once): du, dd, and dA / dB / dC as per-chunk and
+                    per-32-channel-block partials summed here
 `LAUNCHES` counts each wrapper's launches. As in JAX, the bias, the
 softplus and the D skip stay outside the kernels as torch ops, so autograd
 gives dD and dbias; inputs are cast to fp32 and y takes u's dtype.
@@ -34,6 +37,7 @@ from sigma_tpu_torch.ops import _build
 from sigma_tpu_torch.ops.scan_g import (
     _chunk_scratch,
     _expect,
+    _n_ck,
     _needs_grad,
     _on_cuda,
     _stream,
@@ -46,11 +50,9 @@ from sigma_tpu_torch.ops.selective_scan import (
 # launches of each kernel; reset with reset_launches()
 LAUNCHES = {"scan_cf_fwd": 0, "scan_cf_bwd": 0}
 
-# tokens per chunk of K9 (kChunk in csrc/scan_cf.cu); K8's hck has one
-# carry per such chunk
-CF_CHUNK = 256
-# channels per block of K9: its dB / dC partials have ceil(dg / 8)
-CF_BWD_CHANNELS = 8
+# channels per block of K9 (kBwdChan in csrc/chunk_bwd.cuh): its dB / dC
+# partials have ceil(dg / 32)
+CF_BWD_CHANNELS = 32
 # the largest d_state the kernels take (the reference kernel's bound)
 CF_MAX_STATE = 256
 
@@ -58,10 +60,6 @@ CF_MAX_STATE = 256
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _n_chunks(L):
-    return -(-L // CF_CHUNK)
 
 
 def _core_shapes(u, delta, A, B, C):
@@ -92,15 +90,16 @@ def _core_shapes(u, delta, A, B, C):
 def launch_scan_cf_fwd(u, delta, A, B, C, with_hck=False):
     """K8 on fp32 CUDA tensors: u, delta (batch, G*dg, L) with delta the
     effective delta; A (G*dg, N); B, C (batch, G, N, L). Returns y like u
-    (no D skip), and with `with_hck` also the carries into each chunk,
-    (batch*G, n_chunks, dg, N)."""
+    (no D skip), and with `with_hck` also the state as the scan enters
+    every CK_TOKENS-token segment, (batch*G, ceil(L / CK_TOKENS), N,
+    dg)."""
     batch, G, dg, L, N = _core_shapes(u, delta, A, B, C)
     u, delta, A, B, C = (t.contiguous() for t in (u, delta, A, B, C))
     y = torch.empty_like(u)
     hck = None
     if with_hck:
-        hck = torch.empty((batch * G, _n_chunks(L), dg, N),
-                          dtype=torch.float32, device=u.device)
+        hck = torch.empty((batch * G, _n_ck(L), N, dg), dtype=torch.float32,
+                          device=u.device)
     hloc, sd = _chunk_scratch(batch, G, L, N, dg, u)
     lib = _build.library("cf")
     with torch.cuda.device(u.device):
@@ -108,7 +107,7 @@ def launch_scan_cf_fwd(u, delta, A, B, C, with_hck=False):
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), hloc.data_ptr(), sd.data_ptr(),
             hloc.shape[2], None if hck is None else hck.data_ptr(),
-            batch * G, G, dg, L, N, _n_chunks(L), _stream(u),
+            batch * G, G, dg, L, N, _n_ck(L), _stream(u),
         )
         LAUNCHES["scan_cf_fwd"] += 1
     _build.check(code, "scan_cf_fwd", "cf")
@@ -117,30 +116,36 @@ def launch_scan_cf_fwd(u, delta, A, B, C, with_hck=False):
 
 def launch_scan_cf_bwd(u, delta, A, B, C, hck, dy):
     """K9 on fp32 CUDA tensors, operands as for K8, `hck` as K8 wrote it,
-    dy like y. Returns (du, dd, dA, dB, dC) of the core; dA is summed over
-    the batch here and dB / dC over K9's channel-tile partials."""
+    dy like y. Returns (du, dd, dA, dB, dC) of the core. dA is summed here
+    over K9's per-chunk partials and the batch, dB / dC over its
+    32-channel-block partials (torch's reductions, a fixed order). Its
+    three launches (chunk adjoints, carries, emission) count as one."""
     batch, G, dg, L, N = _core_shapes(u, delta, A, B, C)
     _expect(dy, u.shape, "dy")
-    _expect(hck, (batch * G, _n_chunks(L), dg, N), "hck")
+    _expect(hck, (batch * G, _n_ck(L), N, dg), "hck")
     u, delta, A, B, C, hck, dy = (
         t.contiguous() for t in (u, delta, A, B, C, hck, dy.float()))
     du, dd = torch.empty_like(u), torch.empty_like(u)
     f = dict(dtype=torch.float32, device=u.device)
-    dA = torch.empty((batch, G * dg, N), **f)
-    tiles = -(-dg // CF_BWD_CHANNELS)
-    dBp = torch.empty((tiles, batch, G, N, L), **f)
-    dCp = torch.empty((tiles, batch, G, N, L), **f)
+    lam, sd = _chunk_scratch(batch, G, L, N, dg, u)
+    dA = torch.empty_like(lam)
+    blocks = -(-dg // CF_BWD_CHANNELS)
+    dBp = torch.empty((blocks, batch, G, N, L), **f)
+    dCp = torch.empty((blocks, batch, G, N, L), **f)
     lib = _build.library("cf")
     with torch.cuda.device(u.device):
         code = lib.sigma_scan_cf_bwd(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), hck.data_ptr(), dy.data_ptr(), du.data_ptr(),
             dd.data_ptr(), dA.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
-            batch * G, G, dg, L, N, _n_chunks(L), _stream(u),
+            lam.data_ptr(), sd.data_ptr(), lam.shape[2], batch * G, G, dg, L,
+            N, _n_ck(L), _stream(u),
         )
         LAUNCHES["scan_cf_bwd"] += 1
     _build.check(code, "scan_cf_bwd", "cf")
-    return du, dd, dA.sum(0), dBp.sum(0), dCp.sum(0)
+    # (batch, G, n_chunk, N, dg) -> A's (G*dg, N)
+    dA = dA.sum((0, 2)).transpose(1, 2).reshape(G * dg, N)
+    return du, dd, dA, dBp.sum(0), dCp.sum(0)
 
 
 class _ScanCF(torch.autograd.Function):
@@ -182,7 +187,7 @@ def selective_scan_cf(u, delta, A, B, C, D=None, delta_bias=None,
 
 
 __all__ = [
-    "CF_CHUNK",
+    "CF_BWD_CHANNELS",
     "CF_MAX_STATE",
     "LAUNCHES",
     "launch_scan_cf_bwd",

@@ -29,8 +29,8 @@ TRAIN_BATCH = 2
 
 # kernel groups, first match wins (the scan kernels' C++ names; the chunk
 # passes are shared, told apart by the operand source in the template: K3,
-# K4 and K11 by StreamBwdSrc, ProjBwdSrc and ImgBwdSrc; K1, K2, K8 and K10
-# by StreamSrc, ProjSrc, CfSrc and ImgSrc)
+# K4, K9 and K11 by StreamBwdSrc, ProjBwdSrc, CfBwdSrc and ImgBwdSrc; K1,
+# K2, K8 and K10 by StreamSrc, ProjSrc, CfSrc and ImgSrc)
 GROUPS = (
     ("K4 scan_proj_bwd", ("bwd_proj_kernel", "ProjBwdSrc")),
     ("K3 scan_bwd", ("StreamBwdSrc",)),
@@ -39,7 +39,7 @@ GROUPS = (
     ("K1 scan_fwd", ("StreamSrc",)),
     ("K10 scan_img_fwd", ("img_proj_kernel", "ImgSrc")),
     ("K8 scan_cf_fwd", ("CfSrc",)),
-    ("K9 scan_cf_bwd", ("scan_cf_bwd_kernel",)),
+    ("K9 scan_cf_bwd", ("CfBwdSrc",)),
     ("K5 proj_grad", ("weight_grad_kernel", "du_chain_kernel")),
     ("K6 merge_ln_gate_fwd", ("merge_ln_gate_fwd_kernel",)),
     ("K7 merge_ln_gate_bwd", ("merge_ln_gate_bwd_kernel",)),

@@ -7,9 +7,8 @@ channel's (state's) tokens contiguous — as the body's per-token rows: the
 (rows, dg, L) tile a block stages is the transpose of the body's walk
 slots, A is read in its (G*dg, N) layout (the transpose of the body's (G,
 N, dg)), and bias, D and softplus stay outside the kernel (the body takes
-the effective delta). Of the body's 32-token checkpoints it keeps every
-8th, the carry into each 256-token chunk of K9, in K9's layout (rows, nl,
-dg, N).
+the effective delta). It keeps every 32-token checkpoint of the body, for
+K9, in the layout the backward body reads (rows, ceil(L / 32), N, dg).
 
 That operand map is modelled here in plain torch on `chunk_scan_model`
 (tests/test_torch_port_chunk_scan.py, 128-token chunks from a zero state,
@@ -17,9 +16,10 @@ the carries, the re-emission; states in tiles of 16 above 16, as the TILED
 body) and held to JAX's channel-first Pallas forward
 (`sigma_tpu/ops/pallas_scan.py::_fwd_call`, interpret mode, its padding
 as `selective_scan_pallas_fwd` pads) at ragged L and d_state 16 and 40: y
-and the 256-token carries, fp32 rtol 6e-4 / atol 2e-3 against
-max(|ref|, 1), as chip_smoke.py holds K8; and in fp64 the carries to a
-sequential walk's states, to rounding.
+and, of the checkpoints, every 8th against JAX's carries into its
+256-token chunks, fp32 rtol 6e-4 / atol 2e-3 against max(|ref|, 1), as
+chip_smoke.py holds K8; and in fp64 every checkpoint to a sequential
+walk's states, to rounding.
 """
 
 import jax.numpy as jnp
@@ -28,14 +28,14 @@ import pytest
 import torch
 
 from sigma_tpu.ops.pallas_scan import _fwd_call, _tile_sizes
-from sigma_tpu_torch.ops.scan_cf import CF_CHUNK
 from sigma_tpu_torch.ops.scan_g import CK_TOKENS
 from test_torch_port_chunk_scan import sequential_states
 from test_torch_port_chunk_scan_fwd import tiled_chunk_model
 
 torch.set_num_threads(2)
 RTOL, ATOL = 6e-4, 2e-3
-EVERY = CF_CHUNK // CK_TOKENS  # body checkpoints per K9 carry
+JAX_CHUNK = 256  # the l_chunk JAX's channel-first kernels default to
+EVERY = JAX_CHUNK // CK_TOKENS  # checkpoints per JAX chunk carry
 
 
 def _inputs(batch, G, dg, L, N, seed):
@@ -50,7 +50,7 @@ def _inputs(batch, G, dg, L, N, seed):
 def cf_chunk_model(u, delta, A, B, C):
     """K8 in plain torch: the channel-first operands as the body's rows,
     the (tiled) chunk body with no bias, D or softplus, y back to (batch,
-    G*dg, L) and every EVERY-th checkpoint as (batch*G, nl, dg, N)."""
+    G*dg, L) and every checkpoint as (batch*G, ceil(L / 32), N, dg)."""
     batch, dim, L = u.shape
     G, N = B.shape[1], A.shape[1]
     dg = dim // G
@@ -63,9 +63,8 @@ def cf_chunk_model(u, delta, A, B, C):
     y, hck = tiled_chunk_model(rows(u, dg), rows(delta, dg),
                                B.transpose(2, 3), C.transpose(2, 3), a_t,
                                zero, zero, False, False)
-    carries = hck[:, :, ::EVERY].transpose(-1, -2)       # (b, G, nl, dg, N)
     return (y.transpose(2, 3).reshape(batch, dim, L),
-            carries.reshape(batch * G, -1, dg, N))
+            hck.reshape(batch * G, -1, N, dg))
 
 
 def _jax_forward(x, G):
@@ -76,7 +75,7 @@ def _jax_forward(x, G):
     N = x["A"].shape[1]
     dg = dim // G
     dpad = (-dg) % 8
-    db, lc = _tile_sizes(dg + dpad, L, 64, CF_CHUNK)
+    db, lc = _tile_sizes(dg + dpad, L, 64, JAX_CHUNK)
     lpad = (-L) % lc
 
     def rows(t, width, pad_rows):
@@ -100,8 +99,9 @@ def _close(got, want, name):
 
 
 # (batch, G, dg, L, N): L 600 is two 256-token chunks and a ragged third
-# (five 128-token chunks, the last ragged), dg 12 is padded by JAX; L 300
-# a chunk and a ragged one, N 40 three state tiles
+# (five 128-token chunks, the last ragged; 19 checkpoints, the last
+# segment cut by L), dg 12 is padded by JAX; L 300 a chunk and a ragged
+# one, N 40 three state tiles
 CASES = [(2, 2, 8, 600, 16), (1, 2, 12, 300, 40)]
 
 
@@ -111,16 +111,18 @@ def test_channel_first_chunk_model_matches_jax(batch, G, dg, L, N):
     want_y, want_hck = _jax_forward(x, G)
     y, hck = cf_chunk_model(*(torch.from_numpy(x[k]) for k in
                               ("u", "delta", "A", "B", "C")))
-    assert hck.shape == want_hck.shape == (batch * G, -(-L // CF_CHUNK), dg,
-                                           N)
+    assert hck.shape == (batch * G, -(-L // CK_TOKENS), N, dg)
+    carries = hck[:, ::EVERY].transpose(-1, -2)
+    assert carries.shape == want_hck.shape
     _close(y.numpy(), want_y, "y")
-    _close(hck.numpy(), want_hck, "hck")
+    _close(carries.numpy(), want_hck, "hck")
 
 
 def test_channel_first_carries_match_a_sequential_walk_in_fp64():
-    """Many chunks, the last ragged, two state tiles, fp64: the carries
-    equal the states of a token-by-token walk at every 256th token."""
-    batch, G, dg, L, N = 1, 3, 5, 4 * CF_CHUNK + 77, 20
+    """Many chunks, the last ragged, two state tiles, fp64: every
+    checkpoint equals the state of a token-by-token walk as it enters the
+    32-token segment."""
+    batch, G, dg, L, N = 1, 3, 5, 4 * JAX_CHUNK + 77, 20
     x = {k: torch.from_numpy(v).double() for k, v in
          _inputs(batch, G, dg, L, N, seed=3).items()}
     _, hck = cf_chunk_model(x["u"], x["delta"], x["A"], x["B"], x["C"])
@@ -130,7 +132,7 @@ def test_channel_first_carries_match_a_sequential_walk_in_fp64():
                             x["A"].reshape(G, dg, N).transpose(1, 2),
                             torch.zeros(G, dg, dtype=torch.float64), False,
                             False)
-    want = seq[:, :, ::EVERY].transpose(-1, -2).reshape(batch * G, -1, dg, N)
+    want = seq.reshape(batch * G, -1, N, dg)
     assert hck.shape == want.shape
     assert float((hck - want).abs().max()) < 1e-12 * max(
         1.0, float(want.abs().max()))

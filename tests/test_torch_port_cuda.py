@@ -20,9 +20,10 @@ fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
 channel-first kernels (K8, K9) at one token, ragged chunks and channel
-tiles, odd dg, d_state 1-40 and above their bound, with K8 (y and its
-256-token carries, against the plain walk) and K9 rerun bit for bit, and
-the per-row route onto K1 + K3. The grouped and per-row entry
+blocks, odd dg, d_state 1-40 and above their bound, with K8 (y and its
+32-token checkpoints, against the plain walk) and K9 rerun bit for bit, and
+the per-row route onto K1 + K3. K1-K4, K10 and K11 give the bits recorded
+before K9 joined their backward body (`chip_smoke.body_bits`). The grouped and per-row entry
 points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
 SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
 image, odd and small images, dg not a multiple of 32, d_state 1-256 and
@@ -31,6 +32,10 @@ state tile and three).
 Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
 against max(|ref|, 1).
 """
+
+import importlib.util
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -722,9 +727,12 @@ def _channel_first(batch, G, dg, L, N, dev, seed):
 CF_CASES = [
     # (batch, G, dg, L, N)
     (2, 1, 8, 1, 4),       # one token
-    (1, 2, 5, 300, 1),     # odd dg, L not a multiple of the 256-token chunk
-    (2, 3, 9, 513, 16),    # three chunks, the last of one token
-    (1, 2, 33, 256, 40),   # one full chunk, a partial channel tile, N > 16
+    (1, 2, 5, 300, 1),     # odd dg, L not a multiple of the 128-token chunk
+    (2, 3, 9, 513, 16),    # five chunks, the last of one token
+    (1, 2, 33, 256, 40),   # whole chunks, a ragged channel block, N > 16
+    (1, 2, 33, 257, 17),   # L % 4 != 0 (loads by element), two state tiles
+    (2, 2, 33, 1, 40),     # one token, a ragged block, three state tiles
+    (1, 1, 70, 1000, 8),   # three channel blocks, segments cut by L
 ]
 
 
@@ -769,9 +777,9 @@ def test_channel_first_bf16_io_and_bounds(dev):
                                             (1, 2, 33, 600, 40)])
 def test_channel_first_checkpoints_and_reruns(dev, batch, G, dg, L, N):
     """K8 (chunk-parallel, on the shared forward body) with checkpoints:
-    its carries into each 256-token chunk equal the plain token-by-token
-    walk's states (one token past two chunks; three state tiles, a partial
-    channel tile); a rerun gives the same bits (y and hck), and y without
+    every 32-token checkpoint equals the plain token-by-token walk's state
+    (one token past four chunks; three state tiles, a ragged channel
+    block); a rerun gives the same bits (y and hck), and y without
     checkpoints the same bits as with them."""
     t = _channel_first(batch, G, dg, L, N, dev, seed=44 + N)
     core = (t["u"], t["delta"].abs(), t["A"], t["B"], t["C"])
@@ -786,24 +794,50 @@ def test_channel_first_checkpoints_and_reruns(dev, batch, G, dg, L, N):
         walk = scan_g.scan_checkpoints_plain(
             rows(core[0], dg), rows(core[1], dg),
             core[2].reshape(G, dg, N).transpose(1, 2), core[3].transpose(2, 3))
-    every = scan_cf.CF_CHUNK // scan_g.CK_TOKENS
-    want = walk[:, :, ::every].transpose(-1, -2).reshape(h1.shape)
+    want = walk.reshape(h1.shape)
+    assert h1.shape == (batch * G, -(-L // scan_g.CK_TOKENS), N, dg)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
     assert torch.equal(y0, y1)
     _close(h1, want, torch.float32)
 
 
-def test_channel_first_backward_reruns_bit_for_bit(dev):
-    """dB / dC are channel-tile partials summed in a fixed order (40
-    channels: five tiles): a rerun of K9 gives the same bits."""
-    t = _channel_first(2, 2, 40, 600, 16, dev, seed=42)
+@pytest.mark.parametrize("N", [16, 40])
+def test_channel_first_backward_reruns_bit_for_bit(dev, N):
+    """dA is summed over per-chunk partials and dB / dC over 32-channel
+    block partials in a fixed order (72 channels: three blocks, one
+    ragged; five chunks; one state tile and three): a rerun of K9 gives the
+    same bits, all five outputs."""
+    t = _channel_first(2, 2, 72, 600, N, dev, seed=42)
     core = (t["u"], t["delta"].abs(), t["A"], t["B"], t["C"])
     _, hck = scan_cf.launch_scan_cf_fwd(*core, with_hck=True)
     dy = torch.randn(t["u"].shape, device=dev)
     first = scan_cf.launch_scan_cf_bwd(*core, hck, dy)
     again = scan_cf.launch_scan_cf_bwd(*core, hck, dy)
+    assert len(first) == 5
     for a_, b_ in zip(first, again):
         assert torch.equal(a_, b_)
+
+
+# small fixed inputs of `chip_smoke.body_bits`: one with every kernel, one
+# with odd sizes, one with d_state 40 (K10 / K11 only: three state tiles)
+BITS_CASES = [("small0", dict(B=1, H=9, W=37, dg=40, N=16)),
+              ("small1", dict(B=2, H=5, W=7, dg=33, N=4)),
+              ("small2", dict(B=1, H=12, W=20, dg=24, N=40))]
+
+
+def test_body_sources_keep_their_recorded_bits(dev):
+    """K9 joined the chunk backward body of K3, K4 and K11 (a
+    channel-first source, A read through the source, null bias / D): on
+    fixed inputs, K1-K4, K10 and K11 give the bits recorded on the card
+    from the tree before that change (`chip_smoke.BODY_BITS`)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = json.loads(smoke.BODY_BITS.read_text())
+    got = smoke.body_bits(dev, BITS_CASES)
+    assert len(got) == 6 + 6 + 2
+    assert {k: v for k, v in got.items() if want.get(k) != v} == {}
 
 
 def _per_row(batch, G, dg, L, N, dev, seed):

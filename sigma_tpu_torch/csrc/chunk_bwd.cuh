@@ -50,7 +50,11 @@
 // (compose_scatter: 2 shuffles a state, not scan_down's 10), and the
 // emission sums a group's dA terms the same way (sum_scatter); both sum
 // in another fixed order than warp_sum, so the other sources keep theirs
-// and their bits.
+// and their bits. This fork of the reductions is temporary: whether K3,
+// K4 and K11 gain from the token-major path's reductions and shared-memory
+// sums is not measured (ROADMAP "Next in order" item 3), and the change
+// that measures it keeps one reduction path for every source and records
+// tests/fixtures/chunk_bwd_bits.json anew on purpose.
 //
 // State tiles. A block holds NT <= 16 states (4, 8 or 16). K3 and K4 take
 // N <= NT. K11 takes N up to 256 with TILED: the block walks the states in

@@ -74,11 +74,6 @@ def _close(got, want, name):
                                atol=ATOL, err_msg=name)
 
 
-def test_the_body_blocks_are_k9s():
-    """The model sums dB / dC over blocks of K9's channel count."""
-    assert BWD_CHANNELS == CF_BWD_CHANNELS == 32
-
-
 # (batch, G, dg, L, N): L 300 and 170 are not multiples of 128 or 32 (a
 # ragged last chunk and segment); dg 40 and 36 are two channel blocks, the
 # second ragged; N 20 two state tiles, the second ragged (the TILED walk)
@@ -87,6 +82,8 @@ CASES = [(2, 1, 40, 300, 4), (2, 2, 36, 170, 16), (2, 4, 40, 77, 20)]
 
 @pytest.mark.parametrize("batch,G,dg,L,N", CASES)
 def test_channel_first_backward_model_matches_jax(batch, G, dg, L, N):
+    # the model sums dB / dC over blocks of K9's channel count
+    assert BWD_CHANNELS == CF_BWD_CHANNELS == 32
     x = _inputs(batch, G, dg, L, N, seed=L + N + G)
     dy = np.random.default_rng(L).standard_normal(
         (batch, G * dg, L)).astype(np.float32)

@@ -36,7 +36,14 @@ its findings:
                 products and against cuBLAS: torch.matmul on the
                 concatenated operands), and K3 or K4 and K5 each run twice
                 on the same inputs (the same bits: all seven outputs of
-                K3 / K4, K5's dW and du). Then bf16 with a gradient
+                K3 / K4, K5's dW and du). The same at every shape with
+                bf16 io (u, y_accum and the weights bf16, as the bf16
+                train step runs them): every gradient against autograd of
+                the plain version in fp32 on the same values, 5e-2 of
+                max(|ref|, 1), the kernels launched on bf16 operands
+                (`scan_g.LAUNCHES_BF16`), K3 or K4 and K5 alone timed
+                beside their fp32 runs, their bounds at 2-byte io, and
+                rerun bit for bit. Then bf16 with a gradient
                 (ROADMAP B1) at stage 1: the four scan entry points return
                 bf16 y and gradients within 5e-2 of autograd of the plain
                 versions.
@@ -47,8 +54,9 @@ its findings:
                 launch) against autograd of the plain forward, all five
                 gradients, and a K7 rerun that must give the same dgamma /
                 dbeta bits. z is a column slice, as SS2D splits it. Prints
-                errors and the ms of K6 / K7, of their plain versions and
-                of the unfused chain of PyTorch calls the switch replaces.
+                errors and the ms of K6 / K7 (fp32 and bf16), of their
+                plain versions and of the unfused chain of PyTorch calls
+                the switch replaces.
   5. ops      — the ops-level scan entry points (sigma_tpu_torch.ops) at
                 every trunk SS2D scan of sigma_tiny at 480x640, batch 2
                 (RGB and X stacked), four directions, d_state 16, S4D A
@@ -93,7 +101,11 @@ its findings:
                 per SS2D forward with the switch on and never with it off,
                 no backward kernel. Logits of one 480x640 pair with the
                 switch on against off. Then the same model at 96x128, both
-                ways: GPU logits against the CPU plain path.
+                ways: GPU logits against the CPU plain path. Then the same
+                serving path in bf16 compute (cfg.bf16, the same weights
+                and images), the epilogue off then on: img/s and peak
+                memory beside the fp32 runs', every forward scan kernel on
+                bf16 operands.
   8. train    — the train CLI's step (engine.train.build_train: AdamW,
                 warmup-poly lr, remat, drop path) for 3 steps at 480x640,
                 batch 2, on seeded synthetic uint8 batches with pad
@@ -105,16 +117,25 @@ its findings:
                 steps. Then one step of sigma_test at 64x80 on the card and
                 on the CPU from the same weights and batch (drop path 0,
                 SGD with momentum), both ways: losses and post-step
-                parameters against each other.
+                parameters against each other. Then the 480x640 step in
+                bf16 compute (cfg.bf16), the switch off then on: s/step
+                and peak memory beside fp32, every forward and backward
+                scan kernel (K2 + K4 + K5, K1 + K3 at stage 3) on bf16
+                operands, the parameters fp32. Then the bf16 cross-check:
+                sigma_test logits at 96x128 and one SGDM step at 64x80 in
+                bf16 on the card against bf16 on the CPU, the gap at most
+                twice the CPU's own bf16-vs-fp32 gap, both ways.
   9. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
                 phase.
 
-Ends with the card line, one JSON line of the kernels (launches from the
-train phase's last run with the switch on, K8 / K9's from the ops phase,
-K10 / K11's from the image phase;
-bound_ms from this run's shapes, see `_work`), then the device line. Exits non-zero, with no result line,
+Ends with the summary (the bf16 io ms of K1-K7 beside fp32 with their
+bounds at 2-byte io, bf16 eval img/s, train s/step and peak memory beside
+fp32), the card line, one JSON line of the kernels (fp32 numbers;
+launches from the train phase's last fp32 run with the switch on, K8 /
+K9's from the ops phase, K10 / K11's from the image phase; bound_ms from
+this run's shapes, see `_work`), then the device line. Exits non-zero, with no result line,
 without a CUDA card or when a phase fails.
 """
 
@@ -312,10 +333,15 @@ def _run_case(kernel, kw, x, reverse, use_kernel):
     return y.to(u.dtype)
 
 
-def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS):
-    """(bytes, operations) of one call's function at shape `kw`, fp32:
-    each input read once and each output written once; operations count
-    an exp or a division as one. Scan: 9 per (token, chain, channel,
+def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS, io=4):
+    """(bytes, operations) of one call's function at shape `kw`: each
+    input read once and each output written once, the io streams (u, dt,
+    B, C, y, y_accum, dy and, where the kernel keeps them in the io type,
+    du, dd, dB, dC; K6 / K7's y_hw, y_wh, z and their gradients; the
+    weights K2 / K4 take) at `io` bytes an element (4 fp32, 2 bf16), the
+    rest (hck, A, D, bias, K4's fp32 du / dd / dB / dC, K5's cotangents
+    and dW, K6's out, K7's dout) at 4; operations count an exp or a
+    division as one. Scan: 9 per (token, chain, channel,
     state) forward (the JAX package's flops count), 22 backward (5 to
     recompute h, 14 in the dh sweep, 3 in the dB / dC channel sums);
     projections 2 per multiply-add. Epilogue, per element: K6 reads y_hw,
@@ -351,8 +377,9 @@ def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS):
 
     if kernel in EPILOGUE:
         n, c = kw["B"] * kw["H"] * kw["W"] * kw["C"], kw["C"]
-        return {"merge_ln_gate_fwd": (16 * n + 8 * c, 14 * n),
-                "merge_ln_gate_bwd": (28 * n + 16 * c, 32 * n)}[kernel]
+        return {"merge_ln_gate_fwd": ((3 * io + 4) * n + 8 * c, 14 * n),
+                "merge_ln_gate_bwd": ((6 * io + 4) * n + 16 * c,
+                                      32 * n)}[kernel]
     if kernel in OPS:
         rows, dg, L, N = kw["batch"] * kw["G"], kw["dg"], kw["L"], kw["N"]
         big, small = 4 * rows * dg * L, 4 * rows * N * L
@@ -365,9 +392,11 @@ def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS):
     G = kw.get("G", 2 if kw["ml"] else 1)
     B, L, dg, N = kw["B"], kw["L"], kw["dg"], kw["N"]
     tok = B * G * L
-    big, small = 4 * tok * dg, 4 * tok * N
+    big, small = io * tok * dg, io * tok * N          # io streams
+    big4, small4 = 4 * tok * dg, 4 * tok * N          # fp32 ones
     params = 4 * G * dg * (3 + N)                    # bias, D, (dD), A
-    wts = 4 * G * dg * (dg + 2 * N)
+    wts = io * G * dg * (dg + 2 * N)
+    wts4 = 4 * G * dg * (dg + 2 * N)
     hck = 4 * B * G * -(-L // CK_TOKENS) * N * dg
     ya = big if reverse else 0
     proj = 2 * tok * dg * (dg + 2 * N)
@@ -376,9 +405,9 @@ def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS):
         "scan_fwd": (3 * big + 2 * small + params + ya, scan_fwd),
         "scan_proj_fwd": (2 * big + wts + params + ya, scan_fwd + proj),
         "scan_bwd": (5 * big + 4 * small + hck + 2 * params, scan_bwd),
-        "scan_proj_bwd": (4 * big + 2 * small + hck + wts + 2 * params,
-                          scan_bwd + proj),
-        "proj_grad": (4 * big + 2 * small + 2 * wts, 2 * proj),
+        "scan_proj_bwd": (2 * big + 2 * big4 + 2 * small4 + hck + wts
+                          + 2 * params, scan_bwd + proj),
+        "proj_grad": (big + 3 * big4 + 2 * small4 + 2 * wts4, 2 * proj),
     }[kernel]
 
 
@@ -396,11 +425,12 @@ def _tf32_ops(kernel, kw):
     return 2 * proj if kernel == "proj_grad" else proj
 
 
-def _bound(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS):
+def _bound(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS, io=4):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes over the HBM rate and the operations over the peak rate
-    of the units that run them (TF32 tensor cores, fp32 cores)."""
-    nbytes, ops = _work(kernel, kw, reverse, cf_ck)
+    of the units that run them (TF32 tensor cores, fp32 cores); `io` bytes
+    an element of the io streams (`_work`)."""
+    nbytes, ops = _work(kernel, kw, reverse, cf_ck, io)
     tc = _tf32_ops(kernel, kw)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max((ops - tc) / FP32_OPS_PER_S, tc / TF32_OPS_PER_S)
@@ -481,6 +511,7 @@ def kernel_phase(device, cases=None, reps=5):
     gen = torch.Generator().manual_seed(SEED)
     summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, at="")
                for k in FORWARD}
+    bf16_ms = {}  # (kernel, tag): bf16 ms
     failures = []
     for kernel, tag, kw in cases or main_path_scans():
         for dtype, (rtol, atol) in ((torch.float32, FP32_TOL),
@@ -511,7 +542,9 @@ def kernel_phase(device, cases=None, reps=5):
                     s = summary[kernel]
                     if dtype == torch.float32 and ms > s["ms"]:
                         s.update(ms=ms, plain_ms=plain,
-                                 at=f"{tag} fp32 {kw}", kw=kw)
+                                 at=f"{tag} fp32 {kw}", kw=kw, tag=tag)
+                    if dtype == torch.bfloat16:
+                        bf16_ms[(kernel, tag)] = ms
                 if dtype == torch.float32:
                     s = summary[kernel]
                     s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -525,6 +558,8 @@ def kernel_phase(device, cases=None, reps=5):
                     failures.append(line)
             del x
     scan_g.reset_launches()
+    for kernel, s in summary.items():
+        s["bf16_ms"] = bf16_ms[(kernel, s["tag"])]
     if failures:
         raise AssertionError(f"{len(failures)} kernel comparisons failed")
     return summary
@@ -658,14 +693,14 @@ def _same_bits(first, again):
     return all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
 
 
-def _kernel_runs(kernel, kw, x, dy):
+def _kernel_runs(kernel, kw, x, dy, compare=True):
     """For timing: {kernel: closure launching it alone} on the inputs of
     one forward main-path call (K3 after K1's checkpoints, or K4 after
-    K2's and K5 on K4's cotangents), {kernel: its plain version} where
-    that is not the scan's autograd (K5), {kernel: the PyTorch library
-    calls that compute its function} (K5's cuBLAS products), and
-    {kernel: whether two runs gave the same bits} (K3 or K4: all seven
-    outputs; K5: dW and du)."""
+    K2's and K5 on K4's cotangents), in the inputs' io type, {kernel: its
+    plain version} where that is not the scan's autograd (K5), {kernel:
+    the PyTorch library calls that compute its function} (K5's cuBLAS
+    products; both empty unless `compare`), and {kernel: whether two runs
+    gave the same bits} (K3 or K4: all seven outputs; K5: dW and du)."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
@@ -708,9 +743,12 @@ def _kernel_runs(kernel, kw, x, dy):
     w2 = scan_g.launch_proj_grad(us, again, dd, dB, dC, *w)
     reruns["proj_grad"] = _same_bits([*w1, *first], [*w2, *again])
     del first, again, w1, w2, out
-    return ({"scan_proj_bwd": k4,
-             "proj_grad": lambda: scan_g.launch_proj_grad(
-                 us, dus, dd, dB, dC, *w)},
+    runs = {"scan_proj_bwd": k4,
+            "proj_grad": lambda: scan_g.launch_proj_grad(
+                us, dus, dd, dB, dC, *w)}
+    if not compare:
+        return runs, {}, {}, reruns
+    return (runs,
             {"proj_grad": lambda: scan_g.proj_grad_plain(us, dd, dB, dC,
                                                           *w)},
             {"proj_grad": _proj_grad_library(us, dd, dB, dC, w)}, reruns)
@@ -816,20 +854,81 @@ def _bf16_grad_checks(device):
     return failures
 
 
+def _bf16_backward(tag, kw, x, dy, ran, reps):
+    """bf16 io at one train-step shape, as the bf16 train step runs it: u,
+    y_accum and the projection weights bf16. Every gradient through the
+    entry point, forward and reversed, against autograd of the plain
+    version in fp32 on the same (bf16-rounded) values, in the bf16 tier;
+    every kernel launched on bf16 operands (`LAUNCHES_BF16`). Then K3, or
+    K4 and K5, alone on bf16 operands: timed and run twice for the same
+    bits. Returns (failed lines, {kernel: ms}, {kernel: max_abs_err})."""
+    import torch
+
+    from sigma_tpu_torch.ops import scan_g
+
+    io = ("u", "ya", "w_dt", "w_b", "w_c")
+    xb = {k: v.to(torch.bfloat16) if k in io else v for k, v in x.items()}
+    xr = {k: v.float() for k, v in xb.items()}  # the same values, fp32
+    dyb = dy.to(torch.bfloat16)
+    failures, errs_by = [], {}
+    for reverse in (False, True):
+        want, _ = _entry_grads(kw, xr, dyb.float(), reverse, plain=True)
+        scan_g.reset_launches()
+        got, _ = _entry_grads(kw, xb, dyb.float(), reverse, plain=False)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in scan_g.LAUNCHES.items() if n}
+        bf16 = {k: n for k, n in scan_g.LAUNCHES_BF16.items() if n}
+        bad = [] if launches == bf16 == dict.fromkeys(ran, 1) else [
+            f"launches {launches} bf16 {bf16}"]
+        errs = {}
+        for k, w in want.items():
+            errs[k], ok = _scaled_err(got[k], w, BF16_TOL)
+            if not ok or got[k].dtype != xb[k].dtype:
+                bad.append(f"{k} {got[k].dtype}")
+            owner = ran[1] if len(ran) == 2 else _FUSED_OWNER.get(k)
+            if owner:
+                errs_by[owner] = max(errs_by.get(owner, 0.0), errs[k])
+        line = (f"backward: bf16 {'+'.join(ran[1:])} {tag} {kw} "
+                f"rev={int(reverse)} "
+                + " ".join(f"d{k}={v:.2e}" for k, v in errs.items()))
+        if not reverse:
+            runs, _, _, reruns = _kernel_runs(ran[1], kw, xb, dyb,
+                                              compare=False)
+            bad += [f"{k} rerun changed bits"
+                    for k, same in reruns.items() if not same]
+            times = {k: _time_ms(fn, reps) for k, fn in runs.items()}
+            line += (" reruns bit for bit " + " ".join(
+                        f"{k} {'ok' if same else 'FAIL'}"
+                        for k, same in reruns.items()) + " " + " ".join(
+                        f"{k}_ms={v:.4f} (bound {_bound(k, kw, io=2)[0]:.4f})"
+                        for k, v in times.items()))
+            del runs
+        line += f" {'ok' if not bad else 'FAIL ' + str(bad)}"
+        print(line, flush=True)
+        if bad:
+            failures.append(line)
+        del want, got
+        torch.cuda.empty_cache()
+    return failures, times, errs_by
+
+
 def backward_phase(device, reps=3):
     """Every distinct scan shape of the train step (batch 2), forward and
     reversed: every gradient through the scan entry point (the autograd
     Functions the train step runs, checked to launch K3 or K4 + K5)
     against autograd of the plain version, then each kernel alone timed
-    against its plain version. Returns per-kernel summaries; raises on
-    disagreement."""
+    against its plain version; the same with bf16 io (`_bf16_backward`).
+    Returns per-kernel summaries (bf16_ms and bf16_max_abs_err: bf16 io
+    at the shape of the slowest fp32 call); raises on disagreement."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
 
     gen = torch.Generator().manual_seed(SEED + 2)
     summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                       library_ms=None, at="") for k in SCAN_BACKWARD}
+                       library_ms=None, at="", bf16_max_abs_err=0.0)
+               for k in SCAN_BACKWARD}
+    bf16_ms = {}  # (kernel, tag): bf16 ms
     failures = []
     for fwd_kernel, tag, kw in main_path_scans(batch=2):
         streamed = fwd_kernel == "scan_fwd"
@@ -887,14 +986,24 @@ def backward_phase(device, reps=3):
                     if ms > s["ms"]:
                         s.update(ms=ms, plain_ms=plain_ms.get(k, plain),
                                  library_ms=lib_ms.get(k),
-                                 at=f"{tag} {kw}", kw=kw)
+                                 at=f"{tag} {kw}", kw=kw, tag=tag)
                 del runs, plain_runs, lib_runs
             print(line, flush=True)
             if bad:
                 failures.append(line)
             del want, got, run, plain_run
             torch.cuda.empty_cache()
+        bad, times, errs = _bf16_backward(tag, kw, x, dy, ran, reps)
+        failures += bad
+        for k, ms in times.items():
+            bf16_ms[(k, tag)] = ms
+        for k, e in errs.items():
+            summary[k]["bf16_max_abs_err"] = max(
+                summary[k]["bf16_max_abs_err"], e)
+        del x, dy
     scan_g.reset_launches()
+    for k, s in summary.items():
+        s["bf16_ms"] = bf16_ms[(k, s["tag"])]
     failures += _bf16_grad_checks(device)
     if failures:
         raise AssertionError(f"{len(failures)} backward comparisons failed")
@@ -954,6 +1063,7 @@ def epilogue_phase(device, reps=10):
     gen = torch.Generator().manual_seed(SEED + 6)
     summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, unfused_ms=0.0,
                        at="") for k in EPILOGUE}
+    bf16_ms = {}  # (kernel, shape): bf16 device ms
     names = ("dy_hw", "dy_wh", "dz", "dgamma", "dbeta")
     failures = []
     for (b, h, w, c), tags in epilogue_shapes().items():
@@ -1038,6 +1148,18 @@ def epilogue_phase(device, reps=10):
                         s_.update(ms=t, plain_ms=p_, unfused_ms=u,
                                   at=f"{'/'.join(tags)} fp32 {kw}", kw=kw)
                 del leaves, zfull, o, g_entry, g_auto, again, runs
+            else:
+                with torch.no_grad():
+                    for k, fn in (
+                            ("merge_ln_gate_fwd",
+                             lambda: mlg.launch_merge_ln_gate_fwd(*args, eps)),
+                            ("merge_ln_gate_bwd",
+                             lambda: mlg.launch_merge_ln_gate_bwd(
+                                 *args, eps, dout))):
+                        bf16_ms[(k, (b, h, w, c))] = t = sum(
+                            v for n, v in _device_ms(fn, reps)[0].items()
+                            if f"{k}_kernel" in n)
+                        line += f" device_ms {k}={t:.4f}"
             line += f" {'ok' if not bad else 'FAIL ' + str(bad)}"
             print(line, flush=True)
             if bad:
@@ -1045,6 +1167,8 @@ def epilogue_phase(device, reps=10):
             del args, dout, out, got, want
     torch.cuda.empty_cache()
     mlg.reset_launches()
+    for k, s_ in summary.items():
+        s_["bf16_ms"] = bf16_ms[(k, tuple(s_["kw"].values()))]
     if failures:
         raise AssertionError(f"{len(failures)} epilogue comparisons failed")
     return summary
@@ -1784,30 +1908,28 @@ class _SyntheticMFNet:
         return self.items[i]
 
 
-def model_phase(device, order=(False, True, True, False)):
-    """The port's serving path: build_model + SlidingEvaluator.run under
-    the MFNet preset, once per entry of `order` (the fused SS2D epilogue
-    off or on; one model, so the same weights). Returns {switch: [img/s of
-    each run]}; raises if a kernel was not launched as the path implies,
-    an output is wrong, the switch changes the logits, or the GPU logits
-    disagree with the CPU plain path."""
-    import copy
-
+def _serve(cfg, device, order, tag):
+    """build_model(cfg) + SlidingEvaluator.run under the MFNet preset on
+    four seeded images, once per entry of `order` (the fused SS2D epilogue
+    off or on; one model, so the same weights). Returns (model, {switch:
+    [img/s of each run]}, {switch: [peak GiB of each run]}); raises if a
+    kernel was not launched as the path implies (with cfg.bf16: on bf16
+    operands) or an output is wrong."""
     import numpy as np
     import torch
 
-    from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.models.builder import build_model
     from sigma_tpu_torch.models.ss2d import SS2D, set_fused_epilogue
+    from sigma_tpu_torch.ops import scan_g
 
-    cfg = get_config("mfnet")
     t0 = time.perf_counter()
     model = build_model(cfg, device=device, seed=SEED)
     n_ss2d = sum(isinstance(m, SS2D) for m in model.modules())
-    print(f"model: {cfg.backbone}/{cfg.decoder} {cfg.num_classes} classes "
+    print(f"{tag}: {cfg.backbone}/{cfg.decoder} {cfg.num_classes} classes "
           f"{sum(p.numel() for p in model.parameters())} params, {n_ss2d} "
-          f"SS2Ds, built in {time.perf_counter() - t0:.2f}s")
+          f"SS2Ds, {'bf16' if cfg.bf16 else 'fp32'} compute, built in "
+          f"{time.perf_counter() - t0:.2f}s")
     forwards = [0]
     model.register_forward_pre_hook(
         lambda *_: forwards.__setitem__(0, forwards[0] + 1))
@@ -1818,12 +1940,12 @@ def model_phase(device, order=(False, True, True, False)):
         eval_crop_size=cfg.eval_crop_size, stride_rate=cfg.eval_stride_rate,
         device=device,
     )
-    img_s = {False: [], True: []}
+    img_s, peaks = {False: [], True: []}, {False: [], True: []}
     for fused in order:
         set_fused_epilogue(model, fused)
         t0 = time.perf_counter()
         pred = ev.sliding_eval(data[0]["data"], data[0]["modal_x"])
-        print(f"model: fused_epilogue={int(fused)} warm-up image "
+        print(f"{tag}: fused_epilogue={int(fused)} warm-up image "
               f"{time.perf_counter() - t0:.3f}s")
         if pred.shape != (cfg.image_height, cfg.image_width) or not (
                 (pred >= 0) & (pred < cfg.num_classes)).all():
@@ -1838,19 +1960,27 @@ def model_phase(device, order=(False, True, True, False)):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _launches()
+        bf16 = dict(scan_g.LAUNCHES_BF16)
         img_s[fused].append(len(data) / seconds)
-        print(f"model: fused_epilogue={int(fused)} MFNet "
+        peaks[fused].append(torch.cuda.max_memory_allocated(device) / 2**30)
+        print(f"{tag}: fused_epilogue={int(fused)} MFNet "
               f"{cfg.image_height}x{cfg.image_width} eval of {len(data)} "
               f"images in {seconds:.3f}s = {len(data) / seconds:.4f} img/s, "
               f"mIoU {miou:.4f} (random weights), peak "
-              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
-              f"{forwards[0]} forwards, launches {launches}")
+              f"{peaks[fused][-1]:.3f} GiB, "
+              f"{forwards[0]} forwards, launches {launches}, bf16 io "
+              f"{ {k: n for k, n in bf16.items() if n} }")
         if not np.isfinite(miou) or not np.isfinite(detail["pixel_acc"]):
             raise AssertionError(f"non-finite metrics {miou} {detail}")
         missing = [k for k in FORWARD if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: "
                                  f"{missing}")
+        io_bad = [k for k in FORWARD
+                  if bf16[k] != (launches[k] if cfg.bf16 else 0)]
+        if io_bad:
+            raise AssertionError(f"kernels launched in another io type than "
+                                 f"the model's: {io_bad}")
         backward = [k for k in SCAN_BACKWARD + EPILOGUE[1:] if launches[k]]
         if backward:
             raise AssertionError(f"backward kernels launched by eval: "
@@ -1859,6 +1989,26 @@ def model_phase(device, order=(False, True, True, False)):
         if launches["merge_ln_gate_fwd"] != want_k6:
             raise AssertionError(f"K6 launched {launches['merge_ln_gate_fwd']}"
                                  f" times, the path implies {want_k6}")
+    return model, img_s, peaks
+
+
+def model_phase(device, order=(False, True, True, False)):
+    """The port's serving path: build_model + SlidingEvaluator.run under
+    the MFNet preset, once per entry of `order` (`_serve`). Returns
+    ({switch: [img/s of each run]}, {switch: [peak GiB]}); raises if a
+    kernel was not launched as the path implies, an output is wrong, the
+    switch changes the logits, or the GPU logits disagree with the CPU
+    plain path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
+
+    cfg = get_config("mfnet")
+    model, img_s, peaks = _serve(cfg, device, order, "model")
     print(f"model: eval img/s unfused {img_s[False]} fused {img_s[True]}")
 
     # the switch at 480x640: the same weights and input, fused against not
@@ -1900,19 +2050,38 @@ def model_phase(device, order=(False, True, True, False)):
         if not torch.isfinite(got).all() or agree < ARGMAX_AGREEMENT:
             raise AssertionError("GPU logits disagree with the CPU plain "
                                  "path")
-    return img_s
+    return img_s, peaks
+
+
+def bf16_model_phase(device, order=(False, True)):
+    """bf16 serving: the model phase's path with cfg.bf16 (the same seeded
+    weights, fp32 parameters) on the same four images, the fused epilogue
+    off then on; every forward scan kernel launched on bf16 operands.
+    Returns ({switch: [img/s]}, {switch: [peak GiB]})."""
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+
+    model, img_s, peaks = _serve(get_config("mfnet", bf16=True), device,
+                                 order, "bf16 model")
+    del model
+    torch.cuda.empty_cache()
+    return img_s, peaks
 
 
 def _train_run(cfg, device, batches, fused):
     """The train CLI's step (a fresh seeded model) over `batches`, with the
-    fused SS2D epilogue `fused`. Returns (launch counts, timing dict);
-    raises if a loss is not finite, no weight moved, or the kernels
-    launched differ from what the path and its remat plan imply."""
+    fused SS2D epilogue `fused`. Returns (launch counts, timing dict with
+    the peak memory); raises if a loss is not finite, no weight moved, or
+    the kernels launched differ from what the path and its remat plan
+    imply (with cfg.bf16: every scan kernel on bf16 operands, so no
+    backward went through an fp32 copy)."""
     import numpy as np
     import torch
 
     from sigma_tpu_torch.engine.train import build_train
     from sigma_tpu_torch.models.ss2d import set_fused_epilogue
+    from sigma_tpu_torch.ops import scan_g
     from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch
 
     h, w = cfg.image_height, cfg.image_width
@@ -1931,34 +2100,46 @@ def _train_run(cfg, device, batches, fused):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = _launches()
+    bf16 = dict(scan_g.LAUNCHES_BF16)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
     moved = sum(int((p.detach() != before[k]).sum())
                 for k, p in model.named_parameters())
     total = sum(p.numel() for p in model.parameters())
+    fp32_params = all(p.dtype == torch.float32 for p in model.parameters())
     s_step = sum(seconds[1:]) / len(seconds[1:])
-    tag = f"train: fused_epilogue={int(fused)}"
-    print(f"{tag} sigma_tiny MFNet {h}x{w} batch {batch}, {steps} steps: "
+    tag = (f"{'bf16 ' if cfg.bf16 else ''}train: "
+           f"fused_epilogue={int(fused)}")
+    print(f"{tag} sigma_tiny MFNet {h}x{w} batch {batch}, {steps} steps, "
+          f"{'bf16' if cfg.bf16 else 'fp32'} compute: "
           f"losses {losses}, seconds {[round(t, 4) for t in seconds]}, "
           f"lr {[schedule(k) for k in range(steps)]}")
     print(f"{tag} last {steps - 1} steps {s_step:.4f} s/step = "
-          f"{batch / s_step:.4f} img/s, peak "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
-          f"{moved} of {total} weights moved, launches {launches}")
+          f"{batch / s_step:.4f} img/s, peak {peak:.3f} GiB, "
+          f"{moved} of {total} weights moved, launches {launches}, bf16 io "
+          f"{ {k: n for k, n in bf16.items() if n} }")
     del state, step, model, before
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss {losses}")
-    if moved == 0:
-        raise AssertionError("the train steps moved no weight")
+    if moved == 0 or not fp32_params:
+        raise AssertionError("the train steps moved no weight, or left a "
+                             "parameter in another dtype than fp32")
     missing = [k for k in FORWARD + SCAN_BACKWARD if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the train step: "
                              f"{missing}")
+    io_bad = [k for k in FORWARD + SCAN_BACKWARD
+              if bf16[k] != (launches[k] if cfg.bf16 else 0)]
+    if io_bad:
+        raise AssertionError(f"kernels launched in another io type than the "
+                             f"model's: {io_bad} (bf16 {bf16}, all "
+                             f"{launches})")
     want = ((steps * k6, steps * k7) if fused else (0, 0))
     got = tuple(launches[k] for k in EPILOGUE)
     if got != want:
         raise AssertionError(f"K6/K7 launched {got} times, the remat plan "
                              f"implies {want}")
-    return launches, dict(s_step=s_step, img_s=batch / s_step)
+    return launches, dict(s_step=s_step, img_s=batch / s_step, peak=peak)
 
 
 def train_phase(device, steps=3, order=(False, True, True, False)):
@@ -2029,6 +2210,122 @@ def train_phase(device, steps=3, order=(False, True, True, False)):
     return main_launches, timing
 
 
+def bf16_train_phase(device, steps=3, order=(False, True)):
+    """The train phase's step with cfg.bf16 (the same seeded weights and
+    batches): 3 steps once per entry of `order`; every forward and
+    backward scan kernel on bf16 operands (`_train_run`). Returns {switch:
+    [timing dicts]}."""
+    import numpy as np
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch
+    from sigma_tpu_torch.trace_step import synthetic_batch
+
+    cfg = get_config("mfnet", bf16=True)
+    rng = np.random.default_rng(SEED + 3)
+    batches = [synthetic_batch(rng, batch, cfg.image_height,
+                               cfg.image_width) for _ in range(steps)]
+    timing = {False: [], True: []}
+    for fused in order:
+        timing[fused].append(_train_run(cfg, device, batches, fused)[1])
+    return timing
+
+
+def bf16_cross_check(device):
+    """bf16 on the card against bf16 on the CPU (the plain scan path), on
+    sigma_test from one set of seeded weights, epilogue off and on: the
+    logits of a 96x128 pair, and one SGDM step at 64x80 (loss and
+    post-step weights). bf16 rounds at other places in the kernels than in
+    the plain versions, so the bound is the scale of bf16 itself: the
+    card-vs-CPU gap at most twice the CPU's own bf16-vs-fp32 gap on the
+    same model and inputs. A gap is the norm of the difference over the
+    whole quantity (all logits; all weights), so no single element where
+    a sum cancels decides it; the largest element of each difference and
+    its leaf, and the card's own bf16-vs-fp32 gap, are printed beside it.
+    Raises otherwise."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.engine.optim import build_optimizer
+    from sigma_tpu_torch.engine.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
+    from sigma_tpu_torch.models.common import DropPath
+    from sigma_tpu_torch.models.ss2d import set_fused_epilogue
+    from sigma_tpu_torch.trace_step import synthetic_batch
+    from sigma_tpu_torch.utils.lr_schedule import poly_lr
+
+    sd = init_parameters(EncoderDecoder(9, "sigma_test"),
+                         seed=SEED + 8).state_dict()
+
+    def model(dtype, dev, fused):
+        m = EncoderDecoder(9, "sigma_test", dtype=dtype)
+        m.load_state_dict(sd)
+        for mod in m.modules():  # the CPU and CUDA generators differ
+            if isinstance(mod, DropPath):
+                mod.rate = 0.0
+        return set_fused_epilogue(m, fused).to(dev)
+
+    def gap(a, b):
+        """(norm of a - b, its largest element, that element's leaf)."""
+        if isinstance(a, float):
+            return abs(a - b), abs(a - b), ""
+        if isinstance(a, torch.Tensor):
+            a, b = {"": a}, {"": b}
+        d = {k: (a[k] - b[k]).flatten() for k in a}
+        top = max(d, key=lambda k: d[k].abs().max().item())
+        return (torch.cat(list(d.values())).norm().item(),
+                d[top].abs().max().item(), top)
+
+    rng = np.random.default_rng(SEED + 9)
+    rgb, mx = (torch.from_numpy(rng.standard_normal((1, 96, 128, 3))
+                                .astype(np.float32)) for _ in range(2))
+    cfg = get_config("mfnet", optimizer="SGDM")
+    small = synthetic_batch(np.random.default_rng(SEED + 10), 2, 64, 80)
+    failures = []
+    for fused in (False, True):
+        runs = {"cpu fp32": (torch.float32, "cpu"),
+                "cpu bf16": (torch.bfloat16, "cpu"),
+                "card bf16": (torch.bfloat16, device),
+                "card fp32": (torch.float32, device)}
+        logits, losses, weights = {}, {}, {}
+        for name, (dtype, dev) in runs.items():
+            m = model(dtype, dev, fused).eval()
+            with torch.inference_mode():
+                logits[name] = m(rgb.to(dev), mx.to(dev)).float().cpu()
+            opt = build_optimizer(cfg, m)
+            st = create_train_state(m, opt)
+            losses[name] = float(make_train_step(
+                m, opt, poly_lr(1e-2, 0.9, 100))(st, small))
+            weights[name] = {k: v.detach().float().cpu()
+                             for k, v in m.state_dict().items()}
+            del m, opt, st
+        for what, vals in (("logits 96x128", logits),
+                           ("one SGDM step 64x80, loss", losses),
+                           ("one SGDM step 64x80, post-step weights",
+                            weights)):
+            card = gap(vals["card bf16"], vals["cpu bf16"])
+            cpu = gap(vals["cpu bf16"], vals["cpu fp32"])
+            own = gap(vals["card bf16"], vals["card fp32"])
+            ok = card[0] <= 2 * cpu[0]
+            line = (f"bf16 cross-check: fused_epilogue={int(fused)} "
+                    f"sigma_test {what}: card vs CPU bf16 {card[0]:.4e} "
+                    f"(largest {card[1]:.3e} {card[2]}), CPU bf16 vs fp32 "
+                    f"{cpu[0]:.4e} "
+                    f"(largest {cpu[1]:.3e} {cpu[2]}), need card <= 2 x CPU "
+                    f"{'ok' if ok else 'FAIL'}; the card's own bf16 vs fp32 "
+                    f"{own[0]:.4e} (largest {own[1]:.3e} {own[2]})")
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{len(failures)} bf16 cross-checks failed")
+
+
 def main() -> int:
     import torch
 
@@ -2047,6 +2344,9 @@ def main() -> int:
     # depthwise and CAB convs) default to TF32, and so may matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # and a bf16 product accumulates in fp32 and rounds once, as the
+    # reference's does: cuBLAS may otherwise sum split-K partials in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
 
     t_start = time.perf_counter()
@@ -2058,8 +2358,11 @@ def main() -> int:
     summary.update(ops_summary)
     img_summary, img_launches = image_phase(device)
     summary.update(img_summary)
-    eval_img_s = model_phase(device)
+    eval_img_s, eval_peak = model_phase(device)
+    bf16_img_s, bf16_eval_peak = bf16_model_phase(device)
     launches, train_timing = train_phase(device)
+    bf16_train_timing = bf16_train_phase(device)
+    bf16_cross_check(device)
     # last, so that its large calls precede no timed phase
     if body_bits_check(device):
         raise AssertionError("K1-K4, K10 or K11 moved from their recorded "
@@ -2098,13 +2401,34 @@ def main() -> int:
               f"({'backward, autograd' if name.endswith('bwd') else 'forward'}"
               f") at {s['at']} (K6 / K7: ms, plain_ms and the unfused "
               f"chain are device time, torch.profiler)")
+    for name in FORWARD + SCAN_BACKWARD + EPILOGUE:
+        s = summary[name]
+        b32 = _bound(name, s["kw"])[0]
+        b16, by16 = _bound(name, s["kw"], io=2)
+        err = (f", bf16 max_abs_err over its gradients "
+               f"{s['bf16_max_abs_err']:.3e}" if name in SCAN_BACKWARD
+               else "")
+        print(f"summary: {name} bf16 io at {s['at'].replace(' fp32', '')}: "
+              f"{s['bf16_ms']:.4f} ms (fp32 {s['ms']:.4f}), bound "
+              f"{b16:.4f} ms ({by16}, 2-byte io streams; fp32 {b32:.4f})"
+              + err)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     for fused in (False, True):
-        img = eval_img_s[fused]
+        img, img16 = eval_img_s[fused], bf16_img_s[fused]
         s_step = [t["s_step"] for t in train_timing[fused]]
+        s16 = [t["s_step"] for t in bf16_train_timing[fused]]
         print(f"summary: fused_epilogue={int(fused)} eval img/s "
-              f"{[round(x, 4) for x in img]} mean {sum(img) / len(img):.4f}; "
+              f"{[round(x, 4) for x in img]} mean {mean(img):.4f}; "
               f"train s/step {[round(x, 4) for x in s_step]} mean "
-              f"{sum(s_step) / len(s_step):.4f}")
+              f"{mean(s_step):.4f}")
+        print(f"summary: fused_epilogue={int(fused)} bf16 eval img/s "
+              f"{[round(x, 4) for x in img16]} (fp32 mean {mean(img):.4f}), "
+              f"peak GiB {[round(x, 3) for x in bf16_eval_peak[fused]]} "
+              f"(fp32 {[round(x, 3) for x in eval_peak[fused]]}); bf16 "
+              f"train s/step {[round(x, 4) for x in s16]} (fp32 mean "
+              f"{mean(s_step):.4f}), peak GiB "
+              f"{[round(t['peak'], 3) for t in bf16_train_timing[fused]]} "
+              f"(fp32 {[round(t['peak'], 3) for t in train_timing[fused]]})")
     print("summary: library_ms of proj_grad (K5): its two cuBLAS products, "
           "torch.matmul on the concatenated operands, at the same call; "
           "null for the others: no single PyTorch call computes a "

@@ -15,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -28,6 +29,21 @@ constexpr int kRows = kChunk + kChunk / kItems;  // staged walk slots
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kChunk % kSeg == 0, "chunks must align with hck segments");
 static_assert(kSeg % kItems == 0, "a segment entry starts a lane's run");
+
+// an io value (fp32 or bf16) read into fp32 registers, and an fp32 value
+// stored in the io type (rounded to nearest even for bf16)
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // checkpoint segments of a sequence of L tokens
 __host__ __device__ inline int n_ck_of(int L) { return (L + kSeg - 1) / kSeg; }

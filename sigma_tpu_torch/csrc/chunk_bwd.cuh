@@ -77,6 +77,8 @@
 //     chain's (n_ck, N, dg) checkpoints;
 //   float a_at(g, n, e)        A of chain g (BwdArgs: A as (G, N, dg));
 //   kTokenMajor                the access order (BwdArgs: false).
+// The body is fp32 throughout: a source whose streams are bf16 (K3, K4)
+// converts on each read and rounds on each store that it keeps in bf16.
 // A null bias or D counts as zero; a null dbias or dD is not written (K9:
 // the caller differentiates them).
 // Chain instance z = b * G + g (blockIdx.z) indexes lam, sd and the

@@ -1,5 +1,6 @@
-// Backward selective-scan kernels for Hopper (sm_90a), fp32, plain C
-// interface for ctypes. Built by sigma_tpu_torch/ops/_build.py with nvcc.
+// Backward selective-scan kernels for Hopper (sm_90a), fp32 or bf16 io,
+// plain C interface for ctypes. Built by sigma_tpu_torch/ops/_build.py
+// with nvcc.
 //
 // Replace sigma_tpu/ops/pallas_scan_g.py::_bwd_kernel (:305), reached
 // through _bwd_call (:989: the streamed pallas_call :1111 and the
@@ -37,6 +38,14 @@
 //   2 dg (dg + 2N) flops per token and chain on the TF32 tensor cores.
 //   Design: work spreads over (chunk, channel tile, chain, batch): 3,600
 //   blocks at the train step's ConMB stage 0 (L 38,400, dg 192).
+//   bf16 io (as the TPU kernel's, :977-1000): the operand sources are
+//   templates over the io type. u and dy (K3: dt, B, C too) are read as
+//   bf16 and converted to fp32 in registers; the adjoints, the carries,
+//   hck and every sum stay fp32. A value is stored in bf16 only where it
+//   is final: K3's du and dd. K4's du (K5 adds the chain term into it) and
+//   dd (K5's operand) stay fp32, and so do the per-chunk and per-block
+//   partials; the wrapper rounds each once, after its last sum. At fp32
+//   io the conversions are the identity: the same code, the same bits.
 //
 // K5 weight_grad_kernel + du_chain_kernel (one entry point) — the products
 //   the TPU kernel runs in its own body (:594-622): per chain
@@ -48,7 +57,9 @@
 //   Design (csrc/tc_gemm.cuh): 64 x 64 output tiles on the tensor cores,
 //   mma.sync m16n8k8 on 1xTF32 operands with fp32 accumulation, k-tiles
 //   of 32 copied by cp.async into two shared buffers, one tile ahead of
-//   the MMAs, 16-byte copies along each operand's contiguous axis. [dB | dC] and [W_B | W_C]
+//   the MMAs, 16-byte copies along each operand's contiguous axis (a
+//   bf16 u, the weight gradient's A operand, is converted to fp32 through
+//   registers on its way into shared memory: exact in TF32). [dB | dC] and [W_B | W_C]
 //   arrive concatenated (the wrapper's copies, 2N columns), so the three
 //   parts are two operands chosen per tile or per k-tile, never per
 //   element. The weight gradient contracts over all batch * L tokens: each
@@ -64,9 +75,11 @@
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "chunk_bwd.cuh"
 #include "tc_gemm.cuh"
@@ -86,44 +99,51 @@ constexpr int kErrArguments = 10003;
 // (batch, G, L, N); K4: columns 0, dg and dg + N of P. dd (batch, G, L,
 // dg); dBp / dCp (batch, nblk, G, L, N) per-channel-block partials, dC
 // routed to the chain whose projection made the C under swap_c; hck
-// (batch, G, n_ck, N, dg).
+// (batch, G, n_ck, N, dg). Types: T of u / dy, TS of the dt / B / C
+// streams, TO of du / dd; the rest fp32.
+template <typename T, typename TS, typename TO>
 struct GroupBwdSrc : BwdArgs {
-  const float* u[2];
-  const float* dy[2];
-  float* du[2];
-  const float* dt;
-  const float* Bm;
-  const float* Cm;
+  const T* u[2];
+  const T* dy[2];
+  TO* du[2];
+  const TS* dt;
+  const TS* Bm;
+  const TS* Cm;
   const float* hck;
-  float* dd;
+  TO* dd;
   float* dBp;
   float* dCp;
   size_t sdt, sbc;
   int ldt, ldbc, n_u, reverse, swap_c, nblk;
 
   struct View {
-    const float *u, *dy, *dt, *Bm, *Cm, *hck;
-    float *du, *dd, *dB, *dC;
+    const T *u, *dy;
+    const TS *dt, *Bm, *Cm;
+    const float* hck;
+    TO *du, *dd;
+    float *dB, *dC;
     size_t blk_step;  // between two channel blocks' partials
     int ldt, ldbc, dg, N;
-    __device__ float u_at(int t, int e) const { return u[(size_t)t * dg + e]; }
+    __device__ float u_at(int t, int e) const {
+      return to_f(u[(size_t)t * dg + e]);
+    }
     __device__ float dy_at(int t, int e) const {
-      return dy[(size_t)t * dg + e];
+      return to_f(dy[(size_t)t * dg + e]);
     }
     __device__ float dt_at(int t, int e) const {
-      return dt[(size_t)t * ldt + e];
+      return to_f(dt[(size_t)t * ldt + e]);
     }
     __device__ float b_at(int t, int n) const {
-      return Bm[(size_t)t * ldbc + n];
+      return to_f(Bm[(size_t)t * ldbc + n]);
     }
     __device__ float c_at(int t, int n) const {
-      return Cm[(size_t)t * ldbc + n];
+      return to_f(Cm[(size_t)t * ldbc + n]);
     }
     __device__ void put_du(int t, int e, float v) const {
-      du[(size_t)t * dg + e] = v;
+      du[(size_t)t * dg + e] = from_f<TO>(v);
     }
     __device__ void put_dd(int t, int e, float v) const {
-      dd[(size_t)t * dg + e] = v;
+      dd[(size_t)t * dg + e] = from_f<TO>(v);
     }
     __device__ void put_dbc(int blk, int t, int n, float vb, float vc) const {
       const size_t o = blk * blk_step + (size_t)t * N + n;
@@ -158,20 +178,27 @@ struct GroupBwdSrc : BwdArgs {
   }
 };
 
-// K3 and K4 as two types, so that a trace tells their launches apart
-struct StreamBwdSrc : GroupBwdSrc {};
-struct ProjBwdSrc : GroupBwdSrc {};
+// K3 and K4 as two types, so that a trace tells their launches apart. K3
+// reads its streams in the io type T and stores its final du and dd in
+// it; K4 reads dt / B / C from its fp32 projection stream and stores du
+// and dd in fp32 for K5.
+template <typename T>
+struct StreamBwdSrc : GroupBwdSrc<T, T, T> {};
+template <typename T>
+struct ProjBwdSrc : GroupBwdSrc<T, float, float> {};
 
-// K4a: P[b, g] = u[b, g] [W_dt | W_B | W_C][g], as K2a
+// K4a: P[b, g] = u[b, g] [W_dt | W_B | W_C][g], as K2a (the weights in the
+// io type, as K2 takes them, so that P has K2's bits)
+template <typename T>
 __global__ void __launch_bounds__(tc::kGemmThreads)
-bwd_proj_kernel(const ProjBwdSrc p, const float* wdt, const float* wbc,
+bwd_proj_kernel(const ProjBwdSrc<T> p, const T* wdt, const T* wbc,
                 float* P) {
   const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
   const int dg = p.dg, N = p.N;
-  tc::proj_tile<float>(p.u[p.n_u == 2 ? g : 0] + p.chain_offset(b, g),
-                       wdt + (size_t)g * dg * dg, wbc + (size_t)g * dg * 2 * N,
-                       P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L,
-                       dg, N, blockIdx.x * tc::kBM, blockIdx.y);
+  tc::proj_tile<T>(p.u[p.n_u == 2 ? g : 0] + p.chain_offset(b, g),
+                   wdt + (size_t)g * dg * dg, wbc + (size_t)g * dg * 2 * N,
+                   P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L, dg,
+                   N, blockIdx.x * tc::kBM, blockIdx.y);
 }
 
 template <class S>
@@ -189,7 +216,7 @@ int dispatch_bwd(const S& p, int batch, cudaStream_t s) {
 constexpr bool kSplitK5 = false;
 
 struct GradArgs {
-  const float* u[2];  // as BwdArgs
+  const void* u[2];   // as BwdArgs, fp32 or bf16 (weight_grad_kernel's T)
   float* du[2];
   const float* dd;    // (batch, G, L, dg)
   const float* dbc;   // (batch, G, L, 2N): [dB | dC], dC routed to its chain
@@ -209,6 +236,8 @@ __device__ __forceinline__ size_t u_base(int n_u, int G, int L, int dg, int b,
 // u[b, g, t, d] Z[b, g, t, k], Z = [dd | dB | dC]: a 64 x 64 tile of
 // (d, k) per block, k-tiles of 32 tokens; the tile's columns lie in dd
 // (tiles below ceil(dg / 64)) or in [dB | dC] (the rest), decided once.
+// u of type T: fp32 copied by cp.async, bf16 through registers.
+template <typename T>
 __global__ void __launch_bounds__(tc::kGemmThreads)
 weight_grad_kernel(const GradArgs p) {
   using namespace tc;
@@ -225,18 +254,30 @@ weight_grad_kernel(const GradArgs p) {
   const int per = ((p.L + p.n_l - 1) / p.n_l + kBK - 1) / kBK * kBK;
   const int t0 = min(p.L, s * per), t1 = min(p.L, t0 + per);
   const size_t tok = ((size_t)b * p.G + g) * p.L;
-  const float* ub =
-      p.u[p.n_u == 2 ? g : 0] + u_base(p.n_u, p.G, p.L, dg, b, g);
+  const T* ub = static_cast<const T*>(p.u[p.n_u == 2 ? g : 0]) +
+                u_base(p.n_u, p.G, p.L, dg, b, g);
   const float* zb = in_dd ? p.dd + tok * dg : p.dbc + tok * 2 * p.N;
   const bool vu = vec_ok(ub, dg), vz = vec_ok(zb, nz);
+  const int ntiles = (t1 - t0 + kBK - 1) / kBK;
   float acc[2][4][4];
-  gemm_loop_async<true, true, kSplitK5>(
-      (t1 - t0 + kBK - 1) / kBK, dg - m0, nz - n0,
-      [=](int kt, float* sa, float* sb) {
-        k_tile_async(sa, ub, dg, t0 + kt * kBK, t1, m0, dg, vu);
-        k_tile_async(sb, zb, nz, t0 + kt * kBK, t1, n0, nz, vz);
-      },
-      [=](int kt) { return t1 - t0 - kt * kBK; }, acc);
+  if constexpr (std::is_same<T, float>::value) {
+    gemm_loop_async<true, true, kSplitK5>(
+        ntiles, dg - m0, nz - n0,
+        [=](int kt, float* sa, float* sb) {
+          k_tile_async(sa, ub, dg, t0 + kt * kBK, t1, m0, dg, vu);
+          k_tile_async(sb, zb, nz, t0 + kt * kBK, t1, n0, nz, vz);
+        },
+        [=](int kt) { return t1 - t0 - kt * kBK; }, acc);
+  } else {
+    gemm_loop<true, true, kSplitK5, KTile<T>, KTile<float>>(
+        ntiles, dg - m0, nz - n0,
+        [=](int kt, KTile<T>& ta, KTile<float>& tb) {
+          ta.load(ub, dg, t0 + kt * kBK, t1, m0, dg, vu);
+          tb.load(zb, nz, t0 + kt * kBK, t1, n0, nz, vz);
+          return t1 - t0 - kt * kBK;
+        },
+        acc);
+  }
   const int kz = dg + 2 * p.N;
   float* out = p.dW + ((size_t)(s * p.batch + b) * p.G + g) * dg * kz;
   for_each_out(acc, [&](int r, int c, float v) {
@@ -302,102 +343,119 @@ bool bad_chunks(int batch, int G, int L, int nck, int n_chunk) {
 
 extern "C" {
 
-// K3. u, dt, dy, du, dd: (batch, G, L, dg); Bm, Cm: (batch, G, L, N);
-// A: (G, N, dg); bias, Dk: (G, dg); hck: (batch, G, nck, N, dg) from K1;
-// dA: (batch, G, n_chunk, N, dg); dbias, dD: (batch, G, n_chunk, dg);
-// dBp, dCp: (batch, ceil(dg / 32), G, L, N); scratch lam (batch, G,
-// n_chunk, N, dg), sd (batch, G, n_chunk, dg), n_chunk = ceil(L / 128).
-// All fp32.
-int sigma_scan_bwd(const float* u, const float* dt, const float* A,
-                   const float* Bm, const float* Cm, const float* bias,
-                   const float* Dk, const float* hck, const float* dy,
-                   float* du, float* dd, float* dA, float* dbias, float* dD,
+// K3. u, dt, dy, du, dd: (batch, G, L, dg); Bm, Cm: (batch, G, L, N), all
+// in the io type (bf16 when bf16, else fp32); A: (G, N, dg); bias, Dk:
+// (G, dg); hck: (batch, G, nck, N, dg) from K1; dA: (batch, G, n_chunk, N,
+// dg); dbias, dD: (batch, G, n_chunk, dg); dBp, dCp: (batch, ceil(dg /
+// 32), G, L, N); scratch lam (batch, G, n_chunk, N, dg), sd (batch, G,
+// n_chunk, dg), n_chunk = ceil(L / 128). Those fp32.
+int sigma_scan_bwd(const void* u, const void* dt, const float* A,
+                   const void* Bm, const void* Cm, const float* bias,
+                   const float* Dk, const float* hck, const void* dy,
+                   void* du, void* dd, float* dA, float* dbias, float* dD,
                    float* dBp, float* dCp, float* lam, float* sd,
                    int n_chunk, int batch, int G, int L, int dg, int N,
-                   int nck, int softplus, int reverse, void* stream) {
+                   int nck, int softplus, int reverse, int bf16,
+                   void* stream) {
   if (bad_shape(batch, G, L, dg, N, 1) ||
       bad_chunks(batch, G, L, nck, n_chunk))
     return kErrArguments;
-  StreamBwdSrc p{};
-  set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, G, L, dg, N, softplus,
-               n_chunk);
-  p.u[0] = u;
-  p.dy[0] = dy;
-  p.du[0] = du;
-  p.dt = dt;
-  p.Bm = Bm;
-  p.Cm = Cm;
-  p.sdt = (size_t)L * dg;
-  p.sbc = (size_t)L * N;
-  p.ldt = dg;
-  p.ldbc = N;
-  p.hck = hck;
-  p.dd = dd;
-  p.dBp = dBp;
-  p.dCp = dCp;
-  p.n_u = 1;
-  p.reverse = reverse;
-  p.nblk = (dg + kBwdChan - 1) / kBwdChan;
-  return dispatch_bwd(p, batch, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SIGMA_SCAN_BWD(T)                                                  \
+  {                                                                        \
+    StreamBwdSrc<T> p{};                                                   \
+    set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, G, L, dg, N,      \
+                 softplus, n_chunk);                                       \
+    p.u[0] = static_cast<const T*>(u);                                     \
+    p.dy[0] = static_cast<const T*>(dy);                                   \
+    p.du[0] = static_cast<T*>(du);                                         \
+    p.dt = static_cast<const T*>(dt);                                      \
+    p.Bm = static_cast<const T*>(Bm);                                      \
+    p.Cm = static_cast<const T*>(Cm);                                      \
+    p.sdt = (size_t)L * dg;                                                \
+    p.sbc = (size_t)L * N;                                                 \
+    p.ldt = dg;                                                            \
+    p.ldbc = N;                                                            \
+    p.hck = hck;                                                           \
+    p.dd = static_cast<T*>(dd);                                            \
+    p.dBp = dBp;                                                           \
+    p.dCp = dCp;                                                           \
+    p.n_u = 1;                                                             \
+    p.reverse = reverse;                                                   \
+    p.nblk = (dg + kBwdChan - 1) / kBwdChan;                               \
+    return dispatch_bwd(p, batch, s);                                      \
+  }
+  if (bf16) SIGMA_SCAN_BWD(__nv_bfloat16)
+  SIGMA_SCAN_BWD(float)
+#undef SIGMA_SCAN_BWD
 }
 
 // K4. n_u == 2: u0/u1, dy0/dy1, du0/du1 are the two layouts (batch, L, dg)
-// and G == 2; n_u == 1: slot 0 is (batch, G, L, dg). wdt: (G, dg, dg);
-// wbc: (G, dg, 2N), [W_B | W_C]; scratch P: (batch, G, L, dg + 2N); the
-// rest as for sigma_scan_bwd, with dCp routed to the partner chain under
-// swap_c (G even).
-int sigma_scan_proj_bwd(const float* u0, const float* u1, const float* wdt,
-                        const float* wbc, const float* A, const float* bias,
-                        const float* Dk, const float* hck, const float* dy0,
-                        const float* dy1, float* du0, float* du1, float* P,
+// and G == 2; n_u == 1: slot 0 is (batch, G, L, dg). u, dy, wdt: (G, dg,
+// dg) and wbc: (G, dg, 2N), [W_B | W_C], in the io type; du, dd and the
+// scratch P: (batch, G, L, dg + 2N) fp32; the rest as for sigma_scan_bwd,
+// with dCp routed to the partner chain under swap_c (G even).
+int sigma_scan_proj_bwd(const void* u0, const void* u1, const void* wdt,
+                        const void* wbc, const float* A, const float* bias,
+                        const float* Dk, const float* hck, const void* dy0,
+                        const void* dy1, float* du0, float* du1, float* P,
                         float* dd, float* dA, float* dbias, float* dD,
                         float* dBp, float* dCp, float* lam, float* sd,
                         int n_chunk, int batch, int G, int L, int dg, int N,
                         int nck, int n_u, int softplus, int reverse,
-                        int swap_c, void* stream) {
+                        int swap_c, int bf16, void* stream) {
   if (bad_shape(batch, G, L, dg, N, n_u) || (swap_c && G % 2) ||
       bad_chunks(batch, G, L, nck, n_chunk))
     return kErrArguments;
   if (N > 16) return kErrStateWidth;
   const size_t kz = (size_t)dg + 2 * N;
-  ProjBwdSrc p{};
-  set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, G, L, dg, N, softplus,
-               n_chunk);
-  p.u[0] = u0;
-  p.u[1] = u1;
-  p.dy[0] = dy0;
-  p.dy[1] = dy1;
-  p.du[0] = du0;
-  p.du[1] = du1;
-  p.dt = P;
-  p.Bm = P + dg;
-  p.Cm = P + dg + N;
-  p.sdt = p.sbc = (size_t)L * kz;
-  p.ldt = p.ldbc = static_cast<int>(kz);
-  p.hck = hck;
-  p.dd = dd;
-  p.dBp = dBp;
-  p.dCp = dCp;
-  p.n_u = n_u;
-  p.reverse = reverse;
-  p.swap_c = swap_c;
-  p.nblk = (dg + kBwdChan - 1) / kBwdChan;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bwd_proj_kernel<<<tc::proj_grid(L, dg, N, batch * G), tc::kGemmThreads,
-                    tc::proj_smem<float>(), s>>>(p, wdt, wbc, P);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dispatch_bwd(p, batch, s);
+#define SIGMA_PROJ_BWD(T)                                                  \
+  {                                                                        \
+    ProjBwdSrc<T> p{};                                                     \
+    set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, G, L, dg, N,      \
+                 softplus, n_chunk);                                       \
+    p.u[0] = static_cast<const T*>(u0);                                    \
+    p.u[1] = static_cast<const T*>(u1);                                    \
+    p.dy[0] = static_cast<const T*>(dy0);                                  \
+    p.dy[1] = static_cast<const T*>(dy1);                                  \
+    p.du[0] = du0;                                                         \
+    p.du[1] = du1;                                                         \
+    p.dt = P;                                                              \
+    p.Bm = P + dg;                                                         \
+    p.Cm = P + dg + N;                                                     \
+    p.sdt = p.sbc = (size_t)L * kz;                                        \
+    p.ldt = p.ldbc = static_cast<int>(kz);                                 \
+    p.hck = hck;                                                           \
+    p.dd = dd;                                                             \
+    p.dBp = dBp;                                                           \
+    p.dCp = dCp;                                                           \
+    p.n_u = n_u;                                                           \
+    p.reverse = reverse;                                                   \
+    p.swap_c = swap_c;                                                     \
+    p.nblk = (dg + kBwdChan - 1) / kBwdChan;                               \
+    bwd_proj_kernel<T><<<tc::proj_grid(L, dg, N, batch * G),               \
+                         tc::kGemmThreads, tc::proj_smem<T>(), s>>>(       \
+        p, static_cast<const T*>(wdt), static_cast<const T*>(wbc), P);     \
+    const cudaError_t err = cudaGetLastError();                            \
+    if (err != cudaSuccess) return static_cast<int>(err);                  \
+    return dispatch_bwd(p, batch, s);                                      \
+  }
+  if (bf16) SIGMA_PROJ_BWD(__nv_bfloat16)
+  SIGMA_PROJ_BWD(float)
+#undef SIGMA_PROJ_BWD
 }
 
-// K5. u / du as for sigma_scan_proj_bwd (du is added to); dd: (batch, G,
-// L, dg); dbc: (batch, G, L, 2N), [dB | dC] summed over channel blocks, dC
-// routed; wdt: (G, dg, dg); wbc: (G, dg, 2N), [W_B | W_C]; dW: (n_l *
-// batch, G, dg, dg + 2N) partials, n_l token splits per batch element.
-int sigma_proj_grad(const float* u0, const float* u1, float* du0, float* du1,
+// K5. u as for sigma_scan_proj_bwd, in the io type (bf16 when bf16, else
+// fp32); du fp32, added to; dd: (batch, G, L, dg); dbc: (batch, G, L,
+// 2N), [dB | dC] summed over channel blocks, dC routed; wdt: (G, dg, dg);
+// wbc: (G, dg, 2N), [W_B | W_C]; dW: (n_l * batch, G, dg, dg + 2N)
+// partials, n_l token splits per batch element. Those fp32.
+int sigma_proj_grad(const void* u0, const void* u1, float* du0, float* du1,
                     const float* dd, const float* dbc, const float* wdt,
                     const float* wbc, float* dW, int batch, int G, int L,
-                    int dg, int N, int n_u, int n_l, void* stream) {
+                    int dg, int N, int n_u, int n_l, int bf16,
+                    void* stream) {
   if (bad_shape(batch, G, L, dg, N, n_u) || n_l <= 0 ||
       (size_t)G * batch * n_l > 65535 ||
       (L + tc::kBM - 1) / tc::kBM > 65535)
@@ -423,7 +481,11 @@ int sigma_proj_grad(const float* u0, const float* u1, float* du0, float* du1,
   const int tiles_d = (dg + tc::kBM - 1) / tc::kBM;
   const dim3 gw(tiles_d, tiles_d + (2 * N + tc::kBN - 1) / tc::kBN,
                 G * batch * n_l);
-  weight_grad_kernel<<<gw, tc::kGemmThreads, tc::kAsyncSmem, s>>>(p);
+  // bf16 u: the register path's static shared memory, no dynamic
+  if (bf16)
+    weight_grad_kernel<__nv_bfloat16><<<gw, tc::kGemmThreads, 0, s>>>(p);
+  else
+    weight_grad_kernel<float><<<gw, tc::kGemmThreads, tc::kAsyncSmem, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 gu(tiles_d, (L + tc::kBM - 1) / tc::kBM, G * batch);

@@ -1,11 +1,14 @@
 """Train state and train step on one device (counterpart of
 `sigma_tpu/engine/train.py`).
 
-One call of the step computes the loss (CE, ignore 255), backpropagates
-through the model (the scans' backward runs in the Hopper kernels on the
-card), and applies the optimizer with the lr of its schedule at this step.
-Data-parallel training across cards is not ported (ROADMAP queue A item
-11).
+One call of the step computes the loss (CE, ignore 255, in fp32),
+backpropagates through the model (the scans' backward runs in the Hopper
+kernels on the card), and applies the optimizer with the lr of its
+schedule at this step. A model built with `cfg.bf16` computes in bf16
+(models/common.py): its parameters, their gradients and the optimizer's
+state stay fp32, the batch is normalised in fp32 and the first layer
+casts it, as in the JAX package. Data-parallel training across cards is
+not ported (ROADMAP queue A item A5).
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training over several cards is not ported "
-            "(ROADMAP.md queue A item 11)")
+            "(ROADMAP.md queue A item A5)")
     mean = norm_mean if norm_mean is not None else IMAGENET_MEAN
     std = norm_std if norm_std is not None else IMAGENET_STD
     device = next(model.parameters()).device
@@ -108,7 +111,7 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
 def build_train(cfg, device="cuda"):
     """The train step of a config as the train CLI runs it: the model
     seeded from cfg.seed on `device` (the card unless the caller asks for
-    the CPU), cfg's optimizer, warmup-poly lr over cfg's epochs, drop path
+    the CPU), in bf16 compute when cfg.bf16 is set, cfg's optimizer, warmup-poly lr over cfg's epochs, drop path
     seeded from cfg.seed + 1. Returns (state, train_step, schedule)."""
     model = build_model(cfg, device=device, seed=cfg.seed)
     schedule = warmup_poly_lr(cfg.lr, cfg.lr_power,

@@ -5,7 +5,8 @@
   python -m sigma_tpu_torch.eval -n mfnet -e model.pth -p out/    # + PNGs
 
 `-e` takes a reference-named `.pt`/`.pth` state_dict or an `.npz` of JAX
-params flattened with `/`-joined flax paths. Orbax epoch directories of
+params flattened with `/`-joined flax paths. `--override bf16=True` serves
+in bf16 compute (fp32 parameters), as the JAX evaluator takes it. Orbax epoch directories of
 the JAX trainer are not read yet. `--device` defaults to cuda; the CPU is
 used only when asked for.
 """
@@ -46,6 +47,9 @@ def main(argv=None) -> int:
     # depthwise and CAB convs) default to TF32, and so may matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # and a bf16 product accumulates in fp32 and rounds once, as the
+    # reference's does: cuBLAS may otherwise sum split-K partials in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.data import RGBXDataset, ValPre
@@ -75,6 +79,8 @@ def main(argv=None) -> int:
     logger = get_logger()
     logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
                 "fused" if FUSED_EPILOGUE else "unfused")
+    logger.info("compute dtype: %s (parameters fp32)",
+                "bf16" if getattr(cfg, "bf16", False) else "fp32")
     model = build_model(cfg, device="cpu")
     model.load_state_dict(load_checkpoint(args.epochs))
     model.to(device)

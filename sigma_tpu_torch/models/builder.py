@@ -24,23 +24,26 @@ class EncoderDecoder(nn.Module):
     MambaDecoder."""
 
     def __init__(self, num_classes, backbone="sigma_tiny",
-                 decoder="MambaDecoder", deep_supervision=False, remat=True):
+                 decoder="MambaDecoder", deep_supervision=False, remat=True,
+                 dtype=torch.float32):
         """`remat`: True, False or a token threshold
-        (models/common.py::should_remat)."""
+        (models/common.py::should_remat). `dtype`: the compute dtype,
+        flax's (fp32, or bf16 with fp32 parameters, LayerNorms and scan
+        state; models/common.py); the logits come back in it."""
         super().__init__()
         if backbone not in SIGMA_VARIANTS:
             raise NotImplementedError(
                 f"backbone {backbone!r} is not ported; the port has "
-                f"{sorted(SIGMA_VARIANTS)} (ROADMAP.md queue A item 13)")
+                f"{sorted(SIGMA_VARIANTS)} (ROADMAP.md queue A item A7)")
         if decoder != "MambaDecoder":
             raise NotImplementedError(
                 f"decoder {decoder!r} is not ported; the port has "
-                "MambaDecoder (ROADMAP.md queue A item 13)")
+                "MambaDecoder (ROADMAP.md queue A item A7)")
         variant = SIGMA_VARIANTS[backbone]
-        self.backbone = SigmaEncoder(**variant, remat=remat)
+        self.backbone = SigmaEncoder(**variant, remat=remat, dtype=dtype)
         self.decode_head = MambaDecoder(
             num_classes, embed_dim=variant["dims"][0],
-            deep_supervision=deep_supervision, remat=remat,
+            deep_supervision=deep_supervision, remat=remat, dtype=dtype,
         )
 
     def forward(self, rgb, modal_x):
@@ -86,24 +89,24 @@ def require_device(device) -> torch.device:
 
 def build_model(cfg, device="cuda", seed: int = 0) -> EncoderDecoder:
     """The network of a config (sigma_tpu_torch/configs.py), seeded, in
-    eval mode on `device` (the card unless the caller asks for the CPU).
-    fp32 only: the bf16 compute policy is open (ROADMAP C4)."""
+    eval mode on `device` (the card unless the caller asks for the CPU),
+    computing in bf16 when `cfg.bf16` is set (fp32 parameters), as the
+    JAX builder does."""
     device = require_device(device)
-    if getattr(cfg, "bf16", False):
-        raise NotImplementedError(
-            "bf16 compute is not ported (ROADMAP.md queue C4)")
     model = EncoderDecoder(
         num_classes=cfg.num_classes, backbone=cfg.backbone,
         decoder=cfg.decoder,
         deep_supervision=getattr(cfg, "deep_supervision", False),
         remat=getattr(cfg, "remat", True),
+        dtype=torch.bfloat16 if getattr(cfg, "bf16", False)
+        else torch.float32,
     )
     return init_parameters(model, seed).to(device).eval()
 
 
 def segmentation_loss(logits, labels, ignore_index: int = 255):
     """Mean CE over valid pixels (torch CrossEntropyLoss(ignore_index=255)),
-    in fp32. A batch with no valid pixel gives 0, not NaN (the count is
+    in fp32 whatever the logits' dtype. A batch with no valid pixel gives 0, not NaN (the count is
     clamped to 1), as in the JAX package.
 
     logits: (B, H, W, C) float; labels: (B, H, W) int.

@@ -2,6 +2,15 @@
 
 All tensors at module boundaries are channel-last (B, H, W, C), as in the
 JAX package; convolutions permute to NCHW internally.
+
+The compute dtype is flax's `dtype`, held by each layer: `Linear` and
+`Conv2d` cast their input, weight and bias to it (the parameters stay
+fp32, and autograd returns fp32 gradients to them); `LayerNorm` promotes
+its input with its fp32 scale, as flax's LayerNorm with no dtype does, so
+a bf16 input is normalised and returned in fp32. Everything else follows
+torch's type promotion, which agrees with JAX's for tensors (bf16 + fp32
+is fp32). No autocast: its defaults differ at LayerNorm and at the
+residual adds.
 """
 
 from __future__ import annotations
@@ -38,6 +47,48 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
     return t
 
 
+class Linear(nn.Linear):
+    """nn.Linear computed in `dtype` (flax Dense's `dtype`): input, weight
+    and bias are cast to it; the parameters stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (NCHW) computed in `dtype` (flax Conv's `dtype`): input,
+    weight and bias are cast to it; the parameters stay fp32."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with flax's promotion: the input is promoted with the
+    fp32 scale, so bf16 in is fp32 out."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return super().forward(
+            x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval mode or at rate 0.
 
@@ -62,8 +113,9 @@ class DropPath(nn.Module):
         if self.seed is not None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(self.seed)
+        # drawn in fp32 whatever x's dtype, so the masks do not depend on it
         mask = torch.empty(shape, device=x.device).bernoulli_(
-            keep, generator=gen)
+            keep, generator=gen).to(x.dtype)
         return x * mask / keep
 
 
@@ -96,10 +148,11 @@ def maybe_remat(module: nn.Module, remat: bool, *args):
 
 class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, dropout: float = 0.0):
+                 out_features: int, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = Linear(hidden_features, out_features, dtype=dtype)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x):
@@ -112,10 +165,11 @@ def conv2d_nhwc(conv: nn.Conv2d, x):
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def depthwise_conv3x3(features: int) -> nn.Conv2d:
-    """3x3 depthwise conv with bias, stride 1, padding 1 (apply with
-    conv2d_nhwc)."""
-    return nn.Conv2d(features, features, 3, padding=1, groups=features)
+def depthwise_conv3x3(features: int, dtype=torch.float32) -> Conv2d:
+    """3x3 depthwise conv with bias, stride 1, padding 1, computed in
+    `dtype` (apply with conv2d_nhwc)."""
+    return Conv2d(features, features, 3, padding=1, groups=features,
+                  dtype=dtype)
 
 
 def _up2x_axis(x, axis: int):

@@ -6,7 +6,9 @@ met by resizing the upsampled path to the skip's shape before the add.
 The head is the JAX package's fused FinalUpsampleX4: it carries the
 LayerNorm statistics through the bilinear upsample and folds the LN affine
 into the 1x1 classifier, so the full-resolution work is num_classes + 3
-maps instead of C channels; the math is exact.
+maps instead of C channels; the math is exact. `dtype` is the compute
+dtype of the linears and blocks (models/common.py); the head returns its
+logits in it, as the JAX head does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from torch import nn
 
 from sigma_tpu_torch.models.common import (
-    LN_EPS,
+    LayerNorm,
+    Linear,
     maybe_remat,
     resize_bilinear,
     should_remat,
@@ -27,10 +30,10 @@ from sigma_tpu_torch.models.vssm import CVSSDecoderBlock
 class PatchExpand(nn.Module):
     """Linear C->2C then 2x2 pixel shuffle: (B,H,W,C) -> (B,2H,2W,C/2)."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, dtype=torch.float32):
         super().__init__()
-        self.expand = nn.Linear(dim, 2 * dim, bias=False)
-        self.norm = nn.LayerNorm(dim // 2, eps=LN_EPS)
+        self.expand = Linear(dim, 2 * dim, bias=False, dtype=dtype)
+        self.norm = LayerNorm(dim // 2)
 
     def forward(self, x):
         x = self.expand(x)
@@ -42,10 +45,10 @@ class PatchExpand(nn.Module):
 class UpsampleExpand(nn.Module):
     """Linear C->C/2 then bilinear 2x: (B,H,W,C) -> (B,2H,2W,C/2)."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, dtype=torch.float32):
         super().__init__()
-        self.linear = nn.Linear(dim, dim // 2, bias=False)
-        self.norm = nn.LayerNorm(dim // 2, eps=LN_EPS)
+        self.linear = Linear(dim, dim // 2, bias=False, dtype=dtype)
+        self.norm = LayerNorm(dim // 2)
 
     def forward(self, x):
         _, h, w, _ = x.shape
@@ -113,25 +116,28 @@ class FinalUpsampleX4(nn.Module):
     projection (W' = diag(gamma) W_out), and E[y^2] comes from
     `_up2_second_moment` at half resolution."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, dtype=torch.float32):
         super().__init__()
-        self.linear1 = nn.Linear(dim, dim, bias=False)
-        self.linear2 = nn.Linear(dim, dim, bias=False)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.compute_dtype = dtype
+        self.linear1 = Linear(dim, dim, bias=False, dtype=dtype)
+        self.linear2 = Linear(dim, dim, bias=False, dtype=dtype)
+        self.norm = LayerNorm(dim)
 
     def forward(self, x, w_out):
         _, h, w, _ = x.shape
         z = self.linear2(resize_bilinear(self.linear1(x), 2 * h, 2 * w))
         gamma, beta = self.norm.weight, self.norm.bias
-        wp = gamma[:, None] * w_out                       # (C, nc)
+        wp = gamma[:, None] * w_out                       # (C, nc) fp32
         wbar = wp.sum(dim=0)                              # (nc,)
         bp = beta @ w_out                                 # (nc,)
-        s = resize_bilinear((z @ wp).float(), 4 * h, 4 * w)
+        s = resize_bilinear((z @ wp.to(self.compute_dtype)).float(),
+                            4 * h, 4 * w)
         mu_z = z.float().mean(dim=-1)                     # (B, 2h, 2w)
         mu = resize_bilinear(mu_z[..., None], 4 * h, 4 * w)[..., 0]
         var = _up2_second_moment(z) - mu * mu
         rs = torch.rsqrt(var + self.norm.eps)
-        return (rs[..., None] * (s - mu[..., None] * wbar) + bp).to(x.dtype)
+        return (rs[..., None] * (s - mu[..., None] * wbar)
+                + bp).to(self.compute_dtype)
 
 
 class MambaUp(nn.Module):
@@ -139,14 +145,15 @@ class MambaUp(nn.Module):
     rematerializes the blocks where `should_remat` says so."""
 
     def __init__(self, dim, depth, drop_path, d_state=4, ssm_ratio=2.0,
-                 upsample=True, remat=True):
+                 upsample=True, remat=True, dtype=torch.float32):
         super().__init__()
         self.remat = remat
         self.blocks = nn.ModuleList(
-            CVSSDecoderBlock(dim, float(drop_path[i]), d_state, ssm_ratio)
+            CVSSDecoderBlock(dim, float(drop_path[i]), d_state, ssm_ratio,
+                             dtype=dtype)
             for i in range(depth)
         )
-        self.upsample = UpsampleExpand(dim) if upsample else None
+        self.upsample = UpsampleExpand(dim, dtype) if upsample else None
 
     def forward(self, x):
         remat = should_remat(self.remat, x.shape[1] * x.shape[2])
@@ -162,25 +169,25 @@ class MambaDecoder(nn.Module):
 
     def __init__(self, num_classes, embed_dim=96, depths=(4, 4, 4, 4),
                  d_state=4, ssm_ratio=2.0, drop_path_rate=0.1,
-                 deep_supervision=False, remat=True):
+                 deep_supervision=False, remat=True, dtype=torch.float32):
         super().__init__()
         if deep_supervision:
             raise NotImplementedError(
                 "MambaDecoder deep supervision is not ported (off in every "
-                "config); see ROADMAP.md queue A")
+                "config); see ROADMAP.md queue A item A7")
         n = len(depths)
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
-        layers = [PatchExpand(embed_dim * 2 ** (n - 1))]
+        layers = [PatchExpand(embed_dim * 2 ** (n - 1), dtype)]
         for i in range(1, n):
             lvl = n - 1 - i
             layers.append(MambaUp(
                 embed_dim * 2 ** lvl, depths[lvl],
                 dpr[sum(depths[:lvl]):sum(depths[:lvl + 1])], d_state,
-                ssm_ratio, upsample=i < n - 1, remat=remat,
+                ssm_ratio, upsample=i < n - 1, remat=remat, dtype=dtype,
             ))
         self.layers_up = nn.ModuleList(layers)
-        self.norm_up = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.up = FinalUpsampleX4(embed_dim)
+        self.norm_up = LayerNorm(embed_dim)
+        self.up = FinalUpsampleX4(embed_dim, dtype)
         self.output = nn.Conv2d(embed_dim, num_classes, 1, bias=False)
 
     def forward(self, inputs):

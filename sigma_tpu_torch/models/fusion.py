@@ -1,8 +1,11 @@
 """Cross-modal fusion blocks, CroMB and ConMB (counterpart of
-`sigma_tpu/models/fusion.py`), on (B, H, W, C) pairs."""
+`sigma_tpu/models/fusion.py`), on (B, H, W, C) pairs. `dtype` is the
+compute dtype of their ops (models/common.py); the residual sums take
+JAX's promotion (fp32 trunk features + a bf16 op output are fp32)."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from sigma_tpu_torch.models.common import DropPath
@@ -12,10 +15,11 @@ from sigma_tpu_torch.models.ss2d import ConMBSS2D, CrossMambaFusionSS2D
 class CrossMambaFusionBlock(nn.Module):
     """CroMB: per-modality residual around the cross-scan op."""
 
-    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0):
+    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
         self.op = CrossMambaFusionSS2D(hidden_dim, d_state=d_state,
-                                       ssm_ratio=ssm_ratio)
+                                       ssm_ratio=ssm_ratio, dtype=dtype)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
@@ -28,9 +32,11 @@ class CrossMambaFusionBlock(nn.Module):
 class ConcatMambaFusionBlock(nn.Module):
     """ConMB: x_rgb + x_e + DropPath(ConMB_SS2D(x_rgb, x_e))."""
 
-    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0):
+    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
-        self.op = ConMBSS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio)
+        self.op = ConMBSS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio,
+                            dtype=dtype)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x_rgb, x_e):

@@ -2,7 +2,8 @@
 `sigma_tpu/models/sigma_encoder.py`): ONE weight-shared trunk pass over
 both modalities stacked on the batch axis, then per-stage CroMB -> ConMB
 fusion, each fusion block rematerialized in training where `should_remat`
-says so, as in the JAX package."""
+says so, as in the JAX package. `dtype`: the compute dtype of every
+module (models/common.py)."""
 
 from __future__ import annotations
 
@@ -40,20 +41,21 @@ SIGMA_VARIANTS = {
 class SigmaEncoder(nn.Module):
     def __init__(self, depths=(2, 2, 9, 2), dims=(96, 192, 384, 768),
                  d_state=16, fusion_d_state=4, ssm_ratio=2.0, mlp_ratio=0.0,
-                 drop_path_rate=0.2, remat=True):
+                 drop_path_rate=0.2, remat=True, dtype=torch.float32):
         super().__init__()
         self.remat = remat
         self.vssm = VSSMBackbone(depths=depths, dims=dims, d_state=d_state,
                                  ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio,
-                                 drop_path_rate=drop_path_rate, remat=remat)
+                                 drop_path_rate=drop_path_rate, remat=remat,
+                                 dtype=dtype)
         self.cross_mamba = nn.ModuleList(
             CrossMambaFusionBlock(d, d_state=fusion_d_state,
-                                  ssm_ratio=ssm_ratio)
+                                  ssm_ratio=ssm_ratio, dtype=dtype)
             for d in dims
         )
         self.channel_attn_mamba = nn.ModuleList(
             ConcatMambaFusionBlock(d, d_state=fusion_d_state,
-                                   ssm_ratio=ssm_ratio)
+                                   ssm_ratio=ssm_ratio, dtype=dtype)
             for d in dims
         )
 

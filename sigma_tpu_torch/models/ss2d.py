@@ -17,13 +17,17 @@ package:
     does so, vmamba.py:1629-1630);
   * ConMB's SE gating squeezes the pre-conv projections.
 Parameter names and shapes are the reference torch state_dict's.
+`dtype` is the compute dtype of the linears and convolutions
+(models/common.py): with bf16 the scans take bf16 io (the projection
+weights cast to it, A, D and the dt bias fp32) and every LayerNorm
+computes and returns fp32, as in the JAX package.
 
 SS2D's epilogue (merge the two layouts, `out_norm`, silu gate) runs either
 unfused, as PyTorch ops, or fused in one pass (`ops/merge_ln_gate.py`) when
 its `fused_epilogue` is set. The default is the JAX package's switch,
 `SIGMA_FUSED_EPILOGUE` (not "0": on), read once at import;
 `set_fused_epilogue` sets it on every SS2D of a model. Both ways keep
-`out_norm` an nn.LayerNorm, so the state_dict is the same. ConMB and CroMB
+`out_norm` a LayerNorm, so the state_dict is the same. ConMB and CroMB
 keep their own unfused `out_norm*`, as in the JAX package.
 """
 
@@ -37,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from sigma_tpu_torch.models.common import (
-    LN_EPS,
+    LayerNorm,
+    Linear,
     a_log_init,
     conv2d_nhwc,
     depthwise_conv3x3,
@@ -130,16 +135,17 @@ class SS2D(nn.Module):
     Input/output: (B, H, W, d_model). `fused_epilogue` (default
     FUSED_EPILOGUE) takes the fused epilogue."""
 
-    def __init__(self, d_model, d_state=16, ssm_ratio=2.0):
+    def __init__(self, d_model, d_state=16, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
         self.d_inner = d_inner = int(ssm_ratio * d_model)
         self.dt_rank = _dt_rank(d_model)
         self.d_state = d_state
-        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
-        self.conv2d = depthwise_conv3x3(d_inner)
+        self.in_proj = Linear(d_model, 2 * d_inner, bias=False, dtype=dtype)
+        self.conv2d = depthwise_conv3x3(d_inner, dtype=dtype)
         _dir_params(self, 4, d_inner, d_state, self.dt_rank)
-        self.out_norm = nn.LayerNorm(d_inner, eps=LN_EPS)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.out_norm = LayerNorm(d_inner)
+        self.out_proj = Linear(d_inner, d_model, bias=False, dtype=dtype)
         self.fused_epilogue = FUSED_EPILOGUE
 
     def init_ssm(self, generator):
@@ -154,10 +160,12 @@ class SS2D(nn.Module):
         y_hw, y_wh = project_scan(self, (hw, wh), self.d_state, self.dt_rank)
         y_hw, y_wh = y_hw.reshape(b, h, w, d), y_wh.reshape(b, w, h, d)
         if self.fused_epilogue:
+            # bf16 y_hw / y_wh / z in, fp32 out, as the unfused LN gives it
             norm = self.out_norm
             return self.out_proj(merge_ln_gate(y_hw, y_wh, z, norm.weight,
                                                norm.bias, norm.eps))
-        # complete CrossMerge: un-transpose the wh layout and sum
+        # complete CrossMerge: un-transpose the wh layout and sum (in the
+        # io dtype, as JAX sums them); LN promotes to fp32
         y = y_hw + y_wh.transpose(1, 2)
         return self.out_proj(self.out_norm(y) * F.silu(z))
 
@@ -174,28 +182,31 @@ class ConMBSS2D(nn.Module):
     """Concat-sequence multimodal selective scan (ConMB op).
     Inputs x_rgb, x_e: (B, H, W, d_model); output (B, H, W, d_model)."""
 
-    def __init__(self, d_model, d_state=4, ssm_ratio=2.0):
+    def __init__(self, d_model, d_state=4, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
         self.d_inner = d_inner = int(ssm_ratio * d_model)
         self.dt_rank = _dt_rank(d_model)
         self.d_state = d_state
-        self.in_proj = nn.Linear(d_model, d_inner, bias=False)
-        self.in_proj_modalx = nn.Linear(d_model, d_inner, bias=False)
-        self.conv2d = depthwise_conv3x3(d_inner)
-        self.conv2d_modalx = depthwise_conv3x3(d_inner)
+        self.in_proj = Linear(d_model, d_inner, bias=False, dtype=dtype)
+        self.in_proj_modalx = Linear(d_model, d_inner, bias=False,
+                                     dtype=dtype)
+        self.conv2d = depthwise_conv3x3(d_inner, dtype=dtype)
+        self.conv2d_modalx = depthwise_conv3x3(d_inner, dtype=dtype)
         _dir_params(self, 2, d_inner, d_state, self.dt_rank)
-        self.out_norm1 = nn.LayerNorm(d_inner, eps=LN_EPS)
-        self.out_norm2 = nn.LayerNorm(d_inner, eps=LN_EPS)
+        self.out_norm1 = LayerNorm(d_inner)
+        self.out_norm2 = LayerNorm(d_inner)
         sq = max(1, d_inner // 16)
         self.fc1 = nn.Sequential(
-            nn.Linear(d_inner, sq, bias=False), nn.SiLU(),
-            nn.Linear(sq, d_inner, bias=False), nn.Sigmoid(),
+            Linear(d_inner, sq, bias=False, dtype=dtype), nn.SiLU(),
+            Linear(sq, d_inner, bias=False, dtype=dtype), nn.Sigmoid(),
         )
         self.fc2 = nn.Sequential(
-            nn.Linear(d_inner, sq, bias=False), nn.SiLU(),
-            nn.Linear(sq, d_inner, bias=False), nn.Sigmoid(),
+            Linear(d_inner, sq, bias=False, dtype=dtype), nn.SiLU(),
+            Linear(sq, d_inner, bias=False, dtype=dtype), nn.Sigmoid(),
         )
-        self.out_proj = nn.Linear(2 * d_inner, d_model, bias=False)
+        self.out_proj = Linear(2 * d_inner, d_model, bias=False,
+                               dtype=dtype)
 
     def init_ssm(self, generator):
         _init_dir_params(self, generator)
@@ -234,7 +245,7 @@ class _CrossMambaAttentionSSM(nn.Module):
             setattr(self, f"A_log_{s}",
                     nn.Parameter(a_log_init(1, d_inner, d_state)))
             setattr(self, f"D_{s}", nn.Parameter(torch.ones(d_inner)))
-            setattr(self, f"out_norm_{s}", nn.LayerNorm(d_inner, eps=LN_EPS))
+            setattr(self, f"out_norm_{s}", LayerNorm(d_inner))
 
     def init_ssm(self, generator):
         for s in ("1", "2"):
@@ -269,16 +280,18 @@ class CrossMambaFusionSS2D(nn.Module):
     (vmamba.py:1528-1539), both in one kernel call (swap_groups_c).
     Inputs/outputs: pairs of (B, H, W, d_model)."""
 
-    def __init__(self, d_model, d_state=4, ssm_ratio=2.0):
+    def __init__(self, d_model, d_state=4, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
         self.d_inner = d_inner = int(ssm_ratio * d_model)
-        self.in_proj = nn.Linear(d_model, d_inner, bias=False)
-        self.in_proj_modalx = nn.Linear(d_model, d_inner, bias=False)
-        self.conv2d = depthwise_conv3x3(d_inner)
+        self.in_proj = Linear(d_model, d_inner, bias=False, dtype=dtype)
+        self.in_proj_modalx = Linear(d_model, d_inner, bias=False,
+                                     dtype=dtype)
+        self.conv2d = depthwise_conv3x3(d_inner, dtype=dtype)
         self.CMA_ssm = _CrossMambaAttentionSSM(d_inner, d_state,
                                                _dt_rank(d_model))
-        self.out_proj_rgb = nn.Linear(d_inner, d_model, bias=False)
-        self.out_proj_e = nn.Linear(d_inner, d_model, bias=False)
+        self.out_proj_rgb = Linear(d_inner, d_model, bias=False, dtype=dtype)
+        self.out_proj_e = Linear(d_inner, d_model, bias=False, dtype=dtype)
 
     def forward(self, x_rgb, x_e):
         # one conv for both modalities, as the reference does

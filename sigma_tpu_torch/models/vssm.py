@@ -5,7 +5,11 @@
   modules; the JAX package stacks stages of 12+ blocks under nn.scan),
   ChannelAttention(+Block) and CVSSDecoderBlock.
 Training rematerializes each VSSBlock of a stage where `should_remat`
-says so (`remat=True` by default, as in the JAX package).
+says so (`remat=True` by default, as in the JAX package). `dtype` is the
+compute dtype of the linears and convolutions (models/common.py): with
+bf16 the trunk's residual stream is fp32 in stage 0 (PatchEmbed ends in
+a LayerNorm) and bf16 from the first PatchMerging2D on, as JAX's
+promotion makes it.
 VSSMClassifier is not ported yet.
 """
 
@@ -17,8 +21,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from sigma_tpu_torch.models.common import (
-    LN_EPS,
+    Conv2d,
     DropPath,
+    LayerNorm,
+    Linear,
     Mlp,
     conv2d_nhwc,
     maybe_remat,
@@ -37,11 +43,12 @@ class PatchEmbed(nn.Sequential):
     Sequential(conv, permute, norm), hence the keys `0.*` and `2.*`.
     Input NHWC, output NHWC."""
 
-    def __init__(self, in_ch, embed_dim, patch_size=4):
+    def __init__(self, in_ch, embed_dim, patch_size=4, dtype=torch.float32):
         super().__init__(
-            nn.Conv2d(in_ch, embed_dim, patch_size, stride=patch_size),
+            Conv2d(in_ch, embed_dim, patch_size, stride=patch_size,
+                   dtype=dtype),
             _ToChannelLast(),
-            nn.LayerNorm(embed_dim, eps=LN_EPS),
+            LayerNorm(embed_dim),
         )
 
     def forward(self, x):
@@ -51,10 +58,10 @@ class PatchEmbed(nn.Sequential):
 class PatchMerging2D(nn.Module):
     """v1 downsample: 2x2 space-to-channel + LN(4C) + Linear 4C->out."""
 
-    def __init__(self, dim, out_dim):
+    def __init__(self, dim, out_dim, dtype=torch.float32):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(4 * dim, out_dim, bias=False)
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Linear(4 * dim, out_dim, bias=False, dtype=dtype)
 
     def forward(self, x):
         _, h, w, _ = x.shape
@@ -69,20 +76,22 @@ class VSSBlock(nn.Module):
     """x + DropPath(SS2D(LN(x))), optional FFN branch (off in Sigma)."""
 
     def __init__(self, hidden_dim, drop_path=0.0, d_state=16, ssm_ratio=2.0,
-                 mlp_ratio=0.0):
+                 mlp_ratio=0.0, dtype=torch.float32):
         super().__init__()
-        self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio)
+        self.norm = LayerNorm(hidden_dim)
+        self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio,
+                       dtype=dtype)
         self.drop_path = DropPath(drop_path)
         self.mlp = None
         if mlp_ratio > 0:
-            self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
+            self.norm2 = LayerNorm(hidden_dim)
             self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio),
-                           hidden_dim)
+                           hidden_dim, dtype=dtype)
             # a mask of its own, as the JAX block's second DropPath draws
             self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x):
+        # the sum takes JAX's promotion: fp32 + bf16 is fp32
         x = x + self.drop_path(self.op(self.norm(x)))
         if self.mlp is not None:
             x = x + self.drop_path2(self.mlp(self.norm2(x)))
@@ -103,25 +112,25 @@ class VSSMBackbone(nn.Module):
 
     def __init__(self, depths=(2, 2, 9, 2), dims=(96, 192, 384, 768),
                  d_state=16, ssm_ratio=2.0, mlp_ratio=0.0,
-                 drop_path_rate=0.2, remat=True):
+                 drop_path_rate=0.2, remat=True, dtype=torch.float32):
         super().__init__()
         self.remat = remat
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
-        self.patch_embed = PatchEmbed(3, dims[0])
+        self.patch_embed = PatchEmbed(3, dims[0], dtype=dtype)
         stages, k = [], 0
         for i, depth in enumerate(depths):
             blocks = [
                 VSSBlock(dims[i], float(dpr[k + j]), d_state, ssm_ratio,
-                         mlp_ratio)
+                         mlp_ratio, dtype=dtype)
                 for j in range(depth)
             ]
             k += depth
-            down = (PatchMerging2D(dims[i], dims[i + 1])
+            down = (PatchMerging2D(dims[i], dims[i + 1], dtype=dtype)
                     if i < len(depths) - 1 else None)
             stages.append(_Stage(blocks, down))
         self.layers = nn.ModuleList(stages)
         for i, dim in enumerate(dims):
-            self.add_module(f"outnorm{i}", nn.LayerNorm(dim, eps=LN_EPS))
+            self.add_module(f"outnorm{i}", LayerNorm(dim))
 
     def forward(self, x):
         x = self.patch_embed(x)
@@ -140,12 +149,12 @@ class ChannelAttention(nn.Module):
     """avg+max-pool SE over channels, shared 1x1 convs (vmamba.py:1725-1741).
     NCHW, as it sits inside the CAB's conv Sequential."""
 
-    def __init__(self, num_feat, squeeze_factor=16):
+    def __init__(self, num_feat, squeeze_factor=16, dtype=torch.float32):
         super().__init__()
         sq = max(1, num_feat // squeeze_factor)
         self.fc = nn.Sequential(
-            nn.Conv2d(num_feat, sq, 1, bias=False), nn.SiLU(),
-            nn.Conv2d(sq, num_feat, 1, bias=False),
+            Conv2d(num_feat, sq, 1, bias=False, dtype=dtype), nn.SiLU(),
+            Conv2d(sq, num_feat, 1, bias=False, dtype=dtype),
         )
 
     def forward(self, x):
@@ -158,13 +167,14 @@ class ChannelAttentionBlock(nn.Module):
     """CAB: conv3x3 compress + GELU + conv3x3 + ChannelAttention
     (vmamba.py:1744-1757). NHWC in and out."""
 
-    def __init__(self, num_feat, compress_ratio=3, squeeze_factor=30):
+    def __init__(self, num_feat, compress_ratio=3, squeeze_factor=30,
+                 dtype=torch.float32):
         super().__init__()
         mid = max(1, num_feat // compress_ratio)
         self.cab = nn.Sequential(
-            nn.Conv2d(num_feat, mid, 3, padding=1), nn.GELU(),
-            nn.Conv2d(mid, num_feat, 3, padding=1),
-            ChannelAttention(num_feat, squeeze_factor),
+            Conv2d(num_feat, mid, 3, padding=1, dtype=dtype), nn.GELU(),
+            Conv2d(mid, num_feat, 3, padding=1, dtype=dtype),
+            ChannelAttention(num_feat, squeeze_factor, dtype=dtype),
         )
 
     def forward(self, x):
@@ -175,15 +185,17 @@ class CVSSDecoderBlock(nn.Module):
     """Channel-aware VSS decoder block (vmamba.py:1760-1811):
     x*scale1 + DropPath(SS2D(LN1(x))), then CAB(LN2(x)) + x*scale2."""
 
-    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0):
+    def __init__(self, hidden_dim, drop_path=0.0, d_state=4, ssm_ratio=2.0,
+                 dtype=torch.float32):
         super().__init__()
         self.scale1 = nn.Parameter(torch.ones(hidden_dim))
         self.scale2 = nn.Parameter(torch.ones(hidden_dim))
-        self.norm1 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio)
+        self.norm1 = LayerNorm(hidden_dim)
+        self.op = SS2D(hidden_dim, d_state=d_state, ssm_ratio=ssm_ratio,
+                       dtype=dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.conv_blk = ChannelAttentionBlock(hidden_dim)
+        self.norm2 = LayerNorm(hidden_dim)
+        self.conv_blk = ChannelAttentionBlock(hidden_dim, dtype=dtype)
 
     def forward(self, x):
         x = x * self.scale1 + self.drop_path(self.op(self.norm1(x)))

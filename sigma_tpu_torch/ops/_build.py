@@ -53,15 +53,15 @@ _SIGNATURES = {
     "bwd": {
         # u, dt, A, B, C, bias, D, hck, dy, du, dd, dA, dbias, dD, dBp,
         # dCp, lam, sd, n_chunk, batch, G, L, dg, N, nck, softplus,
-        # reverse, stream
-        "sigma_scan_bwd": [_P] * 18 + [_I] * 9 + [_P],
+        # reverse, bf16, stream
+        "sigma_scan_bwd": [_P] * 18 + [_I] * 10 + [_P],
         # u0, u1, wdt, wbc, A, bias, D, hck, dy0, dy1, du0, du1, P, dd,
         # dA, dbias, dD, dBp, dCp, lam, sd, n_chunk, batch, G, L, dg, N,
-        # nck, n_u, softplus, reverse, swap_c, stream
-        "sigma_scan_proj_bwd": [_P] * 21 + [_I] * 11 + [_P],
+        # nck, n_u, softplus, reverse, swap_c, bf16, stream
+        "sigma_scan_proj_bwd": [_P] * 21 + [_I] * 12 + [_P],
         # u0, u1, du0, du1, dd, dbc, wdt, wbc, dW, batch, G, L, dg, N,
-        # n_u, n_l, stream
-        "sigma_proj_grad": [_P] * 9 + [_I] * 7 + [_P],
+        # n_u, n_l, bf16, stream
+        "sigma_proj_grad": [_P] * 9 + [_I] * 8 + [_P],
     },
     "mlg": {
         # yhw, ywh, z, gamma, beta, out, B, H, W, C, ld_hw, ld_wh, ld_z,

@@ -28,7 +28,8 @@ Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`,
     K5 proj_grad      weight gradients and the du chain term of K4
                       (tensor cores, TF32)
 `LAUNCHES` counts each wrapper's calls: K2's and K4's four launches, K1's
-and K3's three and K5's two count once per call.
+and K3's three and K5's two count once per call; `LAUNCHES_BF16` counts
+those of them whose io (u's dtype) was bf16.
 
 K1-K4 hold the state in registers, at most 16 states (K1_MAX_STATE). A
 call with a wider state runs on CUDA tensors as slices of at most 16
@@ -45,10 +46,13 @@ counterparts of the custom VJPs `_scan_core_g`, `_scan_core_gp`,
 `_scan_core_gpa`, `_scan_core_gp_ml`, `_scan_core_gp_mla`): its forward
 kernel also writes the state checkpoints `hck` (h every CK_TOKENS tokens)
 and its backward runs K3, or K4 then K5. Without a gradient (eval) no
-`hck` is written. The backward kernels are fp32: a bf16 call with a
-gradient runs in fp32 from the entry on and returns bf16 y and gradients
-(`_entry_io`); eval keeps bf16 io in the kernels. `hck` is fp32 (ROADMAP
-C2). y_accum's cotangent is dy itself.
+`hck` is written. Every kernel takes fp32 or bf16 io, as JAX's do: a bf16
+call keeps its bf16 streams through the forward and the backward kernels,
+fp32 inside them. The stream cotangents come back in the io type (du, dd,
+dB, dC; K4's du is one fp32 sum of its term and K5's, rounded once), dA,
+dbias, dD and the weight gradients fp32 (autograd rounds a weight's to
+the dtype it entered in, as JAX's custom VJP does). `hck` is fp32
+(ROADMAP C2). y_accum's cotangent is dy itself.
 
 Not ported (TPU layout mechanics with no meaning on Hopper): batch fold,
 dg tiling planners, N padding to 8, the VMEM planners, `_LOG2E`
@@ -62,9 +66,11 @@ import torch
 from sigma_tpu_torch.ops import _build
 from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
 
-# launches of each kernel; reset with reset_launches()
+# launches of each kernel, and of those with bf16 io; reset with
+# reset_launches()
 LAUNCHES = {"scan_fwd": 0, "scan_proj_fwd": 0, "scan_bwd": 0,
             "scan_proj_bwd": 0, "proj_grad": 0}
+LAUNCHES_BF16 = dict.fromkeys(LAUNCHES, 0)
 
 # The fused-projection kernel takes a call when 6*G*dg^2 <= 12 MiB; wider
 # calls run their projections as torch.matmul and the streamed kernel.
@@ -88,7 +94,14 @@ K1_MAX_STATE = 16
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
+
+
+def _count(kernel, io):
+    """One launch of `kernel` with io dtype `io`."""
+    LAUNCHES[kernel] += 1
+    if io == torch.bfloat16:
+        LAUNCHES_BF16[kernel] += 1
 
 
 def uses_fused_projection(G: int, dg: int, N: int = K1_MAX_STATE) -> bool:
@@ -245,19 +258,6 @@ def _needs_grad(*tensors):
         t is not None and t.requires_grad for t in tensors)
 
 
-def _entry_io(u, *tensors):
-    """The io type of a CUDA call: bf16 for bf16 u, else fp32. A bf16 call
-    that needs a gradient runs in fp32 from the entry on, as
-    `ops/scan_seq.py` does, because the backward kernels are fp32; the
-    casts are part of autograd's graph, so the gradients come back in
-    their inputs' dtypes. The checkpoints `hck` are fp32 either way
-    (ROADMAP C2)."""
-    io = _io_dtype(u)
-    if io == torch.bfloat16 and _needs_grad(u, *tensors):
-        return torch.float32
-    return io
-
-
 def _cast(io, *tensors):
     return [None if t is None else t.to(io) for t in tensors]
 
@@ -338,7 +338,7 @@ def launch_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
             batch, G, L, dg, N, int(bool(delta_softplus)), int(bool(reverse)),
             int(io == torch.bfloat16), _stream(u),
         )
-        LAUNCHES["scan_fwd"] += 1
+        _count("scan_fwd", io)
     _build.check(code, "scan_fwd")
     return (y, hck) if with_hck else y
 
@@ -406,7 +406,7 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             int(bool(reverse)), int(bool(swap_groups_c)),
             int(io == torch.bfloat16), _stream(us[0]),
         )
-        LAUNCHES["scan_proj_fwd"] += 1
+        _count("scan_proj_fwd", io)
     _build.check(code, "scan_proj_fwd")
     return (ys, hck) if with_hck else ys
 
@@ -417,15 +417,27 @@ def _f32(t):
     return t.contiguous()
 
 
-def _bwd_outputs(batch, G, L, dg, N, like):
-    """K3 / K4's outputs and scratch: dd, the per-chunk dA / dbias / dD
-    partials, the per-channel-block dB / dC partials, the chunks' adjoints
-    and sums of d."""
+def _bwd_io(*tensors):
+    """The io type of a backward launch: the dtype its streams share, fp32
+    or bf16; anything else raises."""
+    io = tensors[0].dtype
+    if io not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != io for t in tensors):
+        raise TypeError("the backward scan kernels take streams of one io "
+                        "dtype, fp32 or bf16, not "
+                        f"{[t.dtype for t in tensors]}")
+    return io
+
+
+def _bwd_outputs(batch, G, L, dg, N, like, dd_dtype=torch.float32):
+    """K3 / K4's outputs and scratch: dd (in `dd_dtype`), the per-chunk dA
+    / dbias / dD partials, the per-channel-block dB / dC partials, the
+    chunks' adjoints and sums of d (fp32)."""
     nblk = -(-dg // BWD_CHANNELS)
     n_chunk = -(-L // PROJ_CHUNK)
     f = dict(dtype=torch.float32, device=like.device)
     return dict(
-        dd=torch.empty((batch, G, L, dg), **f),
+        dd=torch.empty((batch, G, L, dg), dtype=dd_dtype, device=like.device),
         dA=torch.empty((batch, G, n_chunk, N, dg), **f),
         dbias=torch.empty((batch, G, n_chunk, dg), **f),
         dD=torch.empty((batch, G, n_chunk, dg), **f),
@@ -451,20 +463,24 @@ def _bwd_sums(o):
 
 def launch_scan_bwd(u, delta, A, B, C, D, delta_bias, hck, dy,
                     delta_softplus=False, reverse=False):
-    """K3: the streamed backward from K1's checkpoints, fp32 CUDA tensors.
-    Returns (du, dd, dA, dB, dC, dbias, dD); the per-chunk, per-block and
-    per-batch partials are summed here. Its three launches (chunk
-    adjoints, carries, emission) count as one."""
+    """K3: the streamed backward from K1's checkpoints, CUDA tensors; u,
+    delta, B, C and dy of one io type (fp32 or bf16). Returns (du, dd, dA,
+    dB, dC, dbias, dD): the stream cotangents du, dd, dB, dC in the io
+    type, dA, dbias, dD fp32; the per-chunk, per-block and per-batch
+    partials are summed here in fp32, then rounded. Its three launches
+    (chunk adjoints, carries, emission) count as one."""
     batch, G, L, dg = u.shape
     N = A.shape[1]
     _expect(dy, u.shape, "dy")
     _expect(hck, (batch, G, _n_ck(L), N, dg), "hck")
-    u, delta, B, C, dy = (_f32(t) for t in (u, delta, B, C, dy))
+    io = _bwd_io(u, delta, B, C, dy)
+    u, delta, B, C, dy = (t.contiguous() for t in (u, delta, B, C, dy))
+    hck = _f32(hck)
     a32 = _param(A, (G, N, dg), u)
     bias = _param(delta_bias, (G, dg), u)
     dk = _param(D, (G, dg), u)
     du = torch.empty_like(u)
-    o = _bwd_outputs(batch, G, L, dg, N, u)
+    o = _bwd_outputs(batch, G, L, dg, N, u, dd_dtype=io)
     lib = _build.library("bwd")
     with torch.cuda.device(u.device):
         code = lib.sigma_scan_bwd(
@@ -472,41 +488,45 @@ def launch_scan_bwd(u, delta, A, B, C, D, delta_bias, hck, dy,
             C.data_ptr(), bias.data_ptr(), dk.data_ptr(), hck.data_ptr(),
             dy.data_ptr(), du.data_ptr(), *_bwd_pointers(o),
             batch, G, L, dg, N, hck.shape[2], int(bool(delta_softplus)),
-            int(bool(reverse)), _stream(u),
+            int(bool(reverse)), int(io == torch.bfloat16), _stream(u),
         )
-        LAUNCHES["scan_bwd"] += 1
+        _count("scan_bwd", io)
     _build.check(code, "scan_bwd", "bwd")
     dA, dbias, dD, dB, dC = _bwd_sums(o)
-    return du, o["dd"], dA, dB, dC, dbias, dD
+    return du, o["dd"], dA, dB.to(io), dC.to(io), dbias, dD
 
 
 def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
                          delta_softplus=False, reverse=False,
                          swap_groups_c=False):
-    """K4: the fused-projection backward, fp32 CUDA tensors, `us` / `dys`
-    as for K2. Returns (du like `us` — the direct term only, K5 adds the
-    chain term —, dd, dB, dC, dA, dbias, dD): dd / dB / dC are the
-    cotangents of the projected streams, dC routed to the chain whose
-    projection made the C (the partner under `swap_groups_c`). Its four
-    launches (the projections into a scratch stream, as K2 makes them,
-    then K3's three) count as one."""
+    """K4: the fused-projection backward, CUDA tensors, `us` / `dys` as for
+    K2, of one io type (fp32 or bf16); the weights are taken in it, as K2
+    takes them. Returns (du like `us` in fp32 — the direct term only: K5
+    adds the chain term, and the caller rounds the sum to the io type —,
+    dd, dB, dC, dA, dbias, dD, all fp32): dd / dB / dC are the cotangents
+    of the projected streams, dC routed to the chain whose projection made
+    the C (the partner under `swap_groups_c`). Its four launches (the
+    projections into a scratch stream, as K2 makes them, then K3's three)
+    count as one."""
     n_u = len(us)
     batch, G, L, dg = _layouts(us)
     N = A.shape[1]
     for dy in dys:
         _expect(dy, us[0].shape, "dy")
     _expect(hck, (batch, G, _n_ck(L), N, dg), "hck")
-    us = [_f32(u) for u in us]
-    dys = [_f32(dy) for dy in dys]
+    io = _bwd_io(*us, *dys)
+    us = [u.contiguous() for u in us]
+    dys = [dy.contiguous() for dy in dys]
+    hck = _f32(hck)
     _expect(w_dt, (G, dg, dg), "w_dt")
     _expect(w_b, (G, dg, N), "w_b")
     _expect(w_c, (G, dg, N), "w_c")
-    wdt = _f32(w_dt)
-    wbc = torch.cat([_f32(w_b), _f32(w_c)], -1)
+    wdt = w_dt.to(io).contiguous()
+    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
     a32 = _param(A, (G, N, dg), us[0])
     bias = _param(delta_bias, (G, dg), us[0])
     dk = _param(D, (G, dg), us[0])
-    dus = [torch.empty_like(u) for u in us]
+    dus = [torch.empty_like(u, dtype=torch.float32) for u in us]
     o = _bwd_outputs(batch, G, L, dg, N, us[0])
     # scratch: the projected [dt | B | C] stream
     proj = torch.empty((batch, G, L, dg + 2 * N), dtype=torch.float32,
@@ -520,9 +540,10 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
             *[_ptr(dy) for dy in dys], *pad, *[_ptr(du) for du in dus], *pad,
             proj.data_ptr(), *_bwd_pointers(o),
             batch, G, L, dg, N, hck.shape[2], n_u, int(bool(delta_softplus)),
-            int(bool(reverse)), int(bool(swap_groups_c)), _stream(us[0]),
+            int(bool(reverse)), int(bool(swap_groups_c)),
+            int(io == torch.bfloat16), _stream(us[0]),
         )
-        LAUNCHES["scan_proj_bwd"] += 1
+        _count("scan_proj_bwd", io)
     _build.check(code, "scan_proj_bwd", "bwd")
     dA, dbias, dD, dB, dC = _bwd_sums(o)
     return dus, o["dd"], dB, dC, dA, dbias, dD
@@ -538,10 +559,12 @@ def _proj_grad_splits(batch, G, L, dg, N):
 
 
 def launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b, w_c):
-    """K5 on fp32 CUDA tensors: adds the chain term [dd | dB | dC] W^T into
-    `dus` in place and returns (dW_dt, dW_B, dW_C), K4's cotangents
-    contracted with u over every token (split over tokens into partials
-    that are summed here, in a fixed order)."""
+    """K5 on CUDA tensors: adds the chain term [dd | dB | dC] W^T into the
+    fp32 `dus` in place and returns (dW_dt, dW_B, dW_C) in fp32, K4's
+    cotangents contracted with u over every token (split over tokens into
+    partials that are summed here, in a fixed order). `us` fp32 or bf16
+    (read as they are, the product's A operand); dd, dB, dC fp32 (K4's);
+    the weights in fp32 (a bf16 weight is exact in it)."""
     n_u = len(us)
     batch, G, L, dg = _layouts(us)
     N = w_b.shape[-1]
@@ -549,11 +572,12 @@ def launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b, w_c):
     n_l = _proj_grad_splits(batch, G, L, dg, N)
     dW = torch.empty((n_l * batch, G, dg, kz), dtype=torch.float32,
                      device=us[0].device)
-    us = [_f32(u) for u in us]
+    io = _bwd_io(*us)
+    us = [u.contiguous() for u in us]
     dd = _f32(dd)
     dbc = torch.cat([_f32(dB), _f32(dC)], -1)
-    wdt = _f32(w_dt)
-    wbc = torch.cat([_f32(w_b), _f32(w_c)], -1)
+    wdt = w_dt.float().contiguous()
+    wbc = torch.cat([w_b, w_c], -1).float().contiguous()
     for du in dus:
         if not du.is_contiguous() or du.dtype != torch.float32:
             raise ValueError("du must be contiguous fp32 (updated in place)")
@@ -563,9 +587,10 @@ def launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b, w_c):
         code = lib.sigma_proj_grad(
             *[_ptr(u) for u in us], *pad, *[_ptr(du) for du in dus], *pad,
             dd.data_ptr(), dbc.data_ptr(), wdt.data_ptr(), wbc.data_ptr(),
-            dW.data_ptr(), batch, G, L, dg, N, n_u, n_l, _stream(us[0]),
+            dW.data_ptr(), batch, G, L, dg, N, n_u, n_l,
+            int(io == torch.bfloat16), _stream(us[0]),
         )
-        LAUNCHES["proj_grad"] += 1
+        _count("proj_grad", io)
     _build.check(code, "proj_grad", "bwd")
     dW = dW.sum(0)
     return dW[..., :dg], dW[..., dg:dg + N], dW[..., dg + N:]
@@ -626,9 +651,12 @@ class _ScanGProj(torch.autograd.Function):
             us, w_dt, w_b, w_c, A, D, bias, hck, dys, softplus, reverse, swap)
         dw_dt, dw_b, dw_c = launch_proj_grad(us, dus, dd, dB, dC, w_dt, w_b,
                                              w_c)
+        # du: K4's and K5's terms summed in fp32, rounded to u's dtype once
+        dus = [du.to(u.dtype) for du, u in zip(dus, us)]
         dya = dys if has_ya else (None, None)
-        return (dus[0], dus[1] if u1 is not None else None, dw_dt, dw_b,
-                dw_c, dA.reshape(A.shape), _grad_like(dD, D),
+        return (dus[0], dus[1] if u1 is not None else None,
+                _grad_like(dw_dt, w_dt), _grad_like(dw_b, w_b),
+                _grad_like(dw_c, w_c), dA.reshape(A.shape), _grad_like(dD, D),
                 _grad_like(dbias, bias), dya[0],
                 dya[1] if u1 is not None else None, None, None, None)
 
@@ -671,7 +699,7 @@ def selective_scan_g(u, delta, A, B, C, D=None, delta_bias=None,
     if not _on_cuda(u, delta, A, B, C, D, delta_bias):
         return selective_scan_g_plain(u, delta, A, B, C, D, delta_bias,
                                       delta_softplus, reverse)
-    io = _entry_io(u, delta, A, B, C, D, delta_bias)
+    io = _io_dtype(u)
     y = _streamed(*_cast(io, u, delta), A, *_cast(io, B, C), D, delta_bias,
                   delta_softplus, reverse)
     return y.to(u.dtype)
@@ -688,7 +716,7 @@ def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             u, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
             swap_groups_c, y_accum,
         )
-    io = _entry_io(u, w_dt, w_b, w_c, A, D, delta_bias, y_accum)
+    io = _io_dtype(u)
     ui, w_dt, w_b, w_c, y_accum = _cast(io, u, w_dt, w_b, w_c, y_accum)
     G, dg = u.shape[1], u.shape[3]
     if uses_fused_projection(G, dg, A.shape[1]):
@@ -722,7 +750,7 @@ def selective_scan_g_proj_ml(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             us, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
             swap_groups_c, y_accum,
         )
-    io = _entry_io(u0, u1, w_dt, w_b, w_c, A, D, delta_bias, *yas)
+    io = _io_dtype(u0)
     if uses_fused_projection(2, u0.shape[-1], A.shape[1]):
         y0, y1 = _fused(
             _cast(io, u0, u1), *_cast(io, w_dt, w_b, w_c), A, D, delta_bias,
@@ -752,6 +780,7 @@ __all__ = [
     "CK_TOKENS",
     "K1_MAX_STATE",
     "LAUNCHES",
+    "LAUNCHES_BF16",
     "PROJ_CHUNK",
     "launch_proj_grad",
     "launch_scan_bwd",

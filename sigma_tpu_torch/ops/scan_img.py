@@ -28,8 +28,8 @@ Dispatch goes by the device of `x`: a CPU tensor takes the plain version
 (`selective_scan_ss2d_proj_plain`, differentiated by autograd); a CUDA
 tensor launches the kernels or raises — there is no fallback. The
 backward is fp32: a bf16 call with a gradient runs in fp32 from the entry
-on (`scan_g._entry_io`) and returns bf16 y and gradients; the checkpoints
-are fp32 (ROADMAP C2).
+on (`_entry_io`) and returns bf16 y and gradients; the checkpoints are
+fp32 (ROADMAP C2). K11's bf16 io is still to be ported (ROADMAP queue B).
 
 Decided difference (ROADMAP C7): JAX returns None where its planner
 (`_plan_img`) finds no VMEM tiling and its caller falls back to the
@@ -260,6 +260,17 @@ class _ScanImg(torch.autograd.Function):
 
 
 # ------------------------------------------------------------ entry point
+def _entry_io(x, *tensors):
+    """The io type of a CUDA call: bf16 for bf16 x, else fp32. A bf16 call
+    that needs a gradient runs in fp32 from the entry on, because K11 is
+    fp32; the casts are part of autograd's graph, so the gradients come
+    back in their inputs' dtypes."""
+    io = scan_g._io_dtype(x)
+    if io == torch.bfloat16 and scan_g._needs_grad(x, *tensors):
+        return torch.float32
+    return io
+
+
 def selective_scan_ss2d_proj(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
                              delta_softplus=False, fold_batch=True):
     """The four-direction SS2D scan of image x with in-kernel projections;
@@ -269,7 +280,7 @@ def selective_scan_ss2d_proj(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     if not scan_g._on_cuda(x, w_dt, w_b, w_c, A, D, delta_bias):
         return selective_scan_ss2d_proj_plain(x, w_dt, w_b, w_c, A, D,
                                               delta_bias, delta_softplus)
-    io = scan_g._entry_io(x, w_dt, w_b, w_c, A, D, delta_bias)
+    io = _entry_io(x, w_dt, w_b, w_c, A, D, delta_bias)
     xi = x.to(io)
     if scan_g._needs_grad(xi, w_dt, w_b, w_c, A, D, delta_bias):
         y = _ScanImg.apply(xi, *scan_g._cast(io, w_dt, w_b, w_c), A, D,

@@ -2,6 +2,7 @@
 
   python -m sigma_tpu_torch.trace_step --what train   # 480x640, batch 2
   python -m sigma_tpu_torch.trace_step --what eval    # one MFNet image
+  python -m sigma_tpu_torch.trace_step --what train --bf16   # bf16 compute
 
 Builds the MFNet preset's train step as the train CLI does
 (`engine.train.build_train`, seeded weights) or its evaluator, runs one
@@ -85,11 +86,16 @@ def synthetic_batch(rng, b, h, w):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--what", choices=("train", "eval"), default="train")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute, fp32 parameters (cfg.bf16)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("trace_step needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # and a bf16 product accumulates in fp32 and rounds once, as the
+    # reference's does: cuBLAS may otherwise sum split-K partials in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
@@ -97,7 +103,7 @@ def main(argv=None) -> int:
     from sigma_tpu_torch.models.builder import build_model
     from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
 
-    cfg = get_config("mfnet")
+    cfg = get_config("mfnet", bf16=args.bf16)
     h, w = cfg.image_height, cfg.image_width
     rng = np.random.default_rng(0)
     if args.what == "train":
@@ -148,7 +154,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     print(f"trace: {args.what} sigma_tiny {h}x{w} batch "
-          f"{TRAIN_BATCH if args.what == 'train' else 1}, fused SS2D "
+          f"{TRAIN_BATCH if args.what == 'train' else 1}, "
+          f"{'bf16' if args.bf16 else 'fp32'} compute, fused SS2D "
           f"epilogue {'on' if FUSED_EPILOGUE else 'off'}, on {smi}")
     print(f"trace: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.2f}%), idle "

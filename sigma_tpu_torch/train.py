@@ -4,9 +4,10 @@
   python -m sigma_tpu_torch.train -n mfnet --dataset-path PATH \\
       --device cpu --steps 2 --batch-size 2 --override image_height=32 ...
 
-One device, fp32: config by dataset name, seeded model, AdamW (or SGDM)
-with warmup-poly lr, the device-norm uint8 input path, per-iteration loss
-logging. At the end it saves the model's state_dict as
+One device, fp32 or, with `--bf16`, bf16 compute (fp32 parameters,
+LayerNorms, scan state and loss, as the JAX trainer's `--bf16`): config by
+dataset name, seeded model, AdamW (or SGDM) with warmup-poly lr, the
+device-norm uint8 input path, per-iteration loss logging. At the end it saves the model's state_dict as
 `<checkpoint_dir>/model.pt` (default `<log_dir>/checkpoint/model.pt`),
 which `python -m sigma_tpu_torch.eval -e` reads, and, unless `--no-eval`,
 evaluates it on the val split with the port's SlidingEvaluator.
@@ -14,7 +15,7 @@ evaluates it on the val split with the port's SlidingEvaluator.
 
 Not ported, each raising with the ROADMAP item it waits for: `-c` resume,
 epoch checkpoints with best-k retention and `--pretrained` (queue A item
-10), `--distributed` (item 11), `--bf16` (C4), `--profile`.
+A3), `--distributed` (A5), `--profile` (A1, the port's bench).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=None,
                    help="cap total train steps (smoke tests)")
     p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--bf16", action="store_true", help="(not ported)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute, fp32 parameters (cfg.bf16)")
     p.add_argument("--no-eval", action="store_true")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -63,11 +65,10 @@ def parse_args(argv=None):
 
 _WAITING = (
     ("resume", "-c resume from orbax epoch checkpoints",
-     "ROADMAP.md queue A item 10"),
-    ("pretrained", "--pretrained", "ROADMAP.md queue A item 10"),
-    ("distributed", "--distributed", "ROADMAP.md queue A item 11"),
-    ("bf16", "--bf16", "ROADMAP.md queue C4"),
-    ("profile", "--profile", "the port's bench, ROADMAP.md queue A item 12"),
+     "ROADMAP.md queue A item A3"),
+    ("pretrained", "--pretrained", "ROADMAP.md queue A item A3"),
+    ("distributed", "--distributed", "ROADMAP.md queue A item A5"),
+    ("profile", "--profile", "the port's bench, ROADMAP.md item A1"),
 )
 
 
@@ -84,6 +85,9 @@ def main(argv=None) -> int:
     # TF32, and so may matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # and a bf16 product accumulates in fp32 and rounds once, as the
+    # reference's does: cuBLAS may otherwise sum split-K partials in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.data import RGBXDataset, TrainLoader, TrainPre, ValPre
@@ -104,6 +108,7 @@ def main(argv=None) -> int:
         ("lr", args.lr),
         ("log_dir", args.log_dir),
         ("num_workers", args.num_workers),
+        ("bf16", args.bf16 or None),
     ]:
         if val is not None:
             object.__setattr__(cfg, field, val)
@@ -123,6 +128,8 @@ def main(argv=None) -> int:
                 if device.type == "cuda" else device)
     logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
                 "fused" if FUSED_EPILOGUE else "unfused")
+    logger.info("compute dtype: %s (parameters fp32)",
+                "bf16" if cfg.bf16 else "fp32")
 
     dataset = RGBXDataset(
         cfg.data_setting(), "train",

@@ -2,10 +2,11 @@
 
 The JAX package takes bf16 streams under `jax.grad` and returns bf16
 gradients (`tests/test_pallas_scan_g.py::test_bf16_io`). The port's scan
-entry points do the same: on the card a bf16 call that needs a gradient
-runs in fp32 from the entry on (the backward kernels are fp32; the
-checkpoints stay fp32, ROADMAP C2) and autograd casts the gradients back;
-on the CPU the plain versions run. Here the same seeded numpy inputs go
+entry points do the same: on the card the grouped entry points run their
+forward and backward kernels on the bf16 operands (fp32 inside them; the
+checkpoints stay fp32, ROADMAP C2) and return the stream cotangents in
+bf16, while the image-layout scan runs its fp32 kernels from the entry on
+and autograd casts the gradients back; on the CPU the plain versions run. Here the same seeded numpy inputs go
 through JAX's `test_bf16_io` case and the port's `selective_scan_g`, and
 through the four entry points against autograd of their plain versions in
 fp32. Tolerance 5e-2 against max(|ref|, 1), the bf16 tier. The card's

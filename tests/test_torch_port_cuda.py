@@ -14,8 +14,10 @@ the routing of the entry points, and the errors a wrapper raises. The
 checkpoints of K1, K2 and K10 are held to a plain token-by-token walk
 (`scan_g.scan_checkpoints_plain`), and K1, K2, K3, K4, K5 and K10 rerun
 bit for bit. The backward kernels (K3-K5) are held to autograd of the
-plain versions, every cotangent of each entry point, and bf16 with a
-gradient returns bf16 gradients at every scan entry point. The
+plain versions, every cotangent of each entry point, in fp32 and with bf16
+io (one token, ragged chunks, both directions, the C swap, n_u 1 and 2;
+the kernels launched on bf16 operands, K3-K5 rerun bit for bit), and bf16
+with a gradient returns bf16 gradients at every scan entry point. The
 fused SS2D epilogue (K6, K7) is held to its plain versions at row widths
 that take the vector and the scalar layout, at a strided z, with its
 dgamma / dbeta rerun bit for bit. The ops-level entry points take the
@@ -231,7 +233,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     t = _streamed(1, 1, 8, 16, 4, torch.float32, dev, seed=0)
     args = (t["u"], t["dt"], t["A"], t["B"], t["C"])
     hck = torch.zeros((1, 1, 1, 4, 16), device=dev)
-    with pytest.raises(TypeError, match="take fp32"):
+    with pytest.raises(TypeError, match="one io dtype"):
         scan_g.launch_scan_bwd(t["u"].bfloat16(), *args[1:], None, None, hck,
                                t["u"])
     with pytest.raises(ValueError, match="scan inputs on"):
@@ -388,12 +390,14 @@ def test_fused_backward_matches_autograd_of_plain(dev, reverse, n_u, G,
         _close(got[k], want[k], torch.float32)
 
 
-def _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed):
+def _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed,
+                dtype=torch.float32):
     """The inputs of one K3 call (streamed) and of one K4 call after their
-    forward kernels' checkpoints, reversed."""
-    p = _projected(G, dg, N, torch.float32, dev, seed=seed)
+    forward kernels' checkpoints, reversed, u, dy and the weights in
+    `dtype`."""
+    p = _projected(G, dg, N, dtype, dev, seed=seed)
     a = _arrays(seed + 1, u=(batch, G, L, dg), dy=(batch, G, L, dg))
-    u, dy = (torch.from_numpy(a[k]).to(dev) for k in ("u", "dy"))
+    u, dy = (torch.from_numpy(a[k]).to(dev).to(dtype) for k in ("u", "dy"))
     ws = (p["w_dt"], p["w_b"], p["w_c"])
     kw = dict(D=p["D"], delta_bias=p["bias"], delta_softplus=True,
               reverse=True)
@@ -421,7 +425,12 @@ def _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed):
             us, *ws, p["A"], p["D"], p["bias"], hck2, dys, True, True, swap)
         return (*dus, *rest)
 
-    return k3, k4
+    def k5():  # on a fresh K4's cotangents; returns (dW..., du...)
+        out = k4()
+        dus, (dd, dB, dC) = list(out[:n_u]), out[n_u:n_u + 3]
+        return (*scan_g.launch_proj_grad(us, dus, dd, dB, dC, *ws), *dus)
+
+    return k3, k4, k5
 
 
 @pytest.mark.parametrize("n_u,G,batch,L,dg,N,swap", [
@@ -433,13 +442,103 @@ def test_scan_backward_reruns_bit_for_bit(dev, n_u, G, batch, L, dg, N,
     """K3 and K4 sum every partial (chunks, channel blocks, batch) in a
     fixed order and use no atomics: two runs on the same inputs give the
     same bits for all seven outputs."""
-    k3, k4 = _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed=L + dg)
+    k3, k4, _ = _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev,
+                            seed=L + dg)
     for run in (k3, k4):
         with torch.inference_mode():
             first, again = run(), run()
         assert len(first) == len(again) >= 7
         for a_, b_ in zip(first, again):
             assert torch.equal(a_, b_)
+
+
+BF16_BWD_CASES = [
+    # (route, n_u, G, batch, L, dg, N, swap)
+    ("streamed", 1, 3, 2, 1, 50, 4, False),    # one token
+    ("streamed", 1, 2, 2, 300, 50, 16, True),  # ragged chunks, C swapped
+    ("fused", 1, 1, 2, 1, 40, 4, False),       # one token, one operand
+    ("fused", 1, 2, 2, 300, 40, 16, True),     # ragged chunks, swapped
+    ("fused", 2, 2, 1, 300, 72, 16, True),     # two layout operands
+    ("fused", 2, 2, 2, 77, 64, 8, False),      # below one chunk
+]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("route,n_u,G,batch,L,dg,N,swap", BF16_BWD_CASES)
+def test_bf16_backward_kernels_match_plain(dev, reverse, route, n_u, G,
+                                           batch, L, dg, N, swap):
+    """bf16 io with a gradient through the grouped entry points: K1 + K3
+    (streamed, dt / B / C projected outside in bf16) or K2 + K4 + K5 run on
+    the bf16 operands (every launch counted as bf16), and every cotangent
+    comes back in its input's dtype within 5e-2 of autograd of the plain
+    version on the same values in fp32; y_accum on the reversed call."""
+    p = _projected(G, dg, N, torch.bfloat16, dev, seed=dg + N + 7)
+    a = _arrays(dg + 9, u=(batch, G, L, dg), ya=(batch, G, L, dg))
+    u, ya = (torch.from_numpy(a[k]).to(dev).bfloat16() for k in ("u", "ya"))
+    inputs = dict(u=u, w_dt=p["w_dt"], w_b=p["w_b"], w_c=p["w_c"],
+                  A=p["A"], D=p["D"], delta_bias=p["bias"])
+    if reverse:
+        inputs["y_accum"] = ya
+    kw = dict(delta_softplus=True, reverse=reverse)
+
+    def run(plain, **t):
+        ya_ = t.pop("y_accum", None)
+        u_, ws = t.pop("u"), (t.pop("w_dt"), t.pop("w_b"), t.pop("w_c"))
+        if route == "streamed":
+            dts, bs, cs = (u_ @ w for w in ws)
+            if swap:
+                cs = scan_g._pair_swap(cs)
+            fn = scan_g.selective_scan_g_plain if plain \
+                else scan_g.selective_scan_g
+            y = fn(u_, dts, t.pop("A"), bs, cs, **t, **kw)
+            return y if ya_ is None else y + ya_
+        if n_u == 2 and not plain:
+            yas = None if ya_ is None else (ya_[:, 0], ya_[:, 1])
+            return torch.stack(scan_g.selective_scan_g_proj_ml(
+                (u_[:, 0], u_[:, 1]), *ws, t.pop("A"), **t, y_accum=yas,
+                swap_groups_c=swap, **kw), 1)
+        fn = scan_g.selective_scan_g_proj_plain if plain \
+            else scan_g.selective_scan_g_proj
+        return fn(u_, *ws, t.pop("A"), **t, y_accum=ya_,
+                  swap_groups_c=swap, **kw)
+
+    scan_g.reset_launches()
+    got_y, got = _grads(lambda **t: run(False, **t),
+                        {k: _leaf(v) for k, v in inputs.items()})
+    ran = (("scan_fwd", "scan_bwd") if route == "streamed" else
+           ("scan_proj_fwd", "scan_proj_bwd", "proj_grad"))
+    want_counts = {k: int(k in ran) for k in scan_g.LAUNCHES}
+    assert scan_g.LAUNCHES == want_counts, scan_g.LAUNCHES
+    assert scan_g.LAUNCHES_BF16 == want_counts, scan_g.LAUNCHES_BF16
+    want_y, want = _grads(lambda **t: run(True, **t),
+                          {k: _leaf(v.float()) for k, v in inputs.items()})
+    assert got_y[0].dtype == torch.bfloat16
+    _close(got_y[0], want_y[0], torch.bfloat16)
+    for k in want:
+        assert got[k].dtype == inputs[k].dtype, (k, got[k].dtype)
+        _close(got[k], want[k], torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_u,G,batch,L,dg,N,swap", [
+    (1, 2, 2, 1000, 72, 16, True),
+    (2, 2, 1, 300, 40, 4, False),
+])
+def test_bf16_backward_reruns_bit_for_bit(dev, n_u, G, batch, L, dg, N,
+                                          swap):
+    """K3, K4 and K5 on bf16 operands: two runs on the same inputs give
+    the same bits (K3 / K4: all seven outputs, bf16 where final; K5: dW
+    and du)."""
+    runs = _bwd_inputs(n_u, G, batch, L, dg, N, swap, dev, seed=L + dg + 1,
+                       dtype=torch.bfloat16)
+    scan_g.reset_launches()
+    for run in runs:
+        with torch.inference_mode():
+            first, again = run(), run()
+        assert len(first) == len(again) >= 3
+        for a_, b_ in zip(first, again):
+            assert torch.equal(a_, b_)
+    assert scan_g.LAUNCHES_BF16 == scan_g.LAUNCHES
+    assert scan_g.LAUNCHES["proj_grad"] == 2
 
 
 def test_proj_grad_matches_plain(dev):
@@ -538,8 +637,9 @@ def _bf16_entry(name, dev):
                                   "selective_scan_ss2d_proj"])
 def test_bf16_grads_at_the_entry_points(dev, name):
     """bf16 u and weights with a gradient (ROADMAP B1), as JAX's
-    test_bf16_io: the call runs the fp32 kernels from the entry on; y and
-    every gradient come back bf16, within 5e-2 of autograd of the same
+    test_bf16_io: the grouped entry points run their kernels on the bf16
+    operands, the image scan runs its fp32 kernels from the entry on; y
+    and every gradient come back bf16, within 5e-2 of autograd of the same
     function on the same values in fp32 (the entry point's kernels, held
     to the plain versions by the tests above)."""
     fn, u, ws = _bf16_entry(name, dev)
@@ -548,9 +648,16 @@ def test_bf16_grads_at_the_entry_points(dev, name):
     for dtype in (torch.bfloat16, torch.float32):
         leaves = [t.bfloat16().to(dtype).requires_grad_(True)
                   for t in (u, *ws)]
+        scan_g.reset_launches()
         y = fn(leaves[0], leaves[1:])
         assert y.dtype == dtype
         grads[dtype] = torch.autograd.grad(y.float(), leaves, dy)
+        bf16_launches = sum(scan_g.LAUNCHES_BF16.values())
+        if dtype == torch.float32 or name == "selective_scan_ss2d_proj":
+            assert bf16_launches == 0, scan_g.LAUNCHES_BF16
+        else:
+            assert scan_g.LAUNCHES_BF16 == scan_g.LAUNCHES, \
+                scan_g.LAUNCHES_BF16
     for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert got.dtype == torch.bfloat16
         _close(got, want, torch.bfloat16)

@@ -391,7 +391,7 @@ def test_vss_block_branches_draw_their_own_masks():
 def test_train_step_refuses_a_mesh():
     model = _PixelLinear()
     opt = build_optimizer(get_config("mfnet"), model)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item A5"):
         make_train_step(model, opt, lambda k: 0.0, mesh=object())
 
 
@@ -452,8 +452,8 @@ def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["-c"], "item 10"), (["--bf16"], "C4"), (["--distributed"], "item 11"),
-    (["--pretrained", "x.pth"], "item 10")])
+    (["-c"], "item A3"), (["--profile", "x"], "item A1"),
+    (["--distributed"], "item A5"), (["--pretrained", "x.pth"], "item A3")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
     from sigma_tpu_torch.train import main
 

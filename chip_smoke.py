@@ -73,7 +73,9 @@ its findings:
                 on the same scan; K8 (y, hck) and K9 rerun bit for bit
                 and every 32-token checkpoint of K8 holds the plain
                 token-by-token walk's state
-                (`scan_g.scan_checkpoints_plain`).
+                (`scan_g.scan_checkpoints_plain`). Last, the peak memory
+                of one `selective_scan` forward + backward at trunk0 beside
+                the 32-token checkpoints and 256-token carries (ROADMAP C9).
   6. image    — the image-layout SS2D scan `selective_scan_ss2d_proj` (K10
                 forward, K11 + K5 backward) at sigma_tiny's four trunk SS2D
                 shapes at 480x640, batch 2 (RGB and X stacked), d_state
@@ -125,7 +127,24 @@ its findings:
                 sigma_test logits at 96x128 and one SGDM step at 64x80 in
                 bf16 on the card against bf16 on the CPU, the gap at most
                 twice the CPU's own bf16-vs-fp32 gap, both ways.
-  9. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
+  9. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
+                = None`): a seeded MFNet tree (8 480x640 pairs) and an
+                NYU-geometry tree (4 pairs, PNG, 40 classes) written by
+                `data/png.py`, every file decoded back to its array (host
+                ms per image), cv2's own 480x640 PNG (adaptive filters,
+                `tests/fixtures`) decoded to cv2's array; `resize_u8` on
+                the card equal to the CPU bit for bit at every train scale
+                (training form) and 0.75 / 1.25 (eval form), bilinear and
+                nearest (device ms); `sigma_tpu_torch.eval.main` on both
+                trees at sigma_tiny (NYU: scales 0.75, 1, 1.25, flip,
+                `--override rgb_format=.png`), `-p` PNGs read back, img/s
+                and mIoU, K1 / K2 launched and no backward kernel;
+                `image_batch` 2 against 1 (the same predictions); the NYU
+                protocol at sigma_test, card against CPU (argmax
+                agreement); `sigma_tpu_torch.train.main --steps 3` on the
+                MFNet tree (finite losses, weights moved, K1-K5 launched,
+                s/step).
+ 10. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
                 phase.
@@ -1435,10 +1454,45 @@ def ops_phase(device, reps=3):
                          kw=kw if k in OPS else row_kw, bound=bounds[k])
         del x, xr, core, streamed, hck, hck1, dy, dyg, grouped, d_eff
         torch.cuda.empty_cache()
+    _cf_peak_memory(device, *cases[0])
     _reset_launches()
     if failures:
         raise AssertionError(f"{len(failures)} ops comparisons failed")
     return summary, per_row, counts
+
+
+def _cf_peak_memory(device, tag, kw):
+    """Peak device memory of one `selective_scan` forward + backward
+    (K8 + K9) at `kw`, above the inputs and the output gradient it is
+    given, beside the size of the residual K8 keeps for K9 (every 32-token
+    checkpoint) and of the 256-token carries the JAX reference keeps."""
+    import torch
+
+    from sigma_tpu_torch import ops
+
+    x = {k: v.detach().clone().requires_grad_(True)
+         for k, v in _ops_inputs(kw, device, SEED + 30).items()}
+    dy = torch.randn(x["u"].shape, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    y = ops.selective_scan(**x, delta_softplus=True)
+    torch.autograd.grad((y * dy).sum(), list(x.values()))
+    del y
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    rows = kw["batch"] * kw["G"]
+    state = rows * kw["N"] * kw["dg"] * 4  # fp32 bytes of one state
+    ck32 = state * math.ceil(kw["L"] / 32)
+    ck256 = state * math.ceil(kw["L"] / CF_CARRY_TOKENS)
+    mib = 2.0 ** 20
+    print(f"ops: C9 {tag} {kw} selective_scan forward + backward peak "
+          f"{peak / mib:.2f} MiB above its inputs ({base / mib:.2f} MiB); "
+          f"the 32-token checkpoints K8 keeps for K9 {ck32 / mib:.2f} MiB, "
+          f"256-token carries {ck256 / mib:.2f} MiB: the peak with them "
+          f"{(peak - ck32 + ck256) / mib:.2f} MiB", flush=True)
+    del x, dy
+    torch.cuda.empty_cache()
 
 
 # sha256 of the outputs of the backward body's other sources (K3, K4,
@@ -1883,8 +1937,8 @@ def epilogue_plan(model, h, w):
 class _SyntheticMFNet:
     """In-memory stand-in for RGBXDataset's val split (same item keys):
     seeded uint8 480x640 RGB, thermal replicated to 3 channels, labels in
-    [0, 9) with some 255 ignore pixels. The card's machine has no cv2 to
-    decode PNGs."""
+    [0, 9) with some 255 ignore pixels, so that the timed serving runs
+    read no file (the files phase reads PNG trees)."""
 
     def __init__(self, n, h, w, seed):
         import numpy as np
@@ -2326,6 +2380,375 @@ def bf16_cross_check(device):
         raise AssertionError(f"{len(failures)} bf16 cross-checks failed")
 
 
+# a 480x640 RGB PNG written by cv2 with libpng's adaptive filters (its
+# rows Average-filtered) and the sha256 of what `cv2.imread` gives for it,
+# colour (turned to RGB) and gray, recorded on a host with cv2
+# (`tests/test_torch_port_files.py` holds them)
+CV2_PNG = ROOT / "tests" / "fixtures" / "cv2_adaptive_480x640.png"
+CV2_PNG_SHA256 = {
+    False: "caef272c480248ab110e0dbdc813036692109da595011b401d22bae637a33a45",
+    True: "1e2b87ed106a13372671244f95091a5a9fcf7d0c3491b35fdfe853691f0ec679",
+}
+TRAIN_SCALES = (0.5, 0.75, 1, 1.25, 1.5, 1.75)
+EVAL_SCALES = (0.75, 1.25)
+
+
+def _write_tree(cfg, n, seed, labels):
+    """A seeded dataset tree of `n` pairs at cfg's folders and image size,
+    written by the port's PNG writer: RGB, a 1-channel modal-x, labels in
+    [0, labels) (the first rows ignored: 255, or 0 where cfg shifts the
+    labels by one), every name in the train and eval lists. Returns
+    {path: the array written}."""
+    import os
+
+    import numpy as np
+
+    from sigma_tpu_torch.data.png import write_png
+
+    s = cfg.data_setting()
+    rng = np.random.default_rng(seed)
+    h, w = cfg.image_height, cfg.image_width
+    names = [f"f{i:02d}" for i in range(n)]
+    written = {}
+    for root in (s["rgb_root"], s["x_root"], s["gt_root"]):
+        os.makedirs(root, exist_ok=True)
+    for name in names:
+        label = rng.integers(0, labels, (h, w)).astype(np.uint8)
+        label[:4] = 0 if cfg.gt_transform else 255
+        for root, fmt, img in (
+                (s["rgb_root"], s["rgb_format"],
+                 rng.integers(0, 256, (h, w, 3), dtype=np.uint8)),
+                (s["x_root"], s["x_format"],
+                 rng.integers(0, 256, (h, w), dtype=np.uint8)),
+                (s["gt_root"], s["gt_format"], label)):
+            path = os.path.join(root, name + fmt)
+            write_png(path, img)
+            written[path] = img
+    for source in (s["train_source"], s["eval_source"]):
+        with open(source, "w") as f:
+            f.write("\n".join(names) + "\n")
+    return written
+
+
+def _eval_cli(argv, tag):
+    """`python -m sigma_tpu_torch.eval` in this process (its printed IoU
+    table kept back): images, seconds and mIoU of its evaluator run, the
+    launches; raises unless K1 and K2 ran and no backward kernel did."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import eval as eval_cli
+    from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
+
+    runs, orig = [], SlidingEvaluator.run
+
+    def timed(self, dataset, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, dataset, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append((len(dataset), time.perf_counter() - t0, out[0]))
+        return out
+
+    SlidingEvaluator.run = timed
+    _reset_launches()
+    table = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(table):
+            rc = eval_cli.main(argv)
+    finally:
+        SlidingEvaluator.run = orig
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    (n, seconds, miou), = runs
+    print(f"files: {tag} eval CLI rc {rc}: {n} images in {seconds:.3f}s = "
+          f"{n / seconds:.4f} img/s (the CLI {wall:.2f}s with the model's "
+          f"build and load), mIoU {miou:.4f} (random weights; "
+          f"{table.getvalue().strip().splitlines()[-1]}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if rc != 0 or not np.isfinite(miou):
+        raise AssertionError(f"{tag}: eval CLI rc {rc}, mIoU {miou}")
+    missing = [k for k in FORWARD if launches[k] == 0]
+    backward = [k for k in SCAN_BACKWARD + EPILOGUE[1:] + OPS[1:] + IMAGE[1:]
+                if launches[k]]
+    if missing or backward:
+        raise AssertionError(f"{tag}: kernels not launched {missing}, "
+                             f"backward kernels launched {backward}")
+    return n / seconds
+
+
+def _check_saved(out_dir, names, shape, num_classes):
+    """The eval CLI's `-p` PNGs, read back by the port's reader."""
+    import os
+
+    from sigma_tpu_torch.data.png import read_png
+
+    for name in names:
+        pred = read_png(os.path.join(out_dir, name + ".png"), gray=True)
+        color = read_png(os.path.join(out_dir + "_color", name + ".png"))
+        if pred.shape != shape or color.shape != shape + (3,) or \
+                pred.max() >= num_classes:
+            raise AssertionError(f"saved prediction {name}: {pred.shape} "
+                                 f"{color.shape} max {pred.max()}")
+
+
+def files_phase(device):
+    """The port on dataset files, with no cv2 (`sys.modules["cv2"] =
+    None`, so an import of it fails): a seeded MFNet tree (8 480x640
+    pairs) and an NYU-geometry tree in PNG (4 pairs, 40 classes) written
+    by `data/png.py`, each file decoded again and held to what was
+    written (host ms per image), and cv2's own 480x640 PNG (adaptive
+    filters) decoded to cv2's array; `resize_u8` on the card against the
+    CPU, bit for bit, at every train scale in the training form and at
+    0.75 / 1.25 in the eval form, bilinear and nearest, on an RGB image
+    and a label map (device ms); the eval CLI on the MFNet tree and on the
+    NYU tree with `--override rgb_format=.png` (scales 0.75, 1, 1.25 and
+    flip) at sigma_tiny, `-p` PNGs read back, K1 / K2 launched and no
+    backward kernel; the NYU protocol at sigma_test on the card against
+    the CPU plain path (argmax agreement); `image_batch` 2 against 1 on
+    the NYU tree (the same predictions); the train CLI for 3 steps on the
+    MFNet tree (finite losses, weights moved, K1-K5 launched, s/step).
+    Returns {metric: value}; raises on a failed check."""
+    import copy
+    import hashlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.modules["cv2"] = None
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.data import RGBXDataset, TrainPre, ValPre
+    from sigma_tpu_torch.data.png import read_png
+    from sigma_tpu_torch.data.resize import resize_u8
+    from sigma_tpu_torch.engine import train as train_engine
+    from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
+    from sigma_tpu_torch.models.builder import build_model
+    from sigma_tpu_torch.train import main as train_main
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp:
+        cfgs = {}
+        for name, n, labels in (("mfnet", 8, 9), ("nyu", 4, 41)):
+            cfg = get_config(name, dataset_path=os.path.join(tmp, name))
+            if name == "nyu":
+                object.__setattr__(cfg, "rgb_format", ".png")
+            t0 = time.perf_counter()
+            written = _write_tree(cfg, n, SEED + 40, labels)
+            write_s = time.perf_counter() - t0
+            ms = defaultdict(list)
+            for path, want in written.items():
+                t0 = time.perf_counter()
+                got = read_png(path, gray=want.ndim == 2)
+                ms[os.path.basename(os.path.dirname(path))].append(
+                    (time.perf_counter() - t0) * 1e3)
+                if got.dtype != np.uint8 or not np.array_equal(got, want):
+                    raise AssertionError(f"{path}: decoded != written")
+            print(f"files: {name} tree {len(written)} PNGs written in "
+                  f"{write_s:.2f}s, each decoded equal to its array; host "
+                  f"ms per image (filter 0 rows) "
+                  + ", ".join(f"{k} {np.mean(v):.2f}" for k, v in ms.items()),
+                  flush=True)
+            cfgs[name] = cfg
+        for gray in (False, True):
+            got = read_png(CV2_PNG, gray=gray)
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
+            t0 = time.perf_counter()
+            for _ in range(5):
+                read_png(CV2_PNG, gray=gray)
+            dt = (time.perf_counter() - t0) / 5 * 1e3
+            ok = digest.hexdigest() == CV2_PNG_SHA256[gray]
+            print(f"files: {CV2_PNG.name} (cv2-written, Average rows) "
+                  f"{'gray' if gray else 'RGB'} {got.shape} decoded in "
+                  f"{dt:.2f} ms on the host, cv2.imread's array "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{CV2_PNG}: decode != cv2.imread")
+            out[f"decode_ms_{'gray' if gray else 'rgb'}"] = dt
+
+        # one train sample on the host: 3 PNG decodes, TrainPre's mirror,
+        # rescale (resize_u8 on the CPU) and crop, as the loader's threads
+        cfg = cfgs["mfnet"]
+        train_set = RGBXDataset(
+            cfg.data_setting(), "train",
+            TrainPre(cfg.norm_mean, cfg.norm_std, cfg, device_norm=True))
+        t0 = time.perf_counter()
+        for i in range(len(train_set)):
+            train_set.__getitem__(i, rng=np.random.default_rng(i))
+        out["sample_ms"] = (time.perf_counter() - t0) / len(train_set) * 1e3
+        print(f"files: mfnet train sample (3 PNG decodes + TrainPre) "
+              f"{out['sample_ms']:.2f} host ms, one thread", flush=True)
+
+        # resize_u8: the card against the CPU, bit for bit
+        s = cfgs["mfnet"].data_setting()
+        rgb = read_png(os.path.join(s["rgb_root"], "f00.png"))
+        label = read_png(os.path.join(s["gt_root"], "f00.png"), gray=True)
+        h, w = label.shape
+        worst = 0.0
+        for img in (rgb, label):
+            cpu = torch.from_numpy(img)
+            dev = cpu.to(device)
+            for mode in ("linear", "nearest"):
+                calls = [(f"train {x}", dict(dsize=(int(w * x), int(h * x))))
+                         for x in TRAIN_SCALES]
+                calls += [(f"eval {x}", dict(fx=x)) for x in EVAL_SCALES]
+                line = []
+                for what, kw in calls:
+                    got = resize_u8(dev, interpolation=mode, **kw)
+                    if not torch.equal(got.cpu(),
+                                       resize_u8(cpu, interpolation=mode,
+                                                 **kw)):
+                        raise AssertionError(f"resize_u8 {mode} {what} "
+                                             f"{img.shape}: card != CPU")
+                    ms = _time_ms(lambda: resize_u8(dev, interpolation=mode,
+                                                    **kw), 5)
+                    worst = max(worst, ms)
+                    line.append(f"{what} {ms:.4f}")
+                print(f"files: resize_u8 {mode} {img.shape} card == CPU bit "
+                      f"for bit; device ms " + ", ".join(line), flush=True)
+        out["resize_ms_max"] = worst
+
+        # the eval CLI on both trees, sigma_tiny at full width
+        ckpts = {}
+        for name, cfg in cfgs.items():
+            m = build_model(cfg, device=device, seed=SEED)
+            ckpts[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save({k: v.cpu() for k, v in m.state_dict().items()},
+                       ckpts[name])
+            del m
+        for name, cfg in cfgs.items():
+            pred_dir = os.path.join(tmp, f"pred_{name}")
+            argv = ["-n", name, "--dataset-path", cfg.dataset_path,
+                    "-e", ckpts[name], "-p", pred_dir, "--device", "cuda"]
+            if name == "nyu":
+                argv += ["--override", "rgb_format=.png"]
+            out[f"eval_img_s_{name}"] = _eval_cli(argv, name)
+            with open(cfg.data_setting()["eval_source"]) as f:
+                names = f.read().split()
+            _check_saved(pred_dir, names, (cfg.image_height, cfg.image_width),
+                         cfg.num_classes)
+
+        # image_batch 2 against 1 on the NYU tree: the same predictions
+        cfg = cfgs["nyu"]
+        model = build_model(cfg, device="cpu", seed=SEED)
+        model.load_state_dict(torch.load(ckpts["nyu"]))
+        model.to(device).eval()
+        val = RGBXDataset(cfg.data_setting(), "val", ValPre())
+        preds = {}
+        for ib in (1, 2):
+            ev = SlidingEvaluator(
+                model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
+                multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
+                eval_crop_size=cfg.eval_crop_size,
+                stride_rate=cfg.eval_stride_rate, image_batch=ib,
+                device=device)
+            got = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            miou, _ = ev.run(val, save_fn=lambda fn, p: got.__setitem__(fn, p))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            preds[ib] = got
+            out[f"nyu_img_s_batch{ib}"] = len(val) / dt
+            print(f"files: nyu image_batch {ib}: {len(val)} images in "
+                  f"{dt:.3f}s = {len(val) / dt:.4f} img/s, mIoU {miou:.4f}",
+                  flush=True)
+        same = all(np.array_equal(preds[1][k], preds[2][k]) for k in preds[1])
+        agree = np.mean([(preds[1][k] == preds[2][k]).mean()
+                         for k in preds[1]])
+        print(f"files: nyu image_batch 2 against 1: predictions "
+              f"{'equal' if same else 'DIFFER'} (agreement {agree:.6f})",
+              flush=True)
+        if not same:
+            raise AssertionError("image_batch 2 changes the predictions")
+        del model, ev
+        torch.cuda.empty_cache()
+
+        # the NYU protocol at sigma_test: the card against the CPU
+        cfg_t = get_config("nyu", backbone="sigma_test")
+        cpu_model = build_model(cfg_t, device="cpu", seed=SEED)
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        item = val[0]
+        small = [resize_u8(torch.from_numpy(a), (128, 96),
+                           interpolation=mode).numpy()
+                 for a, mode in ((item["data"], "linear"),
+                                 (item["modal_x"], "linear"),
+                                 (item["modal_x"][..., 0], "nearest"))]
+        agree = []
+        for mx in small[1:]:  # a 3-channel and a 2-D modal-x
+            p = {}
+            for where, m in (("cpu", cpu_model), (device, gpu_model)):
+                p[str(where)] = SlidingEvaluator(
+                    m, cfg_t.num_classes, cfg_t.norm_mean, cfg_t.norm_std,
+                    multi_scales=cfg_t.eval_scale_array,
+                    is_flip=cfg_t.eval_flip, eval_crop_size=(96, 128),
+                    stride_rate=cfg_t.eval_stride_rate, device=where,
+                ).sliding_eval(small[0], mx)
+            agree.append(float((p["cpu"] == p[str(device)]).mean()))
+        print(f"files: NYU protocol (0.75, 1, 1.25, flip) sigma_test 96x128 "
+              f"card vs CPU argmax agreement {agree} (3-channel, 2-D "
+              f"modal-x; need >= {ARGMAX_AGREEMENT})", flush=True)
+        if min(agree) < ARGMAX_AGREEMENT:
+            raise AssertionError("NYU-protocol predictions: card != CPU")
+        del cpu_model, gpu_model
+
+        # the train CLI, 3 steps on the MFNet tree
+        rec = dict(losses=[], seconds=[])
+        orig = train_engine.build_train
+
+        def build_train(cfg, device="cuda"):
+            state, step, schedule = orig(cfg, device)
+            rec["model"] = state.model
+            rec["before"] = {k: v.detach().clone()
+                             for k, v in state.model.named_parameters()}
+
+            def timed_step(st, batch):
+                t0 = time.perf_counter()
+                loss = step(st, batch)
+                rec["losses"].append(float(loss))
+                rec["seconds"].append(time.perf_counter() - t0)
+                return loss
+
+            return state, timed_step, schedule
+
+        train_engine.build_train = build_train
+        _reset_launches()
+        try:
+            rc = train_main(["-n", "mfnet", "--dataset-path",
+                             cfgs["mfnet"].dataset_path, "--steps", "3",
+                             "--batch-size", "2", "--no-eval",
+                             "--log-dir", os.path.join(tmp, "log")])
+        finally:
+            train_engine.build_train = orig
+        launches = _launches()
+        moved = sum(int((p.detach() != rec["before"][k]).sum())
+                    for k, p in rec["model"].named_parameters())
+        s_step = float(np.mean(rec["seconds"][1:]))
+        print(f"files: mfnet train CLI rc {rc}, batch 2 from PNG files: "
+              f"losses {rec['losses']}, seconds "
+              f"{[round(t, 4) for t in rec['seconds']]}, last two "
+              f"{s_step:.4f} s/step (the loader's wait included), {moved} "
+              f"weights moved, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        missing = [k for k in FORWARD + SCAN_BACKWARD if launches[k] == 0]
+        if rc != 0 or not np.all(np.isfinite(rec["losses"])) or \
+                len(rec["losses"]) != 3 or moved == 0 or missing:
+            raise AssertionError(f"train CLI from files: rc {rc}, losses "
+                                 f"{rec['losses']}, moved {moved}, kernels "
+                                 f"not launched {missing}")
+        out["train_s_step"] = s_step
+        del rec
+    torch.cuda.empty_cache()
+    print(f"files: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2363,6 +2786,7 @@ def main() -> int:
     launches, train_timing = train_phase(device)
     bf16_train_timing = bf16_train_phase(device)
     bf16_cross_check(device)
+    files = files_phase(device)
     # last, so that its large calls precede no timed phase
     if body_bits_check(device):
         raise AssertionError("K1-K4, K10 or K11 moved from their recorded "
@@ -2434,6 +2858,16 @@ def main() -> int:
           "null for the others: no single PyTorch call computes a "
           "selective scan or its gradient (K1-K4, K8-K11), nor K6's merge "
           "+ LayerNorm + gate or its gradient (K7)")
+    print(f"summary: files (no cv2): PNG decode of cv2's 480x640 RGB file "
+          f"{files['decode_ms_rgb']:.2f} host ms (gray "
+          f"{files['decode_ms_gray']:.2f}); a train sample (3 decodes + "
+          f"TrainPre) {files['sample_ms']:.2f} host ms; resize_u8 at most "
+          f"{files['resize_ms_max']:.4f} device ms; eval CLI img/s MFNet "
+          f"{files['eval_img_s_mfnet']:.4f}, NYU protocol "
+          f"{files['eval_img_s_nyu']:.4f} (image_batch 1 / 2: "
+          f"{files['nyu_img_s_batch1']:.4f} / "
+          f"{files['nyu_img_s_batch2']:.4f}); train CLI from files "
+          f"{files['train_s_step']:.4f} s/step at batch 2")
     print(f"summary: command time {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

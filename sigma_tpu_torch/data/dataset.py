@@ -3,7 +3,10 @@
 
 Mirrors the reference's `dataloader/RGBXDataset.py`:
   * file-name lists from train/eval source txt files
-  * RGB loaded BGR->RGB; GT grayscale uint8 (optional `gt - 1` shift,
+  * PNG files read by `png.py` (cv2's arrays, no cv2); JPEG files (the
+    NYU and SUN-RGBD RGB folders) through cv2, where it is installed:
+    decoding JPEG without cv2 is ROADMAP C8's open part
+  * RGB loaded as RGB; GT grayscale uint8 (optional `gt - 1` shift,
     RGBXDataset.py:104-106); modal-X grayscale replicated to 3 channels when
     `x_single_channel` (RGBXDataset.py:50-54)
   * epoch oversampling: when `file_length` is set, names are tiled and the
@@ -16,10 +19,29 @@ import os
 
 import numpy as np
 
-try:  # pragma: no cover
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+from sigma_tpu_torch.data.png import read_png
+
+
+def _read(path, gray):
+    """(H, W, 3) RGB or (H, W) uint8, as `cv2.imread` gives it."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".png", ".jpg", ".jpeg"):
+        raise ValueError(f"{path}: the port reads PNG and JPEG files")
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if ext == ".png":
+        return read_png(path, gray=gray)
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: JPEG is decoded with cv2, which is not installed; "
+            "a JPEG decoder of the port's own is still open (ROADMAP "
+            "C8)") from e
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError(f"{path}: cv2 could not decode it")
+    return img if gray else np.ascontiguousarray(img[..., ::-1])
 
 
 class RGBXDataset:
@@ -100,17 +122,11 @@ class RGBXDataset:
 
     @staticmethod
     def _open_rgb(path):
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(path)
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return _read(path, gray=False)
 
     @staticmethod
     def _open_gray(path):
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(path)
-        return img
+        return _read(path, gray=True)
 
     @classmethod
     def get_class_colors(cls, n: int = 41):

@@ -6,7 +6,8 @@ reference's `dataloader/dataloader.py:56-89`): each process loads only its
 shard of the global batch (`process_index` of `process_count`), matching
 the reference's per-rank batch = global_batch / world_size
 (dataloader.py:77-80). Decode + augmentation run
-in a thread pool (cv2/numpy release the GIL) with a bounded prefetch queue
+in a thread pool (zlib, numpy and torch release the GIL in their large
+operations) with a bounded prefetch queue
 so host work overlaps device steps.
 """
 

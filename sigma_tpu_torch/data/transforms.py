@@ -1,6 +1,7 @@
-"""Host-side (numpy/cv2) augmentation pipeline: the port's copy of
-`sigma_tpu/data/transforms.py`, without its native (C++) fused tail,
-which is not on the `device_norm` path (ROADMAP queue A).
+"""Host-side (numpy + integer torch ops on the CPU) augmentation
+pipeline: the port's copy of `sigma_tpu/data/transforms.py`, without its
+native (C++) fused tail, which is not on the `device_norm` path (ROADMAP
+queue A).
 
 Mirrors the reference preprocessing exactly (the reference's
 `dataloader/dataloader.py:8-54` and `utils/transforms.py`):
@@ -11,18 +12,17 @@ Mirrors the reference preprocessing exactly (the reference's
   images and 255 for labels.
 
 Outputs stay HWC (channel-last) — the model is NHWC-native, unlike the
-reference's CHW transpose (dataloader.py:47-48). cv2 is needed only to
-rescale (`train_scale_array`).
+reference's CHW transpose (dataloader.py:47-48). The rescale is
+`resize.resize_u8` on CPU tensors, cv2's `INTER_LINEAR` / `INTER_NEAREST`
+bit for bit, so no cv2 is needed.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-try:  # pragma: no cover
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+from sigma_tpu_torch.data.resize import resize_u8
 
 
 def normalize(img, mean, std):
@@ -32,8 +32,9 @@ def normalize(img, mean, std):
 
 
 def _resize(img, sw, sh, nearest=False):
-    interp = cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR
-    return cv2.resize(img, (sw, sh), interpolation=interp)
+    """`cv2.resize(img, (sw, sh))`, bilinear or nearest, on the CPU."""
+    return resize_u8(torch.from_numpy(np.ascontiguousarray(img)), (sw, sh),
+                     interpolation="nearest" if nearest else "linear").numpy()
 
 
 def random_mirror(rng, rgb, gt, modal_x):

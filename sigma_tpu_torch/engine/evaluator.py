@@ -13,11 +13,18 @@
     summed, argmax at the end;
   * normalisation: ImageNet stats for 3-channel modal-x, (0, 1) for 2-D.
 
-The uint8 image goes to the device once per scale; normalisation, padding,
-windows, flip, exp, accumulation and the resize run there, and only the
-argmax map returns. The per-scale input resize uses cv2 and is skipped at
-scale 1.0. The mesh / image-batch / multi-process parts of the JAX
-evaluator are not ported.
+The uint8 image goes to the device once; the per-scale input resize
+(`data/resize.py`: cv2's `INTER_LINEAR`, `INTER_NEAREST` for a 2-D
+modal-x, bit for bit, in the `fx=fy=s` form; skipped at scale 1.0),
+normalisation, padding, windows, flip, exp, accumulation and the resize
+back run there, and only the argmax map returns. No cv2 is needed.
+
+`image_batch` (default 1) groups same-shaped images, as the JAX
+evaluator's `run` does: each group goes through the window passes
+together (its windows share the model's batch), a short tail group is
+padded by repeating its last image and the padded predictions are
+dropped. The JAX evaluator's mesh and multi-process confusion all-reduce
+are not ported (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sigma_tpu_torch.data.resize import resize_u8
 from sigma_tpu_torch.engine.logger import get_logger
 from sigma_tpu_torch.models.builder import require_device
 from sigma_tpu_torch.models.common import resize_linear
@@ -45,9 +53,10 @@ class SlidingEvaluator:
                  is_flip: bool = False,
                  eval_crop_size: Sequence[int] = (480, 640),
                  stride_rate: float = 2 / 3, window_batch: int = 8,
-                 device="cuda"):
+                 image_batch: int = 1, device="cuda"):
         """`model(rgb, modal_x)`: NHWC float tensors -> NHWC logits, on
-        `device` (the card unless the caller asks for the CPU)."""
+        `device` (the card unless the caller asks for the CPU).
+        `image_batch`: same-shaped images `run` evaluates together."""
         self.model = model
         self.class_num = num_classes
         self.device = require_device(device)
@@ -60,6 +69,7 @@ class SlidingEvaluator:
         self.eval_crop_size = tuple(eval_crop_size)
         self.stride_rate = stride_rate
         self.window_batch = max(1, int(window_batch))
+        self.image_batch = max(1, int(image_batch))
 
     def _scale_geometry(self, rows, cols):
         """(pad_hw, margin, spans, wmargin) for one scaled image: the
@@ -100,13 +110,13 @@ class SlidingEvaluator:
         return (rows, cols), (0, 0, 0, 0), tuple(spans), wmargin
 
     def _normalize(self, img, modal_x):
+        """uint8 (N, H, W, 3) and (N, H, W[, 3]) on the device -> float
+        NHWC."""
         mean, std = self.norm_mean, self.norm_std
-        rgb = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        rgb = (rgb.float() / 255.0 - mean) / std
-        mx = torch.from_numpy(np.ascontiguousarray(modal_x)).to(self.device)
-        mx = mx.float() / 255.0
-        if mx.ndim == 2:  # 2-D modal-x: (0, 1) scaling, channel-tripled
-            mx = mx[..., None].expand(-1, -1, 3)
+        rgb = (img.float() / 255.0 - mean) / std
+        mx = modal_x.float() / 255.0
+        if mx.ndim == 3:  # 2-D modal-x: (0, 1) scaling, channel-tripled
+            mx = mx[..., None].expand(-1, -1, -1, 3)
         else:
             mx = (mx - mean) / std
         return rgb, mx
@@ -123,8 +133,10 @@ class SlidingEvaluator:
         return torch.exp(logits.float())
 
     def scale_process(self, img, modal_x, ori_shape):
-        """One scale's (ori_h, ori_w, C) score map on the device."""
-        rows, cols = img.shape[:2]
+        """One scale's (N, ori_h, ori_w, C) score maps on the device, for
+        N same-shaped uint8 images (N, h, w, 3) / modal-x (N, h, w[, 3])
+        already there; the N images' windows share each model call."""
+        n, rows, cols = img.shape[:3]
         (ph, pw), margin, spans, wm = self._scale_geometry(rows, cols)
         rgb, mx = self._normalize(img, modal_x)
         # zero pad AFTER normalisation (the reference pads the normalised
@@ -132,73 +144,104 @@ class SlidingEvaluator:
         pad = (margin[0], ph - rows - margin[0],
                margin[2], pw - cols - margin[2])
         rgb, mx = _pad_hwc(rgb, *pad), _pad_hwc(mx, *pad)
-        canvas = torch.zeros((ph, pw, self.class_num), dtype=torch.float32,
-                             device=self.device)
+        canvas = torch.zeros((n, ph, pw, self.class_num),
+                             dtype=torch.float32, device=self.device)
         for c0 in range(0, len(spans), self.window_batch):
             chunk = spans[c0:c0 + self.window_batch]
-            wr = torch.stack([rgb[a:b, c:d] for a, b, c, d in chunk])
-            wx = torch.stack([mx[a:b, c:d] for a, b, c, d in chunk])
+            wr = torch.cat([rgb[:, a:b, c:d] for a, b, c, d in chunk])
+            wx = torch.cat([mx[:, a:b, c:d] for a, b, c, d in chunk])
             if wm != (0, 0, 0, 0):  # windows center-padded to the crop
                 wr, wx = _pad_hwc(wr, *wm), _pad_hwc(wx, *wm)
             scores = self._window_scores(wr, wx)
             sh, sw = scores.shape[1:3]
             scores = scores[:, wm[0]:sh - wm[1], wm[2]:sw - wm[3]]
-            for (a, b, c, d), s in zip(chunk, scores):
-                canvas[a:b, c:d] += s
-        score = canvas[margin[0]:ph - margin[1], margin[2]:pw - margin[3]]
-        if tuple(score.shape[:2]) != tuple(ori_shape):
-            score = resize_linear(score[None], *ori_shape, antialias=False)[0]
+            for (a, b, c, d), s in zip(chunk, scores.split(n)):
+                canvas[:, a:b, c:d] += s
+        score = canvas[:, margin[0]:ph - margin[1], margin[2]:pw - margin[3]]
+        if tuple(score.shape[1:3]) != tuple(ori_shape):
+            score = resize_linear(score, *ori_shape, antialias=False)
         return score
 
-    def _resize_scale(self, img, modal_x, s):
+    @staticmethod
+    def _resize_scale(img, modal_x, s):
+        """cv2.resize(fx=fy=s) of one uint8 image and its modal-x on their
+        device: bilinear, nearest for a 2-D modal-x (the JAX evaluator's
+        `_resize_scale`)."""
         if s == 1.0:
             return img, modal_x
-        try:
-            import cv2
-        except ImportError as e:
-            raise RuntimeError(
-                f"evaluation at scale {s} resizes its input with cv2, "
-                "which is not installed") from e
-        img_s = cv2.resize(img, None, fx=s, fy=s,
-                           interpolation=cv2.INTER_LINEAR)
-        interp = cv2.INTER_NEAREST if modal_x.ndim == 2 else cv2.INTER_LINEAR
-        return img_s, cv2.resize(modal_x, None, fx=s, fy=s,
-                                 interpolation=interp)
+        mode = "nearest" if modal_x.ndim == 2 else "linear"
+        return (resize_u8(img, fx=s),
+                resize_u8(modal_x, fx=s, interpolation=mode))
 
     @torch.inference_mode()
-    def scores(self, img, modal_x):
-        """Sum over scales of the (H, W, C) score maps, on the device."""
+    def batch_scores(self, imgs, modal_xs):
+        """Sum over scales of the (N, H, W, C) score maps of N
+        same-shaped images, on the device."""
+        img = torch.from_numpy(np.stack(imgs)).to(self.device)
+        mx = torch.from_numpy(np.stack(modal_xs)).to(self.device)
         acc = None
         for s in self.multi_scales:
-            img_s, x_s = self._resize_scale(img, modal_x, s)
-            sc = self.scale_process(img_s, x_s, img.shape[:2])
+            pairs = [self._resize_scale(a, b, s) for a, b in zip(img, mx)]
+            sc = self.scale_process(torch.stack([p[0] for p in pairs]),
+                                    torch.stack([p[1] for p in pairs]),
+                                    img.shape[1:3])
             acc = sc if acc is None else acc + sc
         return acc
 
+    def scores(self, img, modal_x):
+        """Sum over scales of the (H, W, C) score map, on the device."""
+        return self.batch_scores([img], [modal_x])[0]
+
+    def sliding_eval_batch(self, imgs, modal_xs):
+        """N same-shaped uint8 images + modal-x -> (N, H, W) int32."""
+        acc = self.batch_scores(imgs, modal_xs)
+        return acc.argmax(dim=3).int().cpu().numpy()
+
     def sliding_eval(self, img, modal_x):
         """uint8 HWC image + modal-x -> (H, W) int32 prediction."""
-        return self.scores(img, modal_x).argmax(dim=2).int().cpu().numpy()
+        return self.sliding_eval_batch([img], [modal_x])[0]
 
     def run(self, dataset, save_fn: Optional[Callable] = None,
             log_every: int = 50):
         """Evaluate all items; returns (mean_iou*100, detail dict)."""
         logger = get_logger()
         hist = np.zeros((self.class_num, self.class_num), np.int64)
-        correct = labeled = 0
+        correct = labeled = done = 0
         t0 = time.time()
+        group: list = []
+
+        def flush():
+            nonlocal hist, correct, labeled, done
+            k = len(group)
+            padded = group + [group[-1]] * (self.image_batch - k)
+            preds = self.sliding_eval_batch([it["data"] for it in padded],
+                                            [it["modal_x"] for it in padded])
+            for item, pred in zip(group, preds[:k]):
+                h, lab, cor = hist_info(self.class_num, pred,
+                                        item["label"].astype(np.int64))
+                hist += h
+                labeled += lab
+                correct += cor
+                if save_fn is not None:
+                    save_fn(item["fn"], pred)
+                done += 1
+                if done % log_every == 0:
+                    logger.info("eval %d (%.2fs/img)", done,
+                                (time.time() - t0) / done)
+            group.clear()
+
+        def shape(item):
+            return item["data"].shape, item["modal_x"].shape
+
         for i in range(len(dataset)):
             item = dataset[i]
-            pred = self.sliding_eval(item["data"], item["modal_x"])
-            h, lab, cor = hist_info(self.class_num, pred,
-                                    item["label"].astype(np.int64))
-            hist += h
-            labeled += lab
-            correct += cor
-            if save_fn is not None:
-                save_fn(item["fn"], pred)
-            if (i + 1) % log_every == 0:
-                logger.info("eval %d (%.2fs/img)", i + 1,
-                            (time.time() - t0) / (i + 1))
+            if group and shape(item) != shape(group[0]):
+                flush()
+            group.append(item)
+            if len(group) == self.image_batch:
+                flush()
+        if group:
+            flush()
         iou, mean_iou, miou_nb, fwiou, macc, pacc = compute_score(
             hist, correct, labeled)
         return mean_iou * 100.0, dict(

@@ -7,6 +7,8 @@ import os
 
 import numpy as np
 
+from sigma_tpu_torch.data.png import write_png
+
 
 def print_iou(iou, mean_pixel_acc, pixel_acc, class_names=None):
     """Per-class IoU table; returns the printed string."""
@@ -25,15 +27,12 @@ def print_iou(iou, mean_pixel_acc, pixel_acc, class_names=None):
 
 
 def save_prediction(save_dir: str, fn: str, pred, colors, background=255):
-    """Raw label PNG + palette-colored PNG (needs cv2)."""
-    import cv2
-
+    """Raw label PNG + palette-colored PNG, written by `data/png.py`."""
     os.makedirs(save_dir, exist_ok=True)
     os.makedirs(save_dir + "_color", exist_ok=True)
-    cv2.imwrite(os.path.join(save_dir, fn + ".png"), pred.astype(np.uint8))
+    write_png(os.path.join(save_dir, fn + ".png"), pred.astype(np.uint8))
     colored = np.zeros((*pred.shape, 3), np.uint8)
     for i, c in enumerate(colors):
         colored[pred == i] = c
     colored[pred == background] = 255
-    cv2.imwrite(os.path.join(save_dir + "_color", fn + ".png"),
-                cv2.cvtColor(colored, cv2.COLOR_RGB2BGR))
+    write_png(os.path.join(save_dir + "_color", fn + ".png"), colored)

@@ -21,10 +21,15 @@ from sigma_tpu_torch.utils.convert import load_checkpoint, state_dict_from_jax
 
 @pytest.fixture(scope="module")
 def jax_params():
+    """The JAX sigma_mini's param tree as jax.eval_shape lays it out (no
+    init is compiled), every leaf filled with its own seeded values, so
+    that a leaf carried to another's place shows."""
     jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini")
     x = jnp.zeros((1, 64, 80, 3), jnp.float32)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(7), x, x)["params"]
-    return jax.tree.map(np.asarray, params)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(7), x, x)["params"]
+    rng = np.random.default_rng(7)
+    return jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype), shapes)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """Model modules of the PyTorch port against the JAX package, on the CPU.
 
 Each JAX module is initialised by flax, its params go through the port's
-`state_dict_from_jax`, and the same seeded numpy inputs run through both.
+`state_dict_from_jax` (the whole EncoderDecoder: the port's seeded weights
+through the JAX package's `convert_sigma_full`), and the same seeded numpy
+inputs run through both.
 JAX takes its portable CPU scan path; the port takes the plain PyTorch
 versions of its scan entry points (CPU tensors). Tolerances:
   * scan modules: fp32 rtol 6e-4 / atol 2e-3 (reference envelope);
@@ -19,6 +21,7 @@ import torch
 
 from sigma_tpu.models import ss2d as jss2d
 from sigma_tpu.models.builder import EncoderDecoder as JaxEncoderDecoder
+from sigma_tpu.utils.convert import convert_sigma_full
 from sigma_tpu_torch.models import ss2d as tss2d
 from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import resize_bilinear
@@ -75,14 +78,22 @@ def test_fusion_scan_modules_match_jax(name):
 
 
 def test_encoder_decoder_sigma_mini_golden_tier():
+    """The port's seeded weights moved by the JAX package's converter into
+    a JAX tree that jax.eval_shape laid out (no init is compiled; remat
+    off, which a forward does not see): the JAX forward against the
+    port's. `test_torch_port_bridge.py` holds the converters' round trip
+    on the same tree."""
     rgb, mx = _inputs(2, (1, 64, 80, 3), seed=123)
-    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini")
-    params = jax.jit(jm.init)(
-        jax.random.PRNGKey(42), jnp.asarray(rgb), jnp.asarray(mx))["params"]
+    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini", remat=False)
+    xz = jnp.zeros(rgb.shape, jnp.float32)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(42), xz, xz)["params"]
+    zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+    tm = init_parameters(EncoderDecoder(9, "sigma_mini"), seed=42)
+    params, _, missing = convert_sigma_full(
+        zeros, {k: v.numpy() for k, v in tm.state_dict().items()})
+    assert missing == []
     want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(rgb),
                                         jnp.asarray(mx)))
-    tm = EncoderDecoder(9, "sigma_mini")
-    tm.load_state_dict(state_dict_from_jax(_np_tree(params), tm))
     with torch.inference_mode():
         got = tm.eval()(torch.from_numpy(rgb), torch.from_numpy(mx)).numpy()
     assert got.shape == want.shape == (1, 64, 80, 9)

@@ -143,7 +143,18 @@ its findings:
                 protocol at sigma_test, card against CPU (argmax
                 agreement); `sigma_tpu_torch.train.main --steps 3` on the
                 MFNet tree (finite losses, weights moved, K1-K5 launched,
-                s/step).
+                s/step). Then checkpoints (`ckpt_part`, 2 iterations an
+                epoch, a checkpoint and an evaluation every epoch): a
+                train step run twice (the same bits or not); run A, 2
+                epochs with async saves; run B, `--steps 2` then `-c`,
+                equal to A (bit for bit, or at the fp32 tier when the step
+                does not rerun bit for bit); the epochs on disk after each
+                run against the best-k policy; `eval.main -e last` / `-e
+                1-` on A's checkpoints giving the train-time mIoU;
+                `--pretrained` with a released-scheme sigma_tiny VMamba
+                trunk (every mapped tensor in the model, a finite loss);
+                the saves' blocking and background seconds, MiB, the
+                restore's seconds and each run's s/step.
  10. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
@@ -2432,8 +2443,9 @@ def _write_tree(cfg, n, seed, labels):
 
 def _eval_cli(argv, tag):
     """`python -m sigma_tpu_torch.eval` in this process (its printed IoU
-    table kept back): images, seconds and mIoU of its evaluator run, the
-    launches; raises unless K1 and K2 ran and no backward kernel did."""
+    table kept back): images, seconds and mIoU of each of its evaluator
+    runs (one a checkpoint), the launches; raises unless K1 and K2 ran and
+    no backward kernel did. Returns [(img/s, mIoU)] a run."""
     import contextlib
     import io
 
@@ -2464,21 +2476,23 @@ def _eval_cli(argv, tag):
         SlidingEvaluator.run = orig
     wall = time.perf_counter() - t0
     launches = _launches()
-    (n, seconds, miou), = runs
-    print(f"files: {tag} eval CLI rc {rc}: {n} images in {seconds:.3f}s = "
-          f"{n / seconds:.4f} img/s (the CLI {wall:.2f}s with the model's "
-          f"build and load), mIoU {miou:.4f} (random weights; "
-          f"{table.getvalue().strip().splitlines()[-1]}), launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    if rc != 0 or not np.isfinite(miou):
-        raise AssertionError(f"{tag}: eval CLI rc {rc}, mIoU {miou}")
+    means = [line for line in table.getvalue().splitlines()
+             if line.startswith("mean IoU")]
+    for (n, seconds, miou), mean in zip(runs, means):
+        print(f"files: {tag} eval CLI rc {rc}: {n} images in {seconds:.3f}s"
+              f" = {n / seconds:.4f} img/s (the CLI {wall:.2f}s with the "
+              f"model's build and load), mIoU {miou:.4f} (random weights; "
+              f"{mean}), launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if rc != 0 or not runs or not np.all(np.isfinite([r[2] for r in runs])):
+        raise AssertionError(f"{tag}: eval CLI rc {rc}, runs {runs}")
     missing = [k for k in FORWARD if launches[k] == 0]
     backward = [k for k in SCAN_BACKWARD + EPILOGUE[1:] + OPS[1:] + IMAGE[1:]
                 if launches[k]]
     if missing or backward:
         raise AssertionError(f"{tag}: kernels not launched {missing}, "
                              f"backward kernels launched {backward}")
-    return n / seconds
+    return [(n / seconds, miou) for n, seconds, miou in runs]
 
 
 def _check_saved(out_dir, names, shape, num_classes):
@@ -2496,6 +2510,354 @@ def _check_saved(out_dir, names, shape, num_classes):
                                  f"{color.shape} max {pred.max()}")
 
 
+def _released_vmamba(depths, dims, seed, d_state=16, ssm_ratio=2):
+    """A VMamba ImageNet checkpoint's tensors in the released key scheme
+    (patch_embed.proj / .norm, ln_1, self_attention, downsample, and a
+    classifier the trunk drops), seeded: {name: CPU fp32 tensor}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def add(k, *shape):
+        sd[k] = torch.from_numpy(
+            (rng.standard_normal(shape) * 0.02).astype(np.float32))
+
+    add("patch_embed.proj.weight", dims[0], 3, 4, 4)
+    add("patch_embed.proj.bias", dims[0])
+    add("patch_embed.norm.weight", dims[0])
+    add("patch_embed.norm.bias", dims[0])
+    for i, depth in enumerate(depths):
+        d = dims[i]
+        di, r = ssm_ratio * d, -(-d // 16)
+        for j in range(depth):
+            b = f"layers.{i}.blocks.{j}"
+            add(f"{b}.ln_1.weight", d)
+            add(f"{b}.ln_1.bias", d)
+            sa = f"{b}.self_attention"
+            add(f"{sa}.in_proj.weight", 2 * di, d)
+            add(f"{sa}.conv2d.weight", di, 1, 3, 3)
+            add(f"{sa}.conv2d.bias", di)
+            add(f"{sa}.x_proj_weight", 4, r + 2 * d_state, di)
+            add(f"{sa}.dt_projs_weight", 4, di, r)
+            add(f"{sa}.dt_projs_bias", 4, di)
+            add(f"{sa}.A_logs", 4 * di, d_state)
+            add(f"{sa}.Ds", 4 * di)
+            add(f"{sa}.out_norm.weight", di)
+            add(f"{sa}.out_norm.bias", di)
+            add(f"{sa}.out_proj.weight", d, di)
+        if i < len(depths) - 1:
+            add(f"layers.{i}.downsample.norm.weight", 4 * d)
+            add(f"layers.{i}.downsample.norm.bias", 4 * d)
+            add(f"layers.{i}.downsample.reduction.weight", dims[i + 1], 4 * d)
+    add("classifier.norm.weight", dims[-1])
+    add("classifier.norm.bias", dims[-1])
+    add("classifier.head.weight", 1000, dims[-1])
+    add("classifier.head.bias", 1000)
+    return sd
+
+
+# the released trunk names and the port's (the reference's remap)
+_RELEASED_TO_PORT = ((".self_attention.", ".op."), (".ln_1.", ".norm."),
+                     ("patch_embed.proj.", "patch_embed.0."),
+                     ("patch_embed.norm.", "patch_embed.2."))
+
+
+def _ckpt_train(argv, tag, check_first=None):
+    """`sigma_tpu_torch.train.main(argv)` in this process, its steps
+    (synchronised by reading the loss), checkpoint saves, file writes,
+    restores and prunes timed or recorded. `check_first(model)` runs
+    before the first step. Returns the record; raises on a non-zero exit
+    or a loss that is not finite."""
+    import threading
+
+    import numpy as np
+
+    from sigma_tpu_torch.engine import checkpoint as ck
+    from sigma_tpu_torch.engine import train as train_engine
+    from sigma_tpu_torch.train import main as train_main
+
+    rec = dict(seconds=[], losses=[], save_s=[], write_s=[], bg_write_s=[],
+               restore_s=[], prunes=[])
+    orig = {k: getattr(ck, k) for k in ("save_checkpoint", "_write",
+                                        "restore_checkpoint",
+                                        "prune_checkpoints")}
+    orig_build = train_engine.build_train
+
+    def build_train(cfg, device="cuda"):
+        state, step, schedule = orig_build(cfg, device)
+
+        def timed_step(st, batch):
+            if check_first is not None and not rec["seconds"]:
+                check_first(st.model)
+            t0 = time.perf_counter()
+            loss = step(st, batch)
+            rec["losses"].append(float(loss))
+            rec["seconds"].append(time.perf_counter() - t0)
+            return loss
+
+        return state, timed_step, schedule
+
+    def timed(name, key):
+        def fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kwargs)
+            dt = time.perf_counter() - t0
+            if name == "_write" and \
+                    threading.current_thread() is not threading.main_thread():
+                rec["bg_write_s"].append(dt)
+            else:
+                rec[key].append(dt)
+            return out
+        return fn
+
+    def prune(ckpt_dir, keep):
+        # what the policy must spare: best-k, the pointer's target and an
+        # in-flight async save
+        pending = ck._ASYNC["pending"]
+        rec["prunes"].append((sorted(keep), ck._pointer_epoch(ckpt_dir),
+                              pending[2] if pending else None))
+        return orig["prune_checkpoints"](ckpt_dir, keep)
+
+    ck.save_checkpoint = timed("save_checkpoint", "save_s")
+    ck._write = timed("_write", "write_s")
+    ck.restore_checkpoint = timed("restore_checkpoint", "restore_s")
+    ck.prune_checkpoints = prune
+    train_engine.build_train = build_train
+    try:
+        rc = train_main(argv)
+    finally:
+        for k, v in orig.items():
+            setattr(ck, k, v)
+        train_engine.build_train = orig_build
+    rec["s_step"] = float(np.mean(rec["seconds"]))
+    print(f"files: ckpt {tag}: rc {rc}, losses {rec['losses']}, seconds "
+          f"{[round(t, 4) for t in rec['seconds']]} ({rec['s_step']:.4f} "
+          f"s/step), save blocking s {[round(t, 4) for t in rec['save_s']]}"
+          f", file writes s {[round(t, 4) for t in rec['write_s']]} "
+          f"(background {[round(t, 4) for t in rec['bg_write_s']]}), "
+          f"restore s {[round(t, 4) for t in rec['restore_s']]}",
+          flush=True)
+    if rc != 0 or not np.all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"ckpt {tag}: rc {rc}, losses {rec['losses']}")
+    return rec
+
+
+def _ckpt_kept(ckpt_dir, rec, tag):
+    """The epoch-N directories on disk against the policy: the last
+    prune's best-k, the pointer's target when it ran and its in-flight
+    async save, and the pointer's target now (each run ends with a
+    checkpoint epoch, so its last prune follows its last save)."""
+    import os
+
+    from sigma_tpu_torch.engine import checkpoint as ck
+
+    keep, pointed, pending = rec["prunes"][-1]
+    want = set(keep) | {ck._pointer_epoch(ckpt_dir)} | \
+        {e for e in (pointed, pending) if e is not None}
+    got = set(ck._epoch_dirs(ckpt_dir))
+    print(f"files: ckpt {tag}: epochs on disk {sorted(got)}; best-k "
+          f"{keep}, pointer then {pointed}, in flight {pending}, pointer "
+          f"now {ck._pointer_epoch(ckpt_dir)}", flush=True)
+    leftovers = [n for n in os.listdir(ckpt_dir) if n.endswith(".tmp")]
+    if got != want or leftovers:
+        raise AssertionError(f"ckpt {tag}: epochs on disk {sorted(got)}, "
+                             f"the policy keeps {sorted(want)}; temporary "
+                             f"entries {leftovers}")
+
+
+def ckpt_part(device, cfg, tmp):
+    """Epoch checkpoints, `-c`, best-k pruning, the eval CLI's `-e` grammar
+    and `--pretrained` on the MFNet PNG tree (cv2 blocked), sigma_tiny
+    480x640, batch 2, fp32, 2 iterations an epoch (`num_train_imgs=3`), a
+    checkpoint and an evaluation every epoch. First, A's first step run
+    twice from the same seeded state: the same bits or not. Run A: 2
+    epochs with async saves, K1-K5 launched. Run B: `--steps 2` (epoch 1),
+    then `-c` (epoch 2): its weights, AdamW state and step against A's,
+    bit for bit when the card's step reruns bit for bit, else at the fp32
+    tier. The epochs on disk after each run against the retention policy.
+    `eval.main -e last` and `-e 1-` on A's checkpoints: the mIoU the
+    train-time evaluation logged for each epoch, K1 / K2 and no backward
+    kernel. `--pretrained`: a released-scheme VMamba trunk at sigma_tiny
+    widths in a `model` envelope with a pickled namespace; every mapped
+    tensor in the card's model before the first step, a finite loss.
+    Returns {metric: value}; raises on a failed check."""
+    import argparse
+    import dataclasses
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.data import RGBXDataset, TrainLoader, TrainPre
+    from sigma_tpu_torch.engine import checkpoint as ck
+    from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.models.sigma_encoder import SIGMA_VARIANTS
+
+    out = {}
+    t_part = time.perf_counter()
+    logs = {k: os.path.join(tmp, f"ckpt_{k}") for k in ("a", "b", "pre")}
+    cks = {k: os.path.join(v, "checkpoint") for k, v in logs.items()}
+    common = ["-n", "mfnet", "--dataset-path", cfg.dataset_path,
+              "--batch-size", "2", "--epochs", "2",
+              "--override", "num_train_imgs=3",
+              "--override", "checkpoint_start_epoch=1",
+              "--override", "checkpoint_step=1"]
+
+    def flat(model_sd, opt_sd):
+        out = dict(model_sd)
+        for i, s in opt_sd["state"].items():
+            out.update({f"optimizer.{i}.{k}": v for k, v in s.items()})
+        return out
+
+    # does a train step rerun bit for bit on the card? A's first step, on
+    # A's first batch, from two fresh seeded states
+    c = dataclasses.replace(cfg, batch_size=2, num_train_imgs=3, nepochs=2)
+    loader = TrainLoader(
+        RGBXDataset(c.data_setting(), "train",
+                    TrainPre(c.norm_mean, c.norm_std, c,
+                             device_norm=c.device_norm),
+                    file_length=c.batch_size * c.niters_per_epoch,
+                    seed=c.seed),
+        global_batch_size=c.batch_size, niters_per_epoch=c.niters_per_epoch,
+        num_workers=c.num_workers, seed=c.seed)
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    after = []
+    for _ in range(2):
+        state, step, _ = build_train(c, device)
+        step(state, batch)
+        after.append({k: v.detach().clone() for k, v in flat(
+            state.model.state_dict(), state.optimizer.state_dict()).items()})
+        del state, step
+    bitwise = all(torch.equal(v, after[1][k]) for k, v in after[0].items())
+    print(f"files: ckpt: a train step on the card, run twice from the same "
+          f"state and batch, gives {'the same' if bitwise else 'other'} "
+          f"bits ({len(after[0])} tensors)", flush=True)
+    del after
+    torch.cuda.empty_cache()
+
+    _reset_launches()
+    rec_a = _ckpt_train(common + ["--log-dir", logs["a"], "--override",
+                                  "async_checkpoint=True"],
+                        "A (2 epochs, async saves)")
+    launches = _launches()
+    missing = [k for k in FORWARD + SCAN_BACKWARD if launches[k] == 0]
+    if missing or len(rec_a["seconds"]) != 4:
+        raise AssertionError(f"ckpt A: {len(rec_a['seconds'])} steps, "
+                             f"kernels not launched {missing}")
+    _ckpt_kept(cks["a"], rec_a, "A")
+    rec_b1 = _ckpt_train(common + ["--log-dir", logs["b"], "--steps", "2"],
+                         "B1 (--steps 2)")
+    _ckpt_kept(cks["b"], rec_b1, "B1")
+    rec_b2 = _ckpt_train(common + ["--log-dir", logs["b"], "-c"], "B2 (-c)")
+    _ckpt_kept(cks["b"], rec_b2, "B2")
+    if (len(rec_b1["seconds"]), len(rec_b2["seconds"]),
+            len(rec_b2["restore_s"])) != (2, 2, 1):
+        raise AssertionError("ckpt B: not 2 + 2 steps with one restore")
+
+    saved, meta = {}, {}
+    for run in ("a", "b"):
+        d = os.path.join(cks[run], "epoch-2")
+        saved[run] = flat(
+            torch.load(os.path.join(d, "model.pt"), weights_only=True),
+            torch.load(os.path.join(d, "optimizer.pt"), weights_only=True))
+        with open(os.path.join(d, "meta.json")) as f:
+            meta[run] = json.load(f)
+    if saved["a"].keys() != saved["b"].keys() or meta["a"] != meta["b"] \
+            or meta["a"]["step"] != 4:
+        raise AssertionError(f"ckpt: B's epoch 2 holds other tensors or "
+                             f"meta than A's ({meta})")
+    same = all(torch.equal(v, saved["b"][k]) for k, v in saved["a"].items())
+    errs = [_scaled_err(saved["b"][k], v) for k, v in saved["a"].items()]
+    worst, tier = max(e for e, _ in errs), all(ok for _, ok in errs)
+    held = same if bitwise else tier
+    print(f"files: ckpt: B (--steps 2, then -c) against A at epoch 2, "
+          f"{len(saved['a'])} tensors (weights and AdamW moments), step "
+          f"{meta['b']['step']}: {'equal bit for bit' if same else 'differ'}"
+          f", max abs err {worst:.3e}, within the fp32 tier: {tier}; held "
+          f"to {'bit for bit' if bitwise else 'the fp32 tier'} "
+          f"{'ok' if held else 'FAIL'}", flush=True)
+    if not held:
+        raise AssertionError("ckpt: the resumed run differs from A")
+    d = os.path.join(cks["a"], "epoch-2")
+    mib = sum(os.path.getsize(os.path.join(d, n))
+              for n in os.listdir(d)) / 2**20
+    del saved
+
+    # the eval CLI on A's checkpoints: the train-time evaluation's mIoU
+    scores = {e: m for m, e in ck.load_val_scores(cks["a"])}
+    for spec, epochs in (("last", [ck._pointer_epoch(cks["a"])]),
+                         ("1-", ck._epoch_dirs(cks["a"]))):
+        runs = _eval_cli(["-n", "mfnet", "--dataset-path", cfg.dataset_path,
+                          "--log-dir", logs["a"], "-e", spec, "--device",
+                          "cuda"], f"ckpt -e {spec}")
+        got = [m for _, m in runs]
+        want = [scores[e] for e in epochs]
+        print(f"files: ckpt -e {spec}: epochs {epochs} mIoU {got}, the "
+              f"train-time evaluation logged {want}", flush=True)
+        if got != want:
+            raise AssertionError(f"-e {spec}: mIoU {got} != {want}")
+
+    # --pretrained: a released VMamba trunk at sigma_tiny widths
+    v = SIGMA_VARIANTS["sigma_tiny"]
+    released = _released_vmamba(v["depths"], v["dims"], SEED + 50)
+    path = os.path.join(tmp, "vssm_tiny.pth")
+    torch.save({"model": {f"module.{k}": t for k, t in released.items()},
+                "epoch": 300,
+                "config": argparse.Namespace(arch="vssm_tiny",
+                                             dims=list(v["dims"]))}, path)
+    want = {}
+    for k, t in released.items():
+        if not k.startswith("classifier."):
+            for a, b in _RELEASED_TO_PORT:
+                k = k.replace(a, b)
+            want["backbone.vssm." + k] = t
+
+    def check_first(model):
+        sd = model.state_dict()
+        unmapped = [k for k in sd if k.startswith("backbone.vssm.")
+                    and ".outnorm" not in k and k not in want]
+        bad = [k for k, t in want.items()
+               if k not in sd or not torch.equal(sd[k].cpu(), t)]
+        print(f"files: ckpt --pretrained: {len(want) - len(bad)} of "
+              f"{len(want)} mapped trunk tensors in the card's model equal "
+              f"the file's; trunk tensors the file does not map "
+              f"{len(unmapped)}", flush=True)
+        if bad or unmapped:
+            raise AssertionError(f"--pretrained: differ {bad[:5]}, not "
+                                 f"mapped {unmapped[:5]}")
+
+    rec_p = _ckpt_train(common + ["--log-dir", logs["pre"], "--steps", "1",
+                                  "--no-eval", "--pretrained", path],
+                        "pretrained (1 step)", check_first)
+    if len(rec_p["seconds"]) != 1:
+        raise AssertionError("--pretrained: not one step")
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    out.update(
+        ckpt_save_async_s=float(np.mean(rec_a["save_s"])),
+        ckpt_save_sync_s=float(np.mean(rec_b1["save_s"] + rec_b2["save_s"])),
+        ckpt_bg_write_s=float(np.mean(rec_a["bg_write_s"])),
+        ckpt_mib=mib, ckpt_restore_s=rec_b2["restore_s"][0],
+        ckpt_s_step=[r["s_step"] for r in (rec_a, rec_b1, rec_b2, rec_p)],
+        ckpt_resume="bit for bit" if bitwise else "the fp32 tier")
+    print(f"files: ckpt part {time.perf_counter() - t_part:.1f}s: save "
+          f"blocking {out['ckpt_save_async_s']:.4f}s async (the host copy) "
+          f"/ {out['ckpt_save_sync_s']:.4f}s sync, background write "
+          f"{out['ckpt_bg_write_s']:.4f}s, {mib:.2f} MiB an epoch, restore "
+          f"{out['ckpt_restore_s']:.4f}s, s/step A / B1 / B2 / pretrained "
+          f"{[round(x, 4) for x in out['ckpt_s_step']]}; {card}",
+          flush=True)
+    return out
+
+
 def files_phase(device):
     """The port on dataset files, with no cv2 (`sys.modules["cv2"] =
     None`, so an import of it fails): a seeded MFNet tree (8 480x640
@@ -2511,8 +2873,9 @@ def files_phase(device):
     backward kernel; the NYU protocol at sigma_test on the card against
     the CPU plain path (argmax agreement); `image_batch` 2 against 1 on
     the NYU tree (the same predictions); the train CLI for 3 steps on the
-    MFNet tree (finite losses, weights moved, K1-K5 launched, s/step).
-    Returns {metric: value}; raises on a failed check."""
+    MFNet tree (finite losses, weights moved, K1-K5 launched, s/step);
+    then `ckpt_part` on the MFNet tree. Returns {metric: value}; raises
+    on a failed check."""
     import copy
     import hashlib
     import os
@@ -2628,7 +2991,7 @@ def files_phase(device):
                     "-e", ckpts[name], "-p", pred_dir, "--device", "cuda"]
             if name == "nyu":
                 argv += ["--override", "rgb_format=.png"]
-            out[f"eval_img_s_{name}"] = _eval_cli(argv, name)
+            (out[f"eval_img_s_{name}"], _), = _eval_cli(argv, name)
             with open(cfg.data_setting()["eval_source"]) as f:
                 names = f.read().split()
             _check_saved(pred_dir, names, (cfg.image_height, cfg.image_width),
@@ -2744,6 +3107,8 @@ def files_phase(device):
                                  f"not launched {missing}")
         out["train_s_step"] = s_step
         del rec
+        torch.cuda.empty_cache()
+        out.update(ckpt_part(device, cfgs["mfnet"], tmp))
     torch.cuda.empty_cache()
     print(f"files: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     return out
@@ -2868,6 +3233,13 @@ def main() -> int:
           f"{files['nyu_img_s_batch1']:.4f} / "
           f"{files['nyu_img_s_batch2']:.4f}); train CLI from files "
           f"{files['train_s_step']:.4f} s/step at batch 2")
+    print(f"summary: checkpoints (files phase, sigma_tiny fp32 batch 2): "
+          f"save blocking {files['ckpt_save_async_s']:.4f}s async / "
+          f"{files['ckpt_save_sync_s']:.4f}s sync, background write "
+          f"{files['ckpt_bg_write_s']:.4f}s, {files['ckpt_mib']:.2f} MiB, "
+          f"restore {files['ckpt_restore_s']:.4f}s, s/step A / B1 / B2 / "
+          f"pretrained {[round(x, 4) for x in files['ckpt_s_step']]}; "
+          f"resume held to {files['ckpt_resume']}")
     print(f"summary: command time {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

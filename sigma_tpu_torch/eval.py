@@ -1,13 +1,22 @@
 """Evaluation entry point of the port (counterpart of `eval.py`).
 
-  python -m sigma_tpu_torch.eval -n mfnet -e model.pth            # on cuda
-  python -m sigma_tpu_torch.eval -n mfnet -e params.npz --device cpu
+  python -m sigma_tpu_torch.eval -n mfnet                  # -e last, on cuda
+  python -m sigma_tpu_torch.eval -n mfnet -e 100           # epoch 100
+  python -m sigma_tpu_torch.eval -n mfnet -e 80-100        # epoch range
+  python -m sigma_tpu_torch.eval -n mfnet -e 80-           # every kept >= 80
   python -m sigma_tpu_torch.eval -n mfnet -e model.pth -p out/    # + PNGs
+  python -m sigma_tpu_torch.eval -n mfnet -e params.npz --device cpu
 
-`-e` takes a reference-named `.pt`/`.pth` state_dict or an `.npz` of JAX
-params flattened with `/`-joined flax paths. `--override bf16=True` serves
-in bf16 compute (fp32 parameters), as the JAX evaluator takes it. Orbax epoch directories of
-the JAX trainer are not read yet. `--device` defaults to cuda; the CPU is
+`-e` takes `last` (the default: the epoch-last pointer, or the newest
+epoch directory), `N`, `lo-hi`, `lo-` (every epoch directory from lo on)
+of the train CLI's checkpoints under `cfg.checkpoint_dir` (default
+`<log_dir>/checkpoint`, `--log-dir`), or one file: a `.pt`/`.pth` state
+dict or an `.npz` (torch-named, or JAX params under `/`-joined flax
+paths), a full model or a VMamba trunk (utils/convert.py; a `.pth` is
+unpickled, so only trusted files). The model is built once and reloaded
+for each checkpoint. `--override bf16=True` serves in bf16 compute (fp32
+parameters), as the JAX evaluator takes it. The JAX trainer's orbax
+epoch directories are refused. `--device` defaults to cuda; the CPU is
 used only when asked for.
 """
 
@@ -15,20 +24,50 @@ from __future__ import annotations
 
 import argparse
 import ast
+import os
 import sys
 
 import torch
+
+
+def parse_epochs(spec: str, ckpt_dir: str):
+    """Resolve `-e` into a list of epoch ints (None: the last) or a single
+    file path, as the JAX CLI's `parse_epochs` does (which also takes
+    `.pt` here)."""
+    if spec.endswith((".pt", ".pth", ".npz")):
+        return [spec]
+    if spec == "last":
+        return [None]
+    if "-" in spec:
+        lo, _, hi = spec.partition("-")
+        lo = int(lo)
+        if hi:
+            return list(range(lo, int(hi) + 1))
+        # open range: everything >= lo that exists
+        out = []
+        if os.path.isdir(ckpt_dir):
+            for name in os.listdir(ckpt_dir):
+                if name.startswith("epoch-") and name != "epoch-last":
+                    try:
+                        n = int(name.split("-")[1])
+                    except ValueError:
+                        continue
+                    if n >= lo:
+                        out.append(n)
+        return sorted(out)
+    return [int(spec)]
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="sigma_tpu_torch evaluator")
     p.add_argument("-n", "--dataset", required=True)
     p.add_argument("--dataset-path", default=None)
-    p.add_argument("-e", "--epochs", required=True, metavar="CKPT",
-                   help="a .pt/.pth state_dict or an .npz of JAX params")
+    p.add_argument("-e", "--epochs", default="last",
+                   help="last | N | lo-hi | lo- | a .pt/.pth/.npz file")
     p.add_argument("-p", "--save-path", default=None)
     p.add_argument("--backbone", default=None)
     p.add_argument("--decoder", default=None)
+    p.add_argument("--log-dir", default=None)
     p.add_argument("--override", action="append", default=[],
                    metavar="KEY=VAL",
                    help="config field override, repeatable; VAL is parsed "
@@ -36,9 +75,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if not args.epochs.endswith((".pt", ".pth", ".npz")):
-        p.error("-e: the port reads .pt/.pth/.npz files; orbax epoch "
-                "directories are not supported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device (pass --device cpu to run "
@@ -53,11 +89,12 @@ def main(argv=None) -> int:
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.data import RGBXDataset, ValPre
+    from sigma_tpu_torch.engine.checkpoint import restore_checkpoint
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.models.builder import build_model
     from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
-    from sigma_tpu_torch.utils.convert import load_checkpoint
+    from sigma_tpu_torch.utils.convert import load_checkpoint_into_model
     from sigma_tpu_torch.utils.visualize import print_iou, save_prediction
 
     overrides = {}
@@ -65,7 +102,8 @@ def main(argv=None) -> int:
         overrides["dataset_path"] = args.dataset_path
     cfg = get_config(args.dataset, **overrides)
     for field, val in (("backbone", args.backbone),
-                       ("decoder", args.decoder)):
+                       ("decoder", args.decoder),
+                       ("log_dir", args.log_dir)):
         if val is not None:
             object.__setattr__(cfg, field, val)
     for ov in args.override:
@@ -75,15 +113,14 @@ def main(argv=None) -> int:
         except (ValueError, SyntaxError):
             pass  # keep as string
         object.__setattr__(cfg, k, v)
+    ckpt_dir = cfg.checkpoint_dir or os.path.join(cfg.log_dir, "checkpoint")
 
     logger = get_logger()
     logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
                 "fused" if FUSED_EPILOGUE else "unfused")
     logger.info("compute dtype: %s (parameters fp32)",
                 "bf16" if getattr(cfg, "bf16", False) else "fp32")
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(load_checkpoint(args.epochs))
-    model.to(device)
+    model = build_model(cfg, device=device)
     dataset = RGBXDataset(cfg.data_setting(), "val", ValPre())
     evaluator = SlidingEvaluator(
         model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
@@ -98,10 +135,18 @@ def main(argv=None) -> int:
         def save_fn(fn, pred):
             save_prediction(args.save_path, fn, pred, colors, cfg.background)
 
-    miou, detail = evaluator.run(dataset, save_fn)
-    print_iou(detail["iou"], detail["mean_pixel_acc"], detail["pixel_acc"],
-              list(cfg.class_names))
-    logger.info("%s: mIoU %.2f", args.epochs, miou)
+    for spec in parse_epochs(args.epochs, ckpt_dir):
+        if isinstance(spec, str):  # one checkpoint file
+            load_checkpoint_into_model(model, spec)
+            label = spec
+        else:
+            raw, epoch = restore_checkpoint(ckpt_dir, None, spec)
+            model.load_state_dict(raw["model"])
+            label = f"epoch-{epoch}"
+        miou, detail = evaluator.run(dataset, save_fn)
+        print_iou(detail["iou"], detail["mean_pixel_acc"],
+                  detail["pixel_acc"], list(cfg.class_names))
+        logger.info("%s: mIoU %.2f", label, miou)
     return 0
 
 

@@ -1,21 +1,28 @@
 """Training entry point of the port (counterpart of `train.py`).
 
   python -m sigma_tpu_torch.train -n mfnet --dataset-path PATH     # on cuda
+  python -m sigma_tpu_torch.train -n mfnet --dataset-path PATH -c  # resume
   python -m sigma_tpu_torch.train -n mfnet --dataset-path PATH \\
       --device cpu --steps 2 --batch-size 2 --override image_height=32 ...
 
 One device, fp32 or, with `--bf16`, bf16 compute (fp32 parameters,
 LayerNorms, scan state and loss, as the JAX trainer's `--bf16`): config by
-dataset name, seeded model, AdamW (or SGDM) with warmup-poly lr, the
-device-norm uint8 input path, per-iteration loss logging. At the end it saves the model's state_dict as
-`<checkpoint_dir>/model.pt` (default `<log_dir>/checkpoint/model.pt`),
-which `python -m sigma_tpu_torch.eval -e` reads, and, unless `--no-eval`,
-evaluates it on the val split with the port's SlidingEvaluator.
+dataset name, seeded model, `--pretrained` VMamba trunk ingest, AdamW (or
+SGDM) with warmup-poly lr, the device-norm uint8 input path,
+per-iteration loss logging, and the JAX trainer's epoch loop: on a
+checkpoint epoch (`checkpoint_start_epoch`, `checkpoint_step`, the last
+epoch, or the end of `--steps`) the state is saved under
+`<checkpoint_dir>/epoch-N` (default `<log_dir>/checkpoint`; async with
+`async_checkpoint`; engine/checkpoint.py), then, unless `--no-eval`, the
+val split is scored (`<log_dir>/val_epoch_N.log`, `val_last.log`,
+`val_scores.json`) and all but the best `keep_best_k` epochs are pruned.
+`-c` restores the model, the optimizer and the step from the last
+checkpoint and goes on at the next epoch; `--steps` counts this run's
+steps. `python -m sigma_tpu_torch.eval -e` reads the epoch checkpoints.
 `--device` defaults to cuda; the CPU is used only when asked for.
 
-Not ported, each raising with the ROADMAP item it waits for: `-c` resume,
-epoch checkpoints with best-k retention and `--pretrained` (queue A item
-A3), `--distributed` (A5), `--profile` (A1, the port's bench).
+Not ported, each raising with the ROADMAP item it waits for:
+`--distributed` (A5), `--profile` (A1, the port's bench).
 """
 
 from __future__ import annotations
@@ -35,16 +42,17 @@ def parse_args(argv=None):
                    help="mfnet | pst900 | nyu | sunrgbd")
     p.add_argument("--dataset-path", default=None)
     p.add_argument("-c", "--continue", dest="resume", action="store_true",
-                   help="resume from the last checkpoint (not ported)")
+                   help="resume from the last checkpoint")
     p.add_argument("--backbone", default=None,
                    help="sigma_tiny | sigma_small | sigma_base")
     p.add_argument("--decoder", default=None)
     p.add_argument("--pretrained", default=None,
-                   help="VMamba ImageNet checkpoint (not ported)")
+                   help="VMamba ImageNet checkpoint (.pth/.npz) for the "
+                        "trunk")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--steps", type=int, default=None,
-                   help="cap total train steps (smoke tests)")
+                   help="cap this run's train steps (smoke tests)")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute, fp32 parameters (cfg.bf16)")
@@ -64,9 +72,6 @@ def parse_args(argv=None):
 
 
 _WAITING = (
-    ("resume", "-c resume from orbax epoch checkpoints",
-     "ROADMAP.md queue A item A3"),
-    ("pretrained", "--pretrained", "ROADMAP.md queue A item A3"),
     ("distributed", "--distributed", "ROADMAP.md queue A item A5"),
     ("profile", "--profile", "the port's bench, ROADMAP.md item A1"),
 )
@@ -91,10 +96,19 @@ def main(argv=None) -> int:
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.data import RGBXDataset, TrainLoader, TrainPre, ValPre
+    from sigma_tpu_torch.engine.checkpoint import (
+        finalize_checkpoints,
+        load_val_scores,
+        prune_checkpoints,
+        restore_checkpoint,
+        save_checkpoint,
+        save_val_scores,
+    )
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.engine.train import build_train
     from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
+    from sigma_tpu_torch.utils.convert import load_vmamba_into_model
 
     overrides = {}
     if args.dataset_path:
@@ -106,6 +120,7 @@ def main(argv=None) -> int:
         ("batch_size", args.batch_size),
         ("nepochs", args.epochs),
         ("lr", args.lr),
+        ("pretrained_model", args.pretrained),
         ("log_dir", args.log_dir),
         ("num_workers", args.num_workers),
         ("bf16", args.bf16 or None),
@@ -146,8 +161,44 @@ def main(argv=None) -> int:
 
     state, train_step, schedule = build_train(cfg, device)
     model = state.model
+    if cfg.pretrained_model:
+        load_vmamba_into_model(model, cfg.pretrained_model)
+        logger.info("loaded pretrained backbone: %s", cfg.pretrained_model)
 
-    for epoch in range(1, cfg.nepochs + 1):
+    start_epoch = 1
+    if args.resume:
+        state, last_epoch = restore_checkpoint(cfg.checkpoint_dir, state)
+        start_epoch = last_epoch + 1
+        logger.info("resumed from epoch %d (step %d)", last_epoch,
+                    state.step)
+
+    tb = None
+    if cfg.log_dir:
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(os.path.join(cfg.log_dir, "tb"))
+        except Exception:
+            pass
+
+    evaluator = val_dataset = None
+    best_miou, best_epoch = -1.0, -1
+    # (mIoU, epoch) history for best-k retention; reloaded on -c so that
+    # pruning never discards the best checkpoints kept before the resume
+    val_scores = load_val_scores(cfg.checkpoint_dir) if args.resume else []
+    for m, e in val_scores:
+        if m > best_miou:
+            best_miou, best_epoch = m, e
+    if not args.no_eval:
+        val_dataset = RGBXDataset(cfg.data_setting(), "val", ValPre())
+        evaluator = SlidingEvaluator(
+            model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
+            multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
+            eval_crop_size=cfg.eval_crop_size,
+            stride_rate=cfg.eval_stride_rate, device=device,
+        )
+
+    total_steps = 0  # this run's steps; state.step counts every update
+    for epoch in range(start_epoch, cfg.nepochs + 1):
         loader.set_epoch(epoch)
         t_epoch = time.time()
         losses = []  # device scalars; synced at log points
@@ -155,6 +206,7 @@ def main(argv=None) -> int:
         for it, batch in enumerate(loader):
             loss = train_step(state, batch)
             losses.append(loss)
+            total_steps += 1
             steps_win += 1
             if (it + 1) % 10 == 0 or it == 0:
                 loss_now = float(loss)  # sync
@@ -167,30 +219,64 @@ def main(argv=None) -> int:
                     steps_win * cfg.batch_size / dt_win,
                 )
                 t_win, steps_win = time.time(), 0
-            if args.steps and state.step >= args.steps:
+            if args.steps and total_steps >= args.steps:
                 break
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         logger.info("epoch %d done in %.1fs mean-loss %.4f", epoch,
                     time.time() - t_epoch, mean_loss)
-        if args.steps and state.step >= args.steps:
+        if tb is not None:
+            tb.add_scalar("train_loss", mean_loss, epoch)
+
+        stop = bool(args.steps and total_steps >= args.steps)
+        should_ckpt = (
+            epoch >= cfg.checkpoint_start_epoch
+            and epoch % cfg.checkpoint_step == 0
+        ) or epoch == cfg.nepochs or stop
+        if should_ckpt:
+            save_checkpoint(cfg.checkpoint_dir, state, epoch,
+                            async_save=cfg.async_checkpoint)
+            if evaluator is not None:
+                model.eval()  # the train step sets train mode again
+                miou, detail = evaluator.run(val_dataset)
+                logger.info("epoch %d mIoU %.2f", epoch, miou)
+                write_val_log(cfg.log_dir, epoch, miou, detail["iou"])
+                if tb is not None:
+                    tb.add_scalar("val_miou", miou, epoch)
+                val_scores.append((miou, epoch))
+                if miou > best_miou:
+                    best_miou, best_epoch = miou, epoch
+                save_val_scores(cfg.checkpoint_dir, val_scores)
+                logger.info("best mIoU %.2f @ epoch %d", best_miou,
+                            best_epoch)
+                # best-k retention (k=1 is the reference's best-only
+                # policy)
+                k = max(1, cfg.keep_best_k)
+                prune_checkpoints(cfg.checkpoint_dir, [
+                    e for _, e in sorted(val_scores, reverse=True)[:k]])
+        if stop:
             break
 
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    ckpt = os.path.join(cfg.checkpoint_dir, "model.pt")
-    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
-    logger.info("training finished (%d steps); saved %s", state.step, ckpt)
-
-    if not args.no_eval:
-        evaluator = SlidingEvaluator(
-            model.eval(), cfg.num_classes, cfg.norm_mean, cfg.norm_std,
-            multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
-            eval_crop_size=cfg.eval_crop_size,
-            stride_rate=cfg.eval_stride_rate, device=device,
-        )
-        miou, _ = evaluator.run(
-            RGBXDataset(cfg.data_setting(), "val", ValPre()))
-        logger.info("mIoU %.2f", miou)
+    finalize_checkpoints()  # drain an in-flight async save
+    logger.info("training finished (%d steps)", total_steps)
     return 0
+
+
+def write_val_log(log_dir, epoch, miou, iou):
+    """`<log_dir>/val_epoch_N.log` (the epoch's mIoU, then each class's
+    IoU in percent) and the `val_last.log` link to it, as the JAX trainer
+    writes them."""
+    if not log_dir:
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    val_path = os.path.join(log_dir, f"val_epoch_{epoch}.log")
+    with open(val_path, "w") as f:
+        f.write(f"epoch {epoch} mIoU {miou:.4f}\n")
+        for i, x in enumerate(iou):
+            f.write(f"class {i}: {x * 100:.3f}\n")
+    last = os.path.join(log_dir, "val_last.log")
+    if os.path.islink(last) or os.path.exists(last):
+        os.remove(last)
+    os.symlink(os.path.abspath(val_path), last)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,32 @@ the reference torch scheme. It is the inverse of the key map of
   LayerNorm scale / bias           -> weight / bias
   nn.scan-stacked stage leaves     -> one tensor per block
 
-`load_checkpoint(path)` reads a reference-named `.pth`/`.pt` state_dict
-(envelopes `model` / `state_dict` / `module` and the `module.` prefix
-handled) or an `.npz` of JAX params flattened with `/`-joined flax paths.
+The ingest half is the port's copy of the JAX package's (its
+`load_torch_state_dict`, `_strip`, `_torch_candidates`,
+`load_vmamba_into_params` and `load_checkpoint_into_params`), aimed at the
+port's module names:
+
+  `load_checkpoint(path)`   the tensors of a `.pth`/`.pt` (envelopes
+      `model` / `state_dict` / `module`, the `module.` prefix, non-tensor
+      entries dropped) or an `.npz`, read by its key form: torch names
+      (`.`-joined) as they are, JAX params flattened with `/`-joined flax
+      paths through `state_dict_from_jax`;
+  `load_vmamba_into_model(model, path)`   a released VMamba ImageNet
+      checkpoint into `model.backbone.vssm`, strict=False: every released
+      key variant (`patch_embed.proj` / `patch_embed.0`, `self_attention` /
+      `op`, `ln_1` / `norm`) is accepted, a tensor of the wrong shape
+      raises, a tensor the file lacks keeps the model's seeded init (the
+      `outnorm*` layers), a key the trunk does not have (the classifier) is
+      dropped;
+  `load_checkpoint_into_model(model, path)`   the dispatch of the eval
+      CLI's `-e FILE`: a file whose keys start with `backbone.` /
+      `decode_head.` is a full model (the same strict=False rules over
+      the whole model), any other file a trunk.
+
+A `.pth` is read with `torch.load(weights_only=False)`, as the JAX package
+reads it: a released checkpoint's envelope pickles objects besides its
+tensors (an argparse namespace, a config), so only trusted files may be
+given.
 """
 
 from __future__ import annotations
@@ -28,6 +51,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from sigma_tpu_torch.engine.logger import get_logger
 
 _T = lambda w: w.T  # noqa: E731
 _CONV = lambda w: np.transpose(w, (3, 2, 0, 1))  # noqa: E731
@@ -120,25 +145,124 @@ def state_dict_from_jax(params, model: nn.Module | None = None):
     return out
 
 
-def load_checkpoint(path: str):
-    """state_dict from a reference-named .pth/.pt or a JAX-params .npz."""
+def load_torch_state_dict(path: str) -> dict:
+    """{name: tensor} of a .pth/.pt or a torch-named .npz: the tensors of
+    the envelope's `model` / `state_dict` / `module` entry, or of the file
+    itself, every other entry dropped (trusted input: see above)."""
     if path.endswith(".npz"):
-        tree: dict = {}
         with np.load(path) as z:
-            for name in z.files:
-                node = tree
-                *dirs, leaf = name.split("/")
-                for d in dirs:
-                    node = node.setdefault(d, {})
-                node[leaf] = z[name]
-        return state_dict_from_jax(tree)
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    obj = torch.load(path, map_location="cpu", weights_only=False)
     for key in ("model", "state_dict", "module"):
         if isinstance(obj, dict) and key in obj:
             obj = obj[key]
             break
-    return {
-        (k[len("module."):] if k.startswith("module.") else k): v
-        for k, v in obj.items()
-        if isinstance(v, torch.Tensor)
-    }
+    return {k: v.detach() for k, v in obj.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _strip(sd):
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def _trunk_candidates(key: str) -> list[str]:
+    """The released VMamba keys that may fill the trunk key `key` (relative
+    to `backbone.vssm`), in the JAX package's order: the released name
+    first, then the remapped one, which the port's modules carry."""
+    parts = key.split(".")
+    if parts[0] == "patch_embed":
+        alias = {"0": "proj", "2": "norm"}[parts[1]]
+        return [f"patch_embed.{alias}.{parts[2]}", key]
+    if parts[0] == "layers" and parts[2] == "blocks":
+        base, sub, rest = ".".join(parts[:4]), parts[4], ".".join(parts[5:])
+        if sub == "norm":
+            return [f"{base}.ln_1.{rest}", key]
+        if sub == "op":
+            return [f"{base}.self_attention.{rest}", key]
+    return [key]
+
+
+def _full_candidates(key: str) -> list[str]:
+    trunk = "backbone.vssm."
+    if key.startswith(trunk):
+        return [trunk + k for k in _trunk_candidates(key[len(trunk):])]
+    return [key]
+
+
+def _ingest(module: nn.Module, sd, candidates):
+    """Fill `module`'s tensors from `sd` in place, each from the first of
+    its candidate keys that `sd` holds; a shape mismatch raises, a tensor
+    with no candidate keeps its value. Returns (loaded sd keys, missing
+    module keys)."""
+    loaded, missing = [], []
+    with torch.no_grad():
+        for key, dst in module.state_dict().items():
+            src = next((c for c in candidates(key) if c in sd), None)
+            if src is None:
+                missing.append(key)
+                continue
+            w = sd[src]
+            if tuple(w.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"shape mismatch for {key}: ckpt {tuple(w.shape)} "
+                    f"({src}) vs model {tuple(dst.shape)}")
+            dst.copy_(w)
+            loaded.append(src)
+    return loaded, missing
+
+
+def load_vmamba_into_model(model: nn.Module, path):
+    """Load a VMamba ImageNet checkpoint (a path, or its state dict) into
+    `model.backbone.vssm` in place (strict=False semantics, see above).
+    Returns (loaded, missing, unexpected): the checkpoint keys used, the
+    trunk keys left at their init, the checkpoint keys dropped."""
+    sd = _strip(load_torch_state_dict(path) if isinstance(path, str)
+                else path)
+    loaded, missing = _ingest(model.backbone.vssm, sd, _trunk_candidates)
+    unexpected = sorted(set(sd) - set(loaded))
+    logger = get_logger()
+    logger.info(
+        "vmamba ingest: %d tensors loaded, %d missing (fresh init), "
+        "%d unexpected (dropped, e.g. classifier head)",
+        len(loaded), len(missing), len(unexpected))
+    if missing:
+        logger.debug("missing: %s", missing)
+    return loaded, missing, unexpected
+
+
+def load_checkpoint_into_model(model: nn.Module, path: str):
+    """Dispatch of a checkpoint file: a full trained Sigma model (keys
+    under `backbone.` / `decode_head.`) over the whole model, anything
+    else as a VMamba trunk through `load_vmamba_into_model`. Returns
+    (loaded, missing, unexpected)."""
+    sd = load_checkpoint(path)
+    if not any(k.startswith(("backbone.", "decode_head.")) for k in sd):
+        return load_vmamba_into_model(model, sd)
+    loaded, missing = _ingest(model, sd, _full_candidates)
+    unexpected = sorted(set(sd) - set(loaded))
+    logger = get_logger()
+    logger.info("sigma full ingest: %d loaded, %d fresh-init, %d unexpected",
+                len(loaded), len(missing), len(unexpected))
+    if missing:
+        logger.warning("missing (fresh init): %s", missing[:20])
+    if unexpected:
+        logger.debug("unexpected: %s", unexpected[:20])
+    return loaded, missing, unexpected
+
+
+def load_checkpoint(path: str):
+    """The tensors of a checkpoint file, keyed by torch names: a
+    `.pth`/`.pt`, a torch-named `.npz`, or an `.npz` of JAX params under
+    `/`-joined flax paths (turned into the port's state_dict)."""
+    sd = load_torch_state_dict(path)
+    if not any("/" in k for k in sd):
+        return _strip(sd)
+    tree: dict = {}
+    for name, w in sd.items():
+        node = tree
+        *dirs, leaf = name.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = w.numpy()
+    return state_dict_from_jax(tree)

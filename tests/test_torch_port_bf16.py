@@ -21,10 +21,7 @@ and the suite runs files on separate workers). JAX takes its portable CPU
 path, the port the plain versions of its scan entry points (CPU tensors).
 """
 
-import os
-import subprocess
-import sys
-from pathlib import Path
+import logging
 
 import cv2
 import jax
@@ -47,7 +44,6 @@ from sigma_tpu_torch.models import vssm as tvssm
 from sigma_tpu_torch.models.decoders import mamba_decoder as tdecoder
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 
-ROOT = Path(__file__).resolve().parents[1]
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
 BF16 = torch.bfloat16
@@ -266,35 +262,48 @@ def tiny_tree(tmp_path_factory):
     return root
 
 
-def _run(args):
-    env = dict(os.environ, OMP_NUM_THREADS=str(TORCH_THREADS))
-    env.pop("XLA_FLAGS", None)
-    return subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
 
 
-def test_bf16_train_cli_then_eval_cli(tiny_tree, tmp_path):
+def test_bf16_train_cli_then_eval_cli(tiny_tree, tmp_path, capsys):
     """`python -m sigma_tpu_torch.train --bf16` trains 2 steps and saves
     fp32 weights; `python -m sigma_tpu_torch.eval --override bf16=True`
     (parsed as the JAX CLI parses it, ast.literal_eval) serves them in
-    bf16. Both log the compute dtype."""
+    bf16. Both log the compute dtype. Both run in this process."""
+    from sigma_tpu_torch import eval as eval_cli
+    from sigma_tpu_torch import train as train_cli
+    from sigma_tpu_torch.engine.logger import get_logger
+
     common = ["-n", "mfnet", "--dataset-path", str(tiny_tree), "--device",
               "cpu", "--backbone", "sigma_test",
               "--override", "eval_crop_size=(32,32)"]
     log = tmp_path / "log"
-    proc = _run(["sigma_tpu_torch.train", *common, "--bf16", "--steps", "2",
-                 "--batch-size", "2", "--log-dir", str(log), "--no-eval",
-                 "--override", "image_height=32",
-                 "--override", "image_width=32",
-                 "--override", "num_workers=1"])
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "compute dtype: bf16" in proc.stderr
-    assert "training finished (2 steps)" in proc.stderr
-    ckpt = log / "checkpoint" / "model.pt"
-    sd = torch.load(ckpt, weights_only=True)
-    assert all(v.dtype == torch.float32 for v in sd.values())
-    proc = _run(["sigma_tpu_torch.eval", *common, "-e", str(ckpt),
-                 "--override", "bf16=True"])
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "compute dtype: bf16" in proc.stderr
-    assert "mean IoU" in proc.stdout
+    records = _Records()
+    logger = get_logger()  # configured before the handler joins it
+    logger.addHandler(records)
+    try:
+        assert train_cli.main([
+            *common, "--bf16", "--steps", "2", "--batch-size", "2",
+            "--log-dir", str(log), "--no-eval",
+            "--override", "image_height=32", "--override", "image_width=32",
+            "--override", "num_workers=1"]) == 0
+        assert "compute dtype: bf16 (parameters fp32)" in records.lines
+        assert "training finished (2 steps)" in records.lines
+        sd = torch.load(log / "checkpoint" / "epoch-1" / "model.pt",
+                        weights_only=True)
+        assert all(v.dtype == torch.float32 for v in sd.values())
+        del records.lines[:]
+        assert eval_cli.main([*common, "--log-dir", str(log), "-e", "last",
+                              "--override", "bf16=True"]) == 0
+        assert "compute dtype: bf16 (parameters fp32)" in records.lines
+        assert any(line.startswith("epoch-1: mIoU ")
+                   for line in records.lines)
+    finally:
+        logger.removeHandler(records)
+    assert "mean IoU" in capsys.readouterr().out

@@ -4,8 +4,8 @@
     tiny shared linear "model" on both sides (the same numpy weights),
     over a window grid with flip and two scales, the whole-image branch
     with a 2-D modal-x, and the collapsed-window geometry;
-  * `python -m sigma_tpu_torch.eval` end to end on a synthetic PNG MFNet
-    tree, on the CPU;
+  * `python -m sigma_tpu_torch.eval` end to end (its main, in this
+    process) on a synthetic PNG MFNet tree, on the CPU;
   * importing every module of the port (the train CLI and chip_smoke.py
     included) and running its eval loads nothing of jax, jaxlib, flax,
     sigma_tpu or configs (a fresh interpreter);
@@ -13,6 +13,7 @@
     CPU: on a host without one they raise.
 """
 
+import logging
 import os
 import subprocess
 import sys
@@ -152,17 +153,28 @@ def _env():
     return env
 
 
-def test_eval_cli_end_to_end(mfnet_tree, tmp_path):
+def test_eval_cli_end_to_end(mfnet_tree, tmp_path, capsys):
+    """`python -m sigma_tpu_torch.eval`'s main in this process, torch at
+    two threads (the suite runs several test processes at once)."""
+    from sigma_tpu_torch.engine.logger import get_logger
+    from sigma_tpu_torch.eval import main
+
     root, ckpt = mfnet_tree
     out = tmp_path / "pred"
-    proc = subprocess.run(
-        [sys.executable, "-m", "sigma_tpu_torch.eval",
-         *_cli_args(root, ckpt, out)],
-        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "mean IoU" in proc.stdout, proc.stdout
-    assert "mIoU" in proc.stderr
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger = get_logger()  # configured before the handler joins it
+    logger.addHandler(handler)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        assert main(_cli_args(root, ckpt, out)) == 0
+    finally:
+        torch.set_num_threads(threads)
+        logger.removeHandler(handler)
+    assert "mean IoU" in capsys.readouterr().out
+    assert any(line.startswith(f"{ckpt}: mIoU ") for line in records)
     for n in ("a00", "a01"):
         pred = cv2.imread(str(out / f"{n}.png"), cv2.IMREAD_GRAYSCALE)
         assert pred.shape == (64, 80) and pred.max() < 9

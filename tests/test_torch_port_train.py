@@ -11,15 +11,13 @@
     mean|diff| < 3e-3 on the post-update parameters, with the SS2D
     epilogue unfused and fused;
   * remat and DropPath: a rematerialized step draws the same masks;
-  * `python -m sigma_tpu_torch.train` end to end on a synthetic tree, its
-    `.pt` read by `python -m sigma_tpu_torch.eval`, with the SS2D epilogue
-    unfused and fused (SIGMA_FUSED_EPILOGUE).
+  * `python -m sigma_tpu_torch.train` end to end (its main, in this
+    process) on a synthetic tree, its epoch checkpoint read by `python -m
+    sigma_tpu_torch.eval -e last`, with the SS2D epilogue unfused and fused
+    (the switch SIGMA_FUSED_EPILOGUE sets).
 """
 
-import os
-import subprocess
-import sys
-from pathlib import Path
+import logging
 
 import cv2
 import jax
@@ -60,7 +58,6 @@ from sigma_tpu_torch.models.vssm import VSSBlock
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
 
-ROOT = Path(__file__).resolve().parents[1]
 # torch's CPU threads per test process: the suite runs several processes
 # on the host's cores, and torch's default (one thread per core) in each
 # oversubscribes them
@@ -416,44 +413,52 @@ def tiny_tree(tmp_path_factory):
     return root
 
 
-def _run(args, **env_vars):
-    env = dict(os.environ, OMP_NUM_THREADS=str(TORCH_THREADS), **env_vars)
-    env.pop("XLA_FLAGS", None)
-    return subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
-
-
-@pytest.mark.parametrize("fused", ["0", "1"],
+@pytest.mark.parametrize("fused", [False, True],
                          ids=["unfused", "fused_epilogue"])
-def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused):
-    """Both CLIs, with SIGMA_FUSED_EPILOGUE off and on (read by
-    models/ss2d.py at import, as in the JAX package)."""
+def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused, monkeypatch,
+                                 capsys):
+    """Both CLIs' mains in this process, with the SS2D epilogue switch off
+    and on: `ss2d.FUSED_EPILOGUE`, which SIGMA_FUSED_EPILOGUE sets at
+    import, as in the JAX package (test_torch_port_epilogue.py holds the
+    env var)."""
+    from sigma_tpu_torch import eval as eval_cli
+    from sigma_tpu_torch import train as train_cli
+    from sigma_tpu_torch.engine.logger import get_logger
+    from sigma_tpu_torch.models import ss2d
+
+    monkeypatch.setattr(ss2d, "FUSED_EPILOGUE", fused)
     common = ["-n", "mfnet", "--dataset-path", str(tiny_tree), "--device",
               "cpu", "--backbone", "sigma_test",
               "--override", "eval_crop_size=(32,32)"]
     log = tmp_path / "log"
-    epilogue = f"SS2D epilogue: {'fused' if fused == '1' else 'unfused'}"
-    proc = _run(["sigma_tpu_torch.train", *common, "--steps", "2",
-                 "--batch-size", "2", "--log-dir", str(log),
-                 "--override", "image_height=32",
-                 "--override", "image_width=32",
-                 "--override", "num_workers=1"], SIGMA_FUSED_EPILOGUE=fused)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "training finished (2 steps)" in proc.stderr
-    assert "mIoU" in proc.stderr  # the train-time eval ran
-    assert epilogue in proc.stderr
-    ckpt = log / "checkpoint" / "model.pt"
-    assert ckpt.exists()
-    proc = _run(["sigma_tpu_torch.eval", *common, "-e", str(ckpt)],
-                SIGMA_FUSED_EPILOGUE=fused)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "mean IoU" in proc.stdout
-    assert epilogue in proc.stderr
+    epilogue = f"SS2D epilogue: {'fused' if fused else 'unfused'} " \
+        "(SIGMA_FUSED_EPILOGUE)"
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = get_logger()  # configured before the handler joins it
+    logger.addHandler(handler)
+    try:
+        assert train_cli.main([*common, "--steps", "2", "--batch-size", "2",
+                               "--log-dir", str(log),
+                               "--override", "image_height=32",
+                               "--override", "image_width=32",
+                               "--override", "num_workers=1"]) == 0
+        train_log, lines[:] = list(lines), []
+        assert eval_cli.main([*common, "--log-dir", str(log),
+                              "-e", "last"]) == 0
+    finally:
+        logger.removeHandler(handler)
+    assert "training finished (2 steps)" in train_log
+    assert any(" mIoU " in line for line in train_log)  # train-time eval
+    assert epilogue in train_log and epilogue in lines
+    assert (log / "checkpoint" / "epoch-1" / "model.pt").exists()
+    assert "mean IoU" in capsys.readouterr().out
+    assert any(line.startswith("epoch-1: mIoU ") for line in lines)
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["-c"], "item A3"), (["--profile", "x"], "item A1"),
-    (["--distributed"], "item A5"), (["--pretrained", "x.pth"], "item A3")])
+    (["--profile", "x"], "item A1"), (["--distributed"], "item A5")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
     from sigma_tpu_torch.train import main
 

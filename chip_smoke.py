@@ -128,16 +128,20 @@ its findings:
                 bf16 on the card against bf16 on the CPU, the gap at most
                 twice the CPU's own bf16-vs-fp32 gap, both ways.
   9. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
-                = None`): a seeded MFNet tree (8 480x640 pairs) and an
-                NYU-geometry tree (4 pairs, PNG, 40 classes) written by
-                `data/png.py`, every file decoded back to its array (host
+                = None`): first the JPEG decoder (`jpeg_part`: every
+                committed fixture, colour and gray, against the digests of
+                cv2.imread's arrays; host ms of a 480x640 decode, 8
+                threads against one); a seeded MFNet tree (8 480x640
+                pairs) and an NYU-geometry tree (4 pairs, 40 classes; RGB
+                the 480x640 JPEG fixtures, the rest PNG) written by
+                `data/png.py`, every PNG decoded back to its array (host
                 ms per image), cv2's own 480x640 PNG (adaptive filters,
                 `tests/fixtures`) decoded to cv2's array; `resize_u8` on
                 the card equal to the CPU bit for bit at every train scale
                 (training form) and 0.75 / 1.25 (eval form), bilinear and
                 nearest (device ms); `sigma_tpu_torch.eval.main` on both
-                trees at sigma_tiny (NYU: scales 0.75, 1, 1.25, flip,
-                `--override rgb_format=.png`), `-p` PNGs read back, img/s
+                trees at sigma_tiny (NYU: scales 0.75, 1, 1.25, flip, its
+                RGB read from JPEG), `-p` PNGs read back, img/s
                 and mIoU, K1 / K2 launched and no backward kernel;
                 `image_batch` 2 against 1 (the same predictions); the NYU
                 protocol at sigma_test, card against CPU (argmax
@@ -154,7 +158,19 @@ its findings:
                 `--pretrained` with a released-scheme sigma_tiny VMamba
                 trunk (every mapped tensor in the model, a finite loss);
                 the saves' blocking and background seconds, MiB, the
-                restore's seconds and each run's s/step.
+                restore's seconds and each run's s/step. Last, data
+                parallel (`ddp_part`, sigma_tiny 480x640 fp32, global
+                batch 2): the train CLI under torchrun with
+                `--distributed` (1 process, NCCL: 2 steps, one evaluation,
+                one checkpoint, K1-K5 launched); two gloo ranks this
+                script starts on cuda:0 through `build_train` (K1-K5
+                launched in each; losses, the last step's all-reduced
+                gradient and the weights after 2 steps at lr 1e-3 with
+                no warmup against this process's one-process run at the
+                fp32 tier, drop path on; a 4-image evaluation split 2 / 2
+                giving the
+                one-process confusion matrix exactly); s/step of each and
+                the gradient bytes all-reduced a step.
  10. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
@@ -173,6 +189,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2408,9 +2425,11 @@ def _write_tree(cfg, n, seed, labels):
     """A seeded dataset tree of `n` pairs at cfg's folders and image size,
     written by the port's PNG writer: RGB, a 1-channel modal-x, labels in
     [0, labels) (the first rows ignored: 255, or 0 where cfg shifts the
-    labels by one), every name in the train and eval lists. Returns
-    {path: the array written}."""
-    import os
+    labels by one), every name in the train and eval lists. Where cfg's
+    RGB images are JPEG (NYU, SUN-RGBD) they are copies of the 480x640
+    JPEG fixtures (`JPEG_SCENES`, in turn). Returns {path: the array
+    written} of the PNGs."""
+    import shutil
 
     import numpy as np
 
@@ -2423,7 +2442,7 @@ def _write_tree(cfg, n, seed, labels):
     written = {}
     for root in (s["rgb_root"], s["x_root"], s["gt_root"]):
         os.makedirs(root, exist_ok=True)
-    for name in names:
+    for i, name in enumerate(names):
         label = rng.integers(0, labels, (h, w)).astype(np.uint8)
         label[:4] = 0 if cfg.gt_transform else 255
         for root, fmt, img in (
@@ -2433,6 +2452,9 @@ def _write_tree(cfg, n, seed, labels):
                  rng.integers(0, 256, (h, w), dtype=np.uint8)),
                 (s["gt_root"], s["gt_format"], label)):
             path = os.path.join(root, name + fmt)
+            if fmt in (".jpg", ".jpeg"):
+                shutil.copyfile(JPEG_FIXTURES / JPEG_SCENES[i % 2], path)
+                continue
             write_png(path, img)
             written[path] = img
     for source in (s["train_source"], s["eval_source"]):
@@ -2562,6 +2584,384 @@ def _released_vmamba(depths, dims, seed, d_state=16, ssm_ratio=2):
 _RELEASED_TO_PORT = ((".self_attention.", ".op."), (".ln_1.", ".norm."),
                      ("patch_embed.proj.", "patch_embed.0."),
                      ("patch_embed.norm.", "patch_embed.2."))
+
+
+# the port's JPEG fixtures, written by cv2.imwrite, and the sha256 of what
+# `cv2.imread` gives for each, colour (RGB order) and gray, recorded on a
+# host with cv2 (`tests/fixtures/jpeg/make_fixtures.py`; held there by
+# `tests/test_torch_port_jpeg.py`)
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+JPEG_SCENES = ("scene_420_q95_480x640_a.jpg", "scene_420_q95_480x640_b.jpg")
+
+
+def jpeg_part():
+    """The port's JPEG decoder (`data/jpeg.py`, host C++ built with g++ at
+    first use) on every committed fixture, colour and gray, against the
+    digests of cv2.imread's arrays; the build's seconds, the host ms of a
+    480x640 4:2:0 decode, and 16 decodes on 8 threads against one thread
+    (ctypes releases the GIL). Returns {metric: value}; raises on a digest
+    that differs."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sigma_tpu_torch.data import jpeg
+
+    out = {}
+    t0 = time.perf_counter()
+    jpeg._library()
+    out["jpeg_build_s"] = time.perf_counter() - t0
+    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    bad = []
+    for name, want in sorted(digests.items()):
+        for gray in (False, True):
+            got = jpeg.read_jpeg(JPEG_FIXTURES / name, gray=gray)
+            sha = hashlib.sha256(got.tobytes()).hexdigest()
+            if sha != want["gray" if gray else "color"] or \
+                    list(got.shape[:2]) != want["shape"][:2]:
+                bad.append((name, "gray" if gray else "color"))
+    big = JPEG_FIXTURES / JPEG_SCENES[0]
+    for gray in (False, True):
+        jpeg.read_jpeg(big, gray=gray)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            jpeg.read_jpeg(big, gray=gray)
+        out[f"jpeg_ms_{'gray' if gray else 'rgb'}"] = \
+            (time.perf_counter() - t0) / 20 * 1e3
+    paths = [JPEG_FIXTURES / JPEG_SCENES[i % 2] for i in range(16)]
+    t0 = time.perf_counter()
+    for p in paths:
+        jpeg.read_jpeg(p)
+    one = time.perf_counter() - t0
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.read_jpeg, paths))
+        eight = time.perf_counter() - t0
+    out["jpeg_threads_speedup"] = one / eight
+    print(f"files: jpeg: decoder built in {out['jpeg_build_s']:.2f}s; "
+          f"{2 * len(digests)} decodes of {len(digests)} fixtures (colour "
+          f"and gray) against cv2.imread's digests: "
+          f"{'all equal' if not bad else f'DIFFER {bad}'}; {big.name} "
+          f"{out['jpeg_ms_rgb']:.2f} host ms RGB, {out['jpeg_ms_gray']:.2f}"
+          f" gray; 16 decodes {one * 1e3:.1f} ms on one thread, "
+          f"{eight * 1e3:.1f} ms on 8 ({out['jpeg_threads_speedup']:.2f}x)",
+          flush=True)
+    if bad:
+        raise AssertionError(f"JPEG decodes differ from cv2's: {bad}")
+    return out
+
+
+# the data-parallel part: a 4-image evaluation and 2 train steps at
+# sigma_tiny 480x640, global batch 2 (one sample a rank)
+DDP_EVAL_IMAGES = 4
+DDP_STEPS = 2
+
+
+def _ddp_cfg(dataset_path):
+    """MFNet at global batch 2, with lr 1e-3 from the first step (no
+    warmup): MFNet's own schedule starts at lr 0 and then 1e-8, under
+    which the weights of 2 steps barely move."""
+    from sigma_tpu_torch.configs import get_config
+
+    cfg = get_config("mfnet", dataset_path=dataset_path)
+    for field, value in (("batch_size", 2), ("lr", 1e-3),
+                         ("warm_up_epoch", 0)):
+        object.__setattr__(cfg, field, value)
+    return cfg
+
+
+def _ddp_run(cfg, device):
+    """What each rank of the data-parallel part runs, and the script's
+    one-process run (no process group): the seeded model evaluated on the
+    first DDP_EVAL_IMAGES val images (this rank's share; the confusion
+    matrix recorded after the all-reduce), then DDP_STEPS train steps on
+    this rank's shard of seeded global batches. Returns the record and the
+    model, its parameters' `.grad` the last step's (all-reduced in a
+    rank)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.data import RGBXDataset, ValPre
+    from sigma_tpu_torch.engine import evaluator as ev_mod
+    from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.parallel import dist
+    from sigma_tpu_torch.trace_step import synthetic_batch
+
+    state, step, _ = build_train(cfg, device)
+    model = state.model.eval()
+    val = RGBXDataset(cfg.data_setting(), "val", ValPre())
+
+    class First:
+        def __len__(self):
+            return DDP_EVAL_IMAGES
+
+        def __getitem__(self, i):
+            return val[i]
+
+    seen, orig = {}, ev_mod.compute_score
+
+    def recording(hist, correct, labeled):
+        seen["hist"] = hist.tolist()
+        return orig(hist, correct, labeled)
+
+    ev_mod.compute_score = recording
+    try:
+        miou, _ = ev_mod.SlidingEvaluator(
+            model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
+            multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
+            eval_crop_size=cfg.eval_crop_size,
+            stride_rate=cfg.eval_stride_rate, device=device).run(First())
+    finally:
+        ev_mod.compute_score = orig
+    shard, shards = dist.rank(), dist.world()
+    n = cfg.batch_size // shards
+    rec = dict(rank=shard, world=shards, miou=miou, hist=seen["hist"],
+               losses=[], seconds=[])
+    _reset_launches()
+    for k in range(DDP_STEPS):
+        batch = synthetic_batch(np.random.default_rng(SEED + 70 + k),
+                                cfg.batch_size, cfg.image_height,
+                                cfg.image_width)
+        batch = {key: v[shard * n:(shard + 1) * n] for key, v in
+                 batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["losses"].append(float(step(state, batch)))
+        torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+    rec["launches"] = _launches()
+    rec["no_grad"] = [k for k, p in model.named_parameters()
+                      if p.grad is None]
+    return rec, model
+
+
+def _ddp_worker(argv):
+    """A rank of the data-parallel part, run by this script in a process
+    of its own (`--ddp-worker MODE OUT ...`): MODE `cli` runs the train
+    CLI's main under torchrun with its steps timed and its launches
+    counted; MODE `step` joins a gloo group of two ranks on cuda:0
+    (RANK, WORLD_SIZE, MASTER_PORT from the script) and runs `_ddp_run`.
+    Writes OUT (JSON; `step`: rank 0 also OUT.pt, its weights and the
+    last step's gradients)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    sys.modules["cv2"] = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mode, out = argv[0], argv[1]
+    if mode == "cli":
+        from sigma_tpu_torch.engine import train as train_engine
+        from sigma_tpu_torch.train import main as train_main
+
+        rec = dict(losses=[], seconds=[])
+        orig = train_engine.build_train
+
+        def build_train(cfg, device="cuda"):
+            state, step, schedule = orig(cfg, device)
+            rec.update(backend=torch.distributed.get_backend(),
+                       world=torch.distributed.get_world_size(),
+                       device=str(device))
+
+            def timed_step(st, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(st, batch)
+                rec["losses"].append(float(loss))
+                torch.cuda.synchronize()
+                rec["seconds"].append(time.perf_counter() - t0)
+                return loss
+
+            return state, timed_step, schedule
+
+        train_engine.build_train = build_train
+        _reset_launches()
+        rec["rc"] = train_main(argv[2:])
+        rec["launches"] = _launches()
+    else:
+        import torch.distributed as tdist
+
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        tdist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+            rank=rank, world_size=world)
+        try:
+            rec, model = _ddp_run(_ddp_cfg(argv[2]), torch.device("cuda", 0))
+            rec["backend"] = tdist.get_backend()
+            if rank == 0:
+                torch.save({"weights": {k: v.cpu() for k, v in
+                                        model.state_dict().items()},
+                            "grads": {k: p.grad.cpu() for k, p in
+                                      model.named_parameters()
+                                      if p.grad is not None}},
+                           out + ".pt")
+        finally:
+            tdist.destroy_process_group()
+        out = f"{out}.rank{rank}"
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _spawn(cmds, tmp, tag, timeout=600):
+    """Run the commands [(argv, env)] together; wait for all (each killed
+    at `timeout`); raise with the end of their output if one fails."""
+    procs = []
+    try:
+        for i, (argv, env) in enumerate(cmds):
+            log = open(os.path.join(tmp, f"{tag}_{i}.log"), "w+")
+            procs.append((subprocess.Popen(argv, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           cwd=str(ROOT)), log))
+        deadline = time.monotonic() + timeout
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = []
+    for proc, log in procs:
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(f"exit {proc.returncode}:\n{text[-4000:]}")
+    if failed:
+        raise AssertionError(f"ddp {tag}: " + "\n".join(failed))
+
+
+def ddp_part(device, cfg, tmp):
+    """Data-parallel training at full width on the card (sigma_tiny
+    480x640, MFNet preset, fp32, global batch 2). (a) The train CLI under
+    `python -m torch.distributed.run --nproc_per_node=1 ... --distributed`
+    on the MFNet PNG tree: NCCL, 2 steps, one evaluation and one
+    checkpoint; K1-K5 launched. (b) Two ranks that this script starts,
+    both on cuda:0 over gloo (the machine has one card), through
+    `build_train` and so `make_train_step`: each launches K1-K5; at lr
+    1e-3 with no warmup, their losses, the last step's all-reduced
+    gradient (relative to the one-process gradient's norm and largest
+    entry: the check that holds DDP's all-reduce) and the weights after 2
+    steps against this process's one-process run on the whole global
+    batches at the fp32 tier (a card's step does not rerun bit for bit),
+    drop path at sigma_tiny's rate; the
+    4-image evaluation split 2 / 2, its all-reduced confusion matrix equal
+    to the one-process one. s/step of each and the gradient bytes DDP
+    all-reduces a step. Returns {metric: value}; raises on a failed check.
+    Gloo between two processes on one card is not NCCL between cards: (b)
+    checks the arithmetic, not the speed of data parallelism."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    out = {}
+    t_part = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4")
+
+    # (a) the CLI under torchrun, NCCL
+    log = os.path.join(tmp, "ddp_cli")
+    rec_a = os.path.join(tmp, "ddp_cli.json")
+    _spawn([([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node=1", str(ROOT / "chip_smoke.py"),
+              "--ddp-worker", "cli", rec_a, "-n", "mfnet", "--dataset-path",
+              cfg.dataset_path, "--steps", "2", "--batch-size", "2",
+              "--log-dir", log, "--override", "num_train_imgs=3",
+              "--distributed"], env)], tmp, "cli")
+    with open(rec_a) as f:
+        a = json.load(f)
+    ck_dir = os.path.join(log, "checkpoint")
+    on_disk = sorted(os.listdir(ck_dir))
+    with open(os.path.join(ck_dir, "val_scores.json")) as f:
+        scores = json.load(f)
+    missing = [k for k in FORWARD + SCAN_BACKWARD if a["launches"][k] == 0]
+    out["ddp_cli_s_step"] = a["seconds"][-1]
+    print(f"files: ddp (a) train CLI under torchrun, 1 process, backend "
+          f"{a['backend']} on {a['device']}: rc {a['rc']}, losses "
+          f"{a['losses']}, seconds {[round(t, 4) for t in a['seconds']]}, "
+          f"checkpoint dir {on_disk}, val_scores {scores}, launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
+    if a["rc"] != 0 or a["backend"] != "nccl" or len(a["losses"]) != 2 or \
+            not np.all(np.isfinite(a["losses"])) or missing or \
+            on_disk != ["epoch-1", "epoch-last", "val_scores.json"] or \
+            len(scores) != 1 or not np.isfinite(scores[0][0]):
+        raise AssertionError(f"ddp (a): the CLI run failed a check "
+                             f"(kernels not launched {missing})")
+
+    # (b) two gloo ranks on cuda:0 against this process
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rec_b = os.path.join(tmp, "ddp_step")
+    _spawn([([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+              "step", rec_b, cfg.dataset_path],
+             dict(env, RANK=str(r), WORLD_SIZE="2", MASTER_PORT=str(port)))
+            for r in range(2)], tmp, "step")
+    ranks = []
+    for r in range(2):
+        with open(f"{rec_b}.rank{r}") as f:
+            ranks.append(json.load(f))
+    one, model = _ddp_run(_ddp_cfg(cfg.dataset_path), device)
+    want = {k: v.detach() for k, v in model.state_dict().items()}
+    saved = torch.load(rec_b + ".pt", weights_only=True)
+    got = saved["weights"]
+    errs = [_scaled_err(got[k].to(device), v) for k, v in want.items()]
+    w_err, w_ok = max(e for e, _ in errs), all(ok for _, ok in errs)
+    # the all-reduced gradient of the last step against one process's,
+    # relative to the whole gradient's norm and to its largest entry
+    want_g = {k: p.grad for k, p in model.named_parameters()
+              if p.grad is not None}
+    got_g = saved["grads"]
+    g_sq = d_sq = 0.0
+    g_max = d_max = 0.0
+    for k, g in want_g.items():
+        d = got_g[k].to(device).double() - g.double()
+        g_sq += float(g.double().pow(2).sum())
+        d_sq += float(d.pow(2).sum())
+        g_max = max(g_max, float(g.abs().max()))
+        d_max = max(d_max, float(d.abs().max()))
+    g_rel, g_rel_max = (d_sq / g_sq) ** 0.5, d_max / g_max
+    g_ok = set(got_g) == set(want_g) and max(g_rel, g_rel_max) <= \
+        FP32_TOL[0]
+    l_err, l_ok = _scaled_err(torch.tensor(ranks[0]["losses"]),
+                              torch.tensor(one["losses"]))
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters() if p.requires_grad)
+    del model, want, got, saved, want_g, got_g
+    torch.cuda.empty_cache()
+    missing = {r["rank"]: [k for k in FORWARD + SCAN_BACKWARD
+                           if r["launches"][k] == 0] for r in ranks}
+    hist_ok = all(r["hist"] == one["hist"] for r in ranks)
+    for r in ranks:
+        print(f"files: ddp (b) rank {r['rank']} of {r['world']} ({r['backend']}"
+              f", cuda:0): losses {r['losses']}, seconds "
+              f"{[round(t, 4) for t in r['seconds']]}, mIoU {r['miou']:.4f}"
+              f", parameters without a gradient {r['no_grad']}, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }",
+              flush=True)
+    print(f"files: ddp (b) one process, global batch 2: losses "
+          f"{one['losses']}, seconds {[round(t, 4) for t in one['seconds']]}"
+          f", mIoU {one['miou']:.4f}; rank losses max abs err {l_err:.3e}, "
+          f"step {DDP_STEPS}'s all-reduced gradient relative err "
+          f"{g_rel:.3e} (norm) / {g_rel_max:.3e} (largest entry) "
+          f"{'ok' if g_ok else 'FAIL'} (<= {FP32_TOL[0]}), weights after "
+          f"{DDP_STEPS} steps (lr 1e-3) max abs err {w_err:.3e} (fp32 "
+          f"tier {'ok' if w_ok and l_ok else 'FAIL'}); the {DDP_EVAL_IMAGES}"
+          f"-image evaluation split 2 / 2: confusion matrix "
+          f"{'equal' if hist_ok else 'DIFFERS'}; gradient all-reduced a "
+          f"step {grad_bytes} bytes ({grad_bytes / 2**20:.2f} MiB, fp32)",
+          flush=True)
+    if not (w_ok and l_ok and g_ok and hist_ok) or any(missing.values()) or \
+            any(r["no_grad"] for r in ranks) or ranks[0]["losses"] != \
+            ranks[1]["losses"]:
+        raise AssertionError(f"ddp (b): two ranks differ from one process "
+                             f"or missed a kernel ({missing})")
+    out.update(ddp_gloo_s_step=max(r["seconds"][-1] for r in ranks),
+               ddp_one_s_step=one["seconds"][-1], ddp_grad_bytes=grad_bytes,
+               ddp_grad_rel_err=g_rel)
+    print(f"files: ddp part {time.perf_counter() - t_part:.1f}s", flush=True)
+    return out
 
 
 def _ckpt_train(argv, tag, check_first=None):
@@ -2897,11 +3297,11 @@ def files_phase(device):
     out = {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp:
+        out.update(jpeg_part())
+        jpgs = {".jpg": " (RGB: the JPEG fixtures' 480x640 scenes)"}
         cfgs = {}
         for name, n, labels in (("mfnet", 8, 9), ("nyu", 4, 41)):
             cfg = get_config(name, dataset_path=os.path.join(tmp, name))
-            if name == "nyu":
-                object.__setattr__(cfg, "rgb_format", ".png")
             t0 = time.perf_counter()
             written = _write_tree(cfg, n, SEED + 40, labels)
             write_s = time.perf_counter() - t0
@@ -2914,7 +3314,8 @@ def files_phase(device):
                 if got.dtype != np.uint8 or not np.array_equal(got, want):
                     raise AssertionError(f"{path}: decoded != written")
             print(f"files: {name} tree {len(written)} PNGs written in "
-                  f"{write_s:.2f}s, each decoded equal to its array; host "
+                  f"{write_s:.2f}s{jpgs.get(cfg.rgb_format, '')}, each PNG "
+                  f"decoded equal to its array; host "
                   f"ms per image (filter 0 rows) "
                   + ", ".join(f"{k} {np.mean(v):.2f}" for k, v in ms.items()),
                   flush=True)
@@ -2989,8 +3390,6 @@ def files_phase(device):
             pred_dir = os.path.join(tmp, f"pred_{name}")
             argv = ["-n", name, "--dataset-path", cfg.dataset_path,
                     "-e", ckpts[name], "-p", pred_dir, "--device", "cuda"]
-            if name == "nyu":
-                argv += ["--override", "rgb_format=.png"]
             (out[f"eval_img_s_{name}"], _), = _eval_cli(argv, name)
             with open(cfg.data_setting()["eval_source"]) as f:
                 names = f.read().split()
@@ -3109,6 +3508,7 @@ def files_phase(device):
         del rec
         torch.cuda.empty_cache()
         out.update(ckpt_part(device, cfgs["mfnet"], tmp))
+        out.update(ddp_part(device, cfgs["mfnet"], tmp))
     torch.cuda.empty_cache()
     print(f"files: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     return out
@@ -3233,6 +3633,19 @@ def main() -> int:
           f"{files['nyu_img_s_batch1']:.4f} / "
           f"{files['nyu_img_s_batch2']:.4f}); train CLI from files "
           f"{files['train_s_step']:.4f} s/step at batch 2")
+    print(f"summary: JPEG (files phase, no cv2): the fixtures equal "
+          f"cv2.imread's digests; a 480x640 4:2:0 q95 decode "
+          f"{files['jpeg_ms_rgb']:.2f} host ms RGB, "
+          f"{files['jpeg_ms_gray']:.2f} gray; 8 threads "
+          f"{files['jpeg_threads_speedup']:.2f}x one; the NYU-protocol "
+          f"eval CLI read its RGB from JPEG")
+    print(f"summary: data parallel (files phase, sigma_tiny 480x640 fp32, "
+          f"global batch 2): train CLI under torchrun (1 process, NCCL) "
+          f"{files['ddp_cli_s_step']:.4f} s/step; 2 gloo ranks on one card "
+          f"{files['ddp_gloo_s_step']:.4f} s/step against one process "
+          f"{files['ddp_one_s_step']:.4f}, all-reduced gradient within "
+          f"{files['ddp_grad_rel_err']:.3e} of its norm; "
+          f"{files['ddp_grad_bytes']} gradient bytes all-reduced a step")
     print(f"summary: checkpoints (files phase, sigma_tiny fp32 batch 2): "
           f"save blocking {files['ckpt_save_async_s']:.4f}s async / "
           f"{files['ckpt_save_sync_s']:.4f}s sync, background write "
@@ -3250,4 +3663,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(_ddp_worker(sys.argv[2:]))
     sys.exit(main())

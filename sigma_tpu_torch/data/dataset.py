@@ -3,9 +3,8 @@
 
 Mirrors the reference's `dataloader/RGBXDataset.py`:
   * file-name lists from train/eval source txt files
-  * PNG files read by `png.py` (cv2's arrays, no cv2); JPEG files (the
-    NYU and SUN-RGBD RGB folders) through cv2, where it is installed:
-    decoding JPEG without cv2 is ROADMAP C8's open part
+  * PNG files read by `png.py` and JPEG files (the NYU and SUN-RGBD RGB
+    folders) by `jpeg.py`: cv2's arrays, no cv2
   * RGB loaded as RGB; GT grayscale uint8 (optional `gt - 1` shift,
     RGBXDataset.py:104-106); modal-X grayscale replicated to 3 channels when
     `x_single_channel` (RGBXDataset.py:50-54)
@@ -19,6 +18,7 @@ import os
 
 import numpy as np
 
+from sigma_tpu_torch.data.jpeg import read_jpeg
 from sigma_tpu_torch.data.png import read_png
 
 
@@ -31,17 +31,7 @@ def _read(path, gray):
         raise FileNotFoundError(path)
     if ext == ".png":
         return read_png(path, gray=gray)
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            f"{path}: JPEG is decoded with cv2, which is not installed; "
-            "a JPEG decoder of the port's own is still open (ROADMAP "
-            "C8)") from e
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError(f"{path}: cv2 could not decode it")
-    return img if gray else np.ascontiguousarray(img[..., ::-1])
+    return read_jpeg(path, gray=gray)
 
 
 class RGBXDataset:

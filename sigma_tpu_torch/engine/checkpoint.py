@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from sigma_tpu_torch.engine.logger import get_logger
+from sigma_tpu_torch.parallel.dist import barrier, is_main
 
 MODEL_FILE = "model.pt"
 OPTIMIZER_FILE = "optimizer.pt"
@@ -121,12 +122,24 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int,
 
     `async_save=True` returns once the tensors are copied to host memory;
     a background thread writes the files, and the pointer follows at the
-    next save or `finalize_checkpoints()` (also run at interpreter exit)."""
+    next save or `finalize_checkpoints()` (also run at interpreter exit).
+
+    Data parallel, every rank calls it, as JAX's orbax save is
+    collective: rank 0 writes (its replica is every rank's), and the
+    others wait at a barrier until its write, or with `async_save` its
+    snapshot, is done."""
+    path = _ckpt_path(ckpt_dir, epoch)
+    if is_main():
+        _save(ckpt_dir, path, state, epoch, async_save)
+    barrier()
+    return path
+
+
+def _save(ckpt_dir: str, path: str, state, epoch: int, async_save: bool):
     logger = get_logger()
     t0 = time.time()
     finalize_checkpoints()  # at most one in-flight async save
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = _ckpt_path(ckpt_dir, epoch)
     snapshot = dict(model=_to_host(state.model.state_dict()),
                     optimizer=_to_host(state.optimizer.state_dict()),
                     step=int(state.step), epoch=int(epoch))
@@ -144,11 +157,10 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int,
         thread.start()
         logger.info("dispatched async checkpoint %s (%.2fs blocking)",
                     path, time.time() - t0)
-        return path
+        return
     _write(path, snapshot)
     _write_pointer(ckpt_dir, epoch)
     logger.info("saved checkpoint %s (%.2fs)", path, time.time() - t0)
-    return path
 
 
 def _pointer_epoch(ckpt_dir: str) -> Optional[int]:

@@ -23,8 +23,14 @@ back run there, and only the argmax map returns. No cv2 is needed.
 evaluator's `run` does: each group goes through the window passes
 together (its windows share the model's batch), a short tail group is
 padded by repeating its last image and the padded predictions are
-dropped. The JAX evaluator's mesh and multi-process confusion all-reduce
-are not ported (ROADMAP A5).
+dropped.
+
+Data parallel (torch.distributed initialised): rank r evaluates images
+r, r + world, ... and the int64 confusion matrix and the labeled and
+correct counts are all-reduced, as the JAX evaluator's are across its
+processes, so every rank returns the scores of the whole set. The model
+is the bare module, not a DDP wrapper: a wrapper's forward is a
+collective, which ranks with unequal image counts would not all enter.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from sigma_tpu_torch.data.resize import resize_u8
 from sigma_tpu_torch.engine.logger import get_logger
 from sigma_tpu_torch.models.builder import require_device
 from sigma_tpu_torch.models.common import resize_linear
+from sigma_tpu_torch.parallel.dist import all_reduce_sum, rank, world
 from sigma_tpu_torch.utils.metrics import compute_score, hist_info
 
 
@@ -203,7 +210,8 @@ class SlidingEvaluator:
 
     def run(self, dataset, save_fn: Optional[Callable] = None,
             log_every: int = 50):
-        """Evaluate all items; returns (mean_iou*100, detail dict)."""
+        """Evaluate all items (this rank's share of them); returns
+        (mean_iou*100, detail dict) of the whole set."""
         logger = get_logger()
         hist = np.zeros((self.class_num, self.class_num), np.int64)
         correct = labeled = done = 0
@@ -233,7 +241,7 @@ class SlidingEvaluator:
         def shape(item):
             return item["data"].shape, item["modal_x"].shape
 
-        for i in range(len(dataset)):
+        for i in range(rank(), len(dataset), world()):
             item = dataset[i]
             if group and shape(item) != shape(group[0]):
                 flush()
@@ -242,6 +250,12 @@ class SlidingEvaluator:
                 flush()
         if group:
             flush()
+        stats = torch.as_tensor(
+            np.concatenate([hist.reshape(-1), [labeled, correct]]),
+            dtype=torch.int64, device=self.device)
+        stats = all_reduce_sum(stats).cpu().numpy()
+        hist = stats[:-2].reshape(hist.shape)
+        labeled, correct = int(stats[-2]), int(stats[-1])
         iou, mean_iou, miou_nb, fwiou, macc, pacc = compute_score(
             hist, correct, labeled)
         return mean_iou * 100.0, dict(

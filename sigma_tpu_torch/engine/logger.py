@@ -1,12 +1,16 @@
 """Jax-free logger: the counterpart of `sigma_tpu/engine/logger.py`
 (importing that module runs `sigma_tpu/engine/__init__.py`, which imports
-jax). Same format and the same ENGINE_LOGGING_LEVEL env var."""
+jax). Same format and the same ENGINE_LOGGING_LEVEL env var. In
+data-parallel training rank 0 logs; the other ranks log only warnings
+and errors."""
 
 from __future__ import annotations
 
 import logging
 import os
 import sys
+
+from sigma_tpu_torch.parallel.dist import is_main
 
 _COLORS = {"WARNING": 33, "INFO": 36, "DEBUG": 37, "CRITICAL": 35, "ERROR": 31}
 
@@ -32,6 +36,8 @@ def get_logger() -> logging.Logger:
         handler.setFormatter(
             _ColorFormatter("%(asctime)s %(levelname)s %(message)s", "%H:%M:%S")
         )
+        handler.addFilter(
+            lambda record: record.levelno >= logging.WARNING or is_main())
         logger.addHandler(handler)
         logger.propagate = False
     return logger

@@ -1,5 +1,4 @@
-"""Train state and train step on one device (counterpart of
-`sigma_tpu/engine/train.py`).
+"""Train state and train step (counterpart of `sigma_tpu/engine/train.py`).
 
 One call of the step computes the loss (CE, ignore 255, in fp32),
 backpropagates through the model (the scans' backward runs in the Hopper
@@ -7,8 +6,14 @@ kernels on the card), and applies the optimizer with the lr of its
 schedule at this step. A model built with `cfg.bf16` computes in bf16
 (models/common.py): its parameters, their gradients and the optimizer's
 state stay fp32, the batch is normalised in fp32 and the first layer
-casts it, as in the JAX package. Data-parallel training across cards is
-not ported (ROADMAP queue A item A5).
+casts it, as in the JAX package.
+
+Data parallel (the counterpart of JAX's step over its data mesh): in a
+rank of `--distributed` training (parallel/dist.py), each rank steps on
+its shard of the global batch through DistributedDataParallel; the loss
+is the global batch's mean and the drop-path masks are those of one
+process over the global batch (models/builder.py, models/common.py), so
+the update is the one-process step's on the whole global batch.
 """
 
 from __future__ import annotations
@@ -18,10 +23,17 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from sigma_tpu_torch.engine.optim import build_optimizer
 from sigma_tpu_torch.models.builder import build_model, segmentation_loss
 from sigma_tpu_torch.models.common import set_drop_path_seeds
+from sigma_tpu_torch.parallel.dist import (
+    all_reduce_sum,
+    data_parallel,
+    rank,
+    world,
+)
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -72,8 +84,7 @@ def prepare_batch(batch, device, mean, std):
 
 def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
                     schedule: Callable[[int], float], norm_mean=None,
-                    norm_std=None, dropout_seed: int = 0,
-                    mesh=None) -> Callable:
+                    norm_std=None, dropout_seed: int = 0) -> Callable:
     """Returns train_step(state, batch) -> loss (a 0-d device tensor).
 
     batch: {"data": (B,H,W,3), "modal_x": (B,H,W,3), "label": (B,H,W)}
@@ -82,28 +93,40 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     convention). DropPath draws from generators seeded by
     (dropout_seed, k), the counterpart of fold_in(rng, step); the CLI
     passes cfg.seed + 1 as the JAX trainer does.
+
+    Made in a rank of data-parallel training (`dist.data_parallel()`),
+    the step is that rank's: its batch is its shard of the global batch,
+    in rank order, and the loss returned is the global batch's. `model`
+    stays the bare module (its state_dict keys carry no DDP prefix); the
+    DDP wrapper lives in the step.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over several cards is not ported "
-            "(ROADMAP.md queue A item A5)")
     mean = norm_mean if norm_mean is not None else IMAGENET_MEAN
     std = norm_std if norm_std is not None else IMAGENET_STD
     device = next(model.parameters()).device
+    parallel = data_parallel()
+    shard, shards = rank(), world()
+    net = model
+    if parallel:
+        net = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None)
 
     def train_step(state: TrainState, batch):
         lr = float(schedule(state.step))
         for group in opt.param_groups:
             group["lr"] = lr
-        set_drop_path_seeds(model, dropout_seed, state.step)
         rgb, mx, labels = prepare_batch(batch, device, mean, std)
-        model.train()
+        b = rgb.shape[0]
+        set_drop_path_seeds(model, dropout_seed, state.step,
+                            rows=(shard * b, b, shards * b))
+        net.train()
         opt.zero_grad(set_to_none=True)
-        loss = segmentation_loss(model(rgb, mx), labels)
-        loss.backward()
+        share = segmentation_loss(net(rgb, mx), labels, sharded=parallel)
+        # DDP averages the ranks' gradients: scaled by the world size,
+        # their average is the gradient of the global mean (the shares' sum)
+        (share * shards).backward()
         opt.step()
         state.step += 1
-        return loss.detach()
+        return all_reduce_sum(share.detach().clone())
 
     return train_step
 
@@ -111,8 +134,10 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
 def build_train(cfg, device="cuda"):
     """The train step of a config as the train CLI runs it: the model
     seeded from cfg.seed on `device` (the card unless the caller asks for
-    the CPU), in bf16 compute when cfg.bf16 is set, cfg's optimizer, warmup-poly lr over cfg's epochs, drop path
-    seeded from cfg.seed + 1. Returns (state, train_step, schedule)."""
+    the CPU), in bf16 compute when cfg.bf16 is set, cfg's optimizer,
+    warmup-poly lr over cfg's epochs, drop path seeded from cfg.seed + 1,
+    data parallel in a rank of `--distributed` training. Returns
+    (state, train_step, schedule)."""
     model = build_model(cfg, device=device, seed=cfg.seed)
     schedule = warmup_poly_lr(cfg.lr, cfg.lr_power,
                               cfg.nepochs * cfg.niters_per_epoch,

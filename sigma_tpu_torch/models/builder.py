@@ -17,6 +17,7 @@ from torch import nn
 from sigma_tpu_torch.models.common import resize_bilinear, uniform_
 from sigma_tpu_torch.models.decoders.mamba_decoder import MambaDecoder
 from sigma_tpu_torch.models.sigma_encoder import SIGMA_VARIANTS, SigmaEncoder
+from sigma_tpu_torch.parallel.dist import all_reduce_sum
 
 
 class EncoderDecoder(nn.Module):
@@ -104,10 +105,17 @@ def build_model(cfg, device="cuda", seed: int = 0) -> EncoderDecoder:
     return init_parameters(model, seed).to(device).eval()
 
 
-def segmentation_loss(logits, labels, ignore_index: int = 255):
+def segmentation_loss(logits, labels, ignore_index: int = 255,
+                      sharded: bool = False):
     """Mean CE over valid pixels (torch CrossEntropyLoss(ignore_index=255)),
-    in fp32 whatever the logits' dtype. A batch with no valid pixel gives 0, not NaN (the count is
-    clamped to 1), as in the JAX package.
+    in fp32 whatever the logits' dtype. A batch with no valid pixel gives
+    0, not NaN (the count is clamped to 1), as in the JAX package.
+
+    `sharded` (data-parallel training: this rank's logits are its shard
+    of the global batch): this rank's share of the mean over the valid
+    pixels of the global batch, as JAX's loss over the sharded batch,
+    i.e. its own sum over the all-reduced valid count. The ranks' shares
+    sum to the global mean; a rank whose shard is all ignored has 0.
 
     logits: (B, H, W, C) float; labels: (B, H, W) int.
     """
@@ -116,4 +124,7 @@ def segmentation_loss(logits, labels, ignore_index: int = 255):
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if sharded:
+        count = all_reduce_sum(count)
+    return nll.sum() / count.clamp_min(1)

@@ -92,40 +92,61 @@ class LayerNorm(nn.LayerNorm):
 class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval mode or at rate 0.
 
-    Training draws its mask from a torch.Generator on the input's device
+    Training draws its masks from torch.Generators on the input's device
     made anew in each call from `seed` (set per step and per module by
     `set_drop_path_seeds`, the counterpart of flax's per-module fold of
-    `fold_in(rng, step)`). A forward recomputed under remat therefore
-    draws the same mask. With no seed set it draws from the global
-    generator."""
+    `fold_in(rng, step)`), one per modality: the trunk runs [rgb; x]
+    stacked on the batch axis, so a call's rows are groups of `rows[1]`
+    samples each. Each generator draws the masks of the whole global
+    batch (`rows[2]` samples) and the call keeps its own (from `rows[0]`
+    on), so a sample's mask is a function of (seed, step, module,
+    modality, global sample index) alone: a data-parallel rank draws
+    what one process draws over the global batch, and a forward
+    recomputed under remat draws the same masks. With no seed set it
+    draws from the global generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.seed = None
+        self.rows = None  # (offset, local batch, global batch)
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        gen = None
-        if self.seed is not None:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(self.seed)
+        n = x.shape[0]
         # drawn in fp32 whatever x's dtype, so the masks do not depend on it
-        mask = torch.empty(shape, device=x.device).bernoulli_(
-            keep, generator=gen).to(x.dtype)
+        if self.seed is None:
+            mask = torch.empty(n, device=x.device).bernoulli_(keep)
+        else:
+            # rows unset (a seed set by hand): the call is one group
+            offset, local, total = self.rows or (0, n, n)
+            if n % local:
+                raise ValueError(f"{n} rows are not groups of {local}")
+            parts = []
+            for modality in range(n // local):
+                gen = torch.Generator(device=x.device)
+                gen.manual_seed((self.seed * 1_000_033 + modality) % 2**62)
+                draw = torch.empty(total, device=x.device).bernoulli_(
+                    keep, generator=gen)
+                parts.append(draw[offset:offset + local])
+            mask = torch.cat(parts)
+        mask = mask.to(x.dtype).reshape((n,) + (1,) * (x.ndim - 1))
         return x * mask / keep
 
 
-def set_drop_path_seeds(model: nn.Module, seed: int, step: int) -> None:
+def set_drop_path_seeds(model: nn.Module, seed: int, step: int,
+                        rows) -> None:
     """Seed every DropPath of `model` for one train step: module i draws
-    from a stream of its own, a fixed mix of (seed, step, i)."""
+    from streams of its own, a fixed mix of (seed, step, i). `rows`:
+    (offset, local batch, global batch) of this process's samples in the
+    global batch ((0, b, b) in one process)."""
     base = (seed * 1_000_003 + step) % 2**62
     for i, m in enumerate(x for x in model.modules()
                           if isinstance(x, DropPath)):
         m.seed = (base * 65_537 + i) % 2**62
+        m.rows = rows
 
 
 def should_remat(remat, tokens: int) -> bool:

@@ -21,8 +21,20 @@ checkpoint and goes on at the next epoch; `--steps` counts this run's
 steps. `python -m sigma_tpu_torch.eval -e` reads the epoch checkpoints.
 `--device` defaults to cuda; the CPU is used only when asked for.
 
-Not ported, each raising with the ROADMAP item it waits for:
-`--distributed` (A5), `--profile` (A1, the port's bench).
+`--distributed`: data parallel, one process per card under torchrun,
+
+  python -m torch.distributed.run --nproc_per_node=N \\
+      -m sigma_tpu_torch.train -n mfnet --dataset-path PATH --distributed
+
+(NCCL; `--device cpu`: gloo). The global batch is `batch_size`; each rank
+loads its `batch_size / N` shard and the step is the one-process step on
+the whole global batch (engine/train.py). Every rank evaluates its share
+of the val split and saves collectively (rank 0 writes); rank 0 alone
+logs, writes tensorboard, `val_epoch_N.log` and `val_scores.json`, and
+prunes.
+
+Not ported: `--profile` (A1, the port's bench), raising with its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ import sys
 import time
 
 import torch
+
+from sigma_tpu_torch.parallel import dist
 
 
 def parse_args(argv=None):
@@ -61,7 +75,7 @@ def parse_args(argv=None):
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="(not ported)")
     p.add_argument("--distributed", action="store_true",
-                   help="(not ported)")
+                   help="data parallel over torchrun's processes")
     p.add_argument("--num-workers", type=int, default=None)
     p.add_argument("--override", action="append", default=[],
                    metavar="KEY=VAL",
@@ -72,7 +86,6 @@ def parse_args(argv=None):
 
 
 _WAITING = (
-    ("distributed", "--distributed", "ROADMAP.md queue A item A5"),
     ("profile", "--profile", "the port's bench, ROADMAP.md item A1"),
 )
 
@@ -86,6 +99,15 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device (pass --device cpu to "
                      "train on the CPU with the plain scan path)")
+    if args.distributed:
+        device = dist.init_distributed(device.type)
+    try:
+        return _train(args, device)
+    finally:
+        dist.shutdown()
+
+
+def _train(args, device) -> int:
     # fp32 means fp32 on the card: cuDNN's float32 convolutions default to
     # TF32, and so may matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,6 +163,9 @@ def main(argv=None) -> int:
     logger = get_logger()
     logger.info("device: %s", torch.cuda.get_device_name(device)
                 if device.type == "cuda" else device)
+    if dist.data_parallel():
+        logger.info("data parallel: %d processes, %d samples each",
+                    dist.world(), cfg.batch_size // dist.world())
     logger.info("SS2D epilogue: %s (SIGMA_FUSED_EPILOGUE)",
                 "fused" if FUSED_EPILOGUE else "unfused")
     logger.info("compute dtype: %s (parameters fp32)",
@@ -156,7 +181,8 @@ def main(argv=None) -> int:
     loader = TrainLoader(
         dataset, global_batch_size=cfg.batch_size,
         niters_per_epoch=cfg.niters_per_epoch,
-        num_workers=cfg.num_workers, seed=cfg.seed,
+        num_workers=cfg.num_workers, process_index=dist.rank(),
+        process_count=dist.world(), seed=cfg.seed,
     )
 
     state, train_step, schedule = build_train(cfg, device)
@@ -173,7 +199,7 @@ def main(argv=None) -> int:
                     state.step)
 
     tb = None
-    if cfg.log_dir:
+    if cfg.log_dir and dist.is_main():
         try:
             from tensorboardX import SummaryWriter
             tb = SummaryWriter(os.path.join(cfg.log_dir, "tb"))
@@ -237,22 +263,24 @@ def main(argv=None) -> int:
                             async_save=cfg.async_checkpoint)
             if evaluator is not None:
                 model.eval()  # the train step sets train mode again
+                # every rank scores its share; all get the set's mIoU
                 miou, detail = evaluator.run(val_dataset)
                 logger.info("epoch %d mIoU %.2f", epoch, miou)
-                write_val_log(cfg.log_dir, epoch, miou, detail["iou"])
-                if tb is not None:
-                    tb.add_scalar("val_miou", miou, epoch)
                 val_scores.append((miou, epoch))
                 if miou > best_miou:
                     best_miou, best_epoch = miou, epoch
-                save_val_scores(cfg.checkpoint_dir, val_scores)
                 logger.info("best mIoU %.2f @ epoch %d", best_miou,
                             best_epoch)
-                # best-k retention (k=1 is the reference's best-only
-                # policy)
-                k = max(1, cfg.keep_best_k)
-                prune_checkpoints(cfg.checkpoint_dir, [
-                    e for _, e in sorted(val_scores, reverse=True)[:k]])
+                if dist.is_main():
+                    write_val_log(cfg.log_dir, epoch, miou, detail["iou"])
+                    if tb is not None:
+                        tb.add_scalar("val_miou", miou, epoch)
+                    save_val_scores(cfg.checkpoint_dir, val_scores)
+                    # best-k retention (k=1 is the reference's best-only
+                    # policy)
+                    k = max(1, cfg.keep_best_k)
+                    prune_checkpoints(cfg.checkpoint_dir, [
+                        e for _, e in sorted(val_scores, reverse=True)[:k]])
         if stop:
             break
 

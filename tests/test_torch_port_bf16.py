@@ -43,6 +43,7 @@ from sigma_tpu_torch.models import ss2d as tss2d
 from sigma_tpu_torch.models import vssm as tvssm
 from sigma_tpu_torch.models.decoders import mamba_decoder as tdecoder
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
+from _port_load import FAST_XLA
 
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
@@ -92,9 +93,10 @@ def _load(module, params, wrap, strip):
 # ------------------------------------------------------------ modules
 def _jax_run(jm, xs, **kw):
     xs = [jnp.asarray(x) for x in xs]
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), *xs, **kw)["params"]
-    return params, jax.jit(lambda p, *a: jm.apply({"params": p}, *a, **kw))(
-        params, *xs)
+    params = jax.jit(jm.init, compiler_options=FAST_XLA)(
+        jax.random.PRNGKey(0), *xs, **kw)["params"]
+    return params, jax.jit(lambda p, *a: jm.apply({"params": p}, *a, **kw),
+                           compiler_options=FAST_XLA)(params, *xs)
 
 
 # name: (JAX module, port module, input shapes, JAX -> port key map)
@@ -179,7 +181,8 @@ def test_module_matches_jax_in_bf16(name):
     for dt in in_dtypes:
         if dt == BF16:
             xb = [np.asarray(jnp.asarray(x, jnp.bfloat16)) for x in xs]
-            want = jax.jit(lambda p, *a: jm.apply({"params": p}, *a))(
+            want = jax.jit(lambda p, *a: jm.apply({"params": p}, *a),
+                           compiler_options=FAST_XLA)(
                 params, *[jnp.asarray(x) for x in xb])
         with torch.inference_mode():
             got = tm(*[torch.from_numpy(np.asarray(x, np.float32)).to(dt)

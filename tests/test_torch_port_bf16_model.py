@@ -35,6 +35,7 @@ from sigma_tpu.utils.convert import convert_sigma_full
 from sigma_tpu_torch.configs import get_config
 from sigma_tpu_torch.models.builder import build_model
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
+from _port_load import FAST_XLA
 
 TORCH_THREADS = 2
 H, W = 80, 64  # stride-32 height 2.5, as PST900's 720 gives 22.5
@@ -83,8 +84,8 @@ def logits():
         assert missing == []
         # the weights went over whole: back through the port's bridge too
         assert state_dict_from_jax(params, port).keys() == port_sd.keys()
-        want = jax.jit(jm.apply)({"params": params}, jnp.asarray(rgb),
-                                 jnp.asarray(mx))
+        want = jax.jit(jm.apply, compiler_options=FAST_XLA)(
+            {"params": params}, jnp.asarray(rgb), jnp.asarray(mx))
         assert want.dtype == (jnp.bfloat16 if bf16 else jnp.float32)
         out[("jax", name)] = np.asarray(want, np.float32)
     return out

@@ -38,6 +38,7 @@ from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import DropPath
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
+from _port_load import FAST_XLA
 
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
@@ -123,6 +124,9 @@ def test_bf16_train_steps_match_jax():
         mp.setattr(jvssm, "DropPath", _NoDropPath)
         jstep = jax_make_step(jm, tx, donate=False, norm_mean=cfg.norm_mean,
                               norm_std=cfg.norm_std)
+        jstep = jstep.lower(state, _uint8_batch(BATCHES[0]),
+                            jax.random.PRNGKey(1)).compile(
+            compiler_options=FAST_XLA)
         for seed in BATCHES:
             state, loss = jstep(state, _uint8_batch(seed),
                                 jax.random.PRNGKey(1))

@@ -17,6 +17,7 @@ from sigma_tpu.models.builder import EncoderDecoder as JaxEncoderDecoder
 from sigma_tpu.utils.convert import convert_sigma_full
 from sigma_tpu_torch.models.builder import EncoderDecoder
 from sigma_tpu_torch.utils.convert import load_checkpoint, state_dict_from_jax
+from _port_load import few_torch_threads  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")

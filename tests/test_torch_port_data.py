@@ -98,26 +98,32 @@ def test_train_pre_and_dataset_equal_the_originals(tree, device_norm):
 
 
 def test_train_loader_batches_equal_the_originals(tree):
+    """One process, then the shards of processes 0 and 1 of 2 (each half
+    of the global batch), against the JAX loader's."""
     cfg, jcfg = _cfgs(tree)
-    port = TrainLoader(
-        RGBXDataset(cfg.data_setting(), "train",
-                    TrainPre(cfg.norm_mean, cfg.norm_std, cfg,
-                             device_norm=True),
-                    file_length=8, seed=1),
-        global_batch_size=4, niters_per_epoch=2, num_workers=2, seed=1)
-    ref = JaxLoader(
-        JaxDataset(jcfg.data_setting(), "train",
-                   JaxTrainPre(jcfg.norm_mean, jcfg.norm_std, jcfg,
-                               device_norm=True),
-                   file_length=8, seed=1),
-        global_batch_size=4, niters_per_epoch=2, num_workers=2, seed=1)
-    port.set_epoch(3)
-    ref.set_epoch(3)
-    got, want = list(port), list(ref)
-    assert len(got) == len(want) == 2
-    for a, b in zip(got, want):
-        _same(a, b)
-        assert a["data"].dtype == np.uint8 and a["margins"].shape == (4, 4)
+    for index, count in ((0, 1), (0, 2), (1, 2)):
+        port = TrainLoader(
+            RGBXDataset(cfg.data_setting(), "train",
+                        TrainPre(cfg.norm_mean, cfg.norm_std, cfg,
+                                 device_norm=True),
+                        file_length=8, seed=1),
+            global_batch_size=4, niters_per_epoch=2, num_workers=2, seed=1,
+            process_index=index, process_count=count)
+        ref = JaxLoader(
+            JaxDataset(jcfg.data_setting(), "train",
+                       JaxTrainPre(jcfg.norm_mean, jcfg.norm_std, jcfg,
+                                   device_norm=True),
+                       file_length=8, seed=1),
+            global_batch_size=4, niters_per_epoch=2, num_workers=2, seed=1,
+            process_index=index, process_count=count)
+        port.set_epoch(3)
+        ref.set_epoch(3)
+        got, want = list(port), list(ref)
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            _same(a, b)
+            assert a["data"].dtype == np.uint8
+            assert a["margins"].shape == (4 // count, 4)
 
 
 def test_metrics_copy_equals_the_original():

@@ -41,6 +41,7 @@ from sigma_tpu_torch.ops.merge_ln_gate import (
     merge_ln_gate_plain,
 )
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
+from _port_load import FAST_XLA
 
 ROOT = Path(__file__).resolve().parents[1]
 EPS = 1e-5
@@ -173,14 +174,16 @@ def test_fused_ss2d_matches_jax_and_the_unfused_port(monkeypatch):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 8, 12, 32)).astype(np.float32)
     jm = jss2d.SS2D(d_model=32, d_state=16)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.jit(jm.init, compiler_options=FAST_XLA)(
+        jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     # a LayerNorm affine other than (1, 0), so gamma and beta are seen
     norm = dict(params["out_norm"])
     norm["scale"] = jnp.asarray(1.0 + 0.1 * rng.standard_normal(64),
                                 jnp.float32)
     norm["bias"] = jnp.asarray(0.1 * rng.standard_normal(64), jnp.float32)
     params = {**params, "out_norm": norm}
-    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    want = jax.jit(jm.apply, compiler_options=FAST_XLA)(
+        {"params": params}, jnp.asarray(x))
 
     tm = _load_module(tss2d.SS2D(32, d_state=16), params)
     tss2d.set_fused_epilogue(tm, True)
@@ -222,8 +225,8 @@ def test_encoder_decoder_sigma_mini_fused_golden_tier():
     sd = {k: v.numpy() for k, v in tm.state_dict().items()}
     params, _, missing = convert_sigma_full(zeros, sd)
     assert missing == []
-    want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(rgb),
-                                        jnp.asarray(mx)))
+    want = np.asarray(jax.jit(jm.apply, compiler_options=FAST_XLA)(
+        {"params": params}, jnp.asarray(rgb), jnp.asarray(mx)))
 
     tss2d.set_fused_epilogue(tm, True)
     n = sum(isinstance(m, tss2d.SS2D) and m.fused_epilogue

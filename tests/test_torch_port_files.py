@@ -17,8 +17,7 @@ package, on the CPU.
     1, 1.25 with flip, a 3-channel and a 2-D modal-x; `image_batch` 3
     over 5 images) run with `sys.modules["cv2"] = None`, against the JAX
     package's counterparts, which use cv2; `save_prediction` too, and no
-    module of the port imports cv2 outside the JPEG branch of the
-    reader.
+    module of the port imports cv2 (JPEG: tests/test_torch_port_jpeg.py).
 """
 
 import ast
@@ -200,11 +199,11 @@ def test_reader_errors_name_the_file(tmp_path, no_cv2):
         assert name in str(e.value)
     with pytest.raises(ValueError, match="uint8"):
         write_png(tmp_path / "x.png", px.astype(np.uint16))
-    # the dataset reader: a missing file, and JPEG without cv2
+    # the dataset reader: a missing file, and a damaged JPEG without cv2
     with pytest.raises(FileNotFoundError):
         RGBXDataset._open_rgb(str(tmp_path / "missing.png"))
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(RuntimeError, match="a.jpg.*cv2.*C8"):
+    with pytest.raises(ValueError, match="a.jpg.*damaged.*C8"):
         RGBXDataset._open_rgb(str(tmp_path / "a.jpg"))
 
 
@@ -389,8 +388,7 @@ def test_dataset_and_train_pre_match_jax_without_cv2(cv2_tree, device_norm,
 def test_no_cv2_on_the_port_path(cv2_tree, tmp_path, no_cv2):
     """The reader on PNG, TrainPre, SlidingEvaluator at (0.75, 1, 1.25)
     with flip and save_prediction run with cv2 blocked; no module of the
-    port binds cv2, and its source imports cv2 only in the reader's JPEG
-    branch."""
+    port binds cv2, and its source imports cv2 nowhere."""
     cfg = configs.get_config("mfnet", dataset_path=cv2_tree)
     object.__setattr__(cfg, "image_height", 32)
     object.__setattr__(cfg, "image_width", 48)
@@ -415,7 +413,7 @@ def test_no_cv2_on_the_port_path(cv2_tree, tmp_path, no_cv2):
     for path in sorted((ROOT / "sigma_tpu_torch").rglob("*.py")):
         importers += [(path.name, fn) for fn in
                       _cv2_imports(ast.parse(path.read_text()), None)]
-    assert importers == [("dataset.py", "_read")], importers
+    assert importers == [], importers
 
 
 def _cv2_imports(node, fn):

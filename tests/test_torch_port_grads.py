@@ -19,6 +19,7 @@ import torch
 
 from sigma_tpu.ops import pallas_scan_g as jscan
 from sigma_tpu_torch.ops import scan_g
+from _port_load import few_torch_threads  # noqa: F401 (a fixture)
 
 RTOL, ATOL = 6e-4, 2e-3
 

@@ -26,6 +26,7 @@ from sigma_tpu_torch.models import ss2d as tss2d
 from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import resize_bilinear
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
+from _port_load import FAST_XLA, few_torch_threads  # noqa: F401 (a fixture)
 
 
 def _np_tree(params):
@@ -52,8 +53,10 @@ def _close(got, want):
 def test_ss2d_matches_jax():
     (x,) = _inputs(1, (2, 8, 12, 32), seed=0)
     jm = jss2d.SS2D(d_model=32, d_state=16)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
-    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    params = jax.jit(jm.init, compiler_options=FAST_XLA)(
+        jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    want = jax.jit(jm.apply, compiler_options=FAST_XLA)(
+        {"params": params}, jnp.asarray(x))
     tm = _load_module(tss2d.SS2D(32, d_state=16), params)
     with torch.inference_mode():
         got = tm(torch.from_numpy(x))
@@ -64,10 +67,10 @@ def test_ss2d_matches_jax():
 def test_fusion_scan_modules_match_jax(name):
     xr, xe = _inputs(2, (2, 6, 10, 32), seed=1)
     jm = getattr(jss2d, name)(d_model=32, d_state=4)
-    params = jax.jit(jm.init)(
+    params = jax.jit(jm.init, compiler_options=FAST_XLA)(
         jax.random.PRNGKey(1), jnp.asarray(xr), jnp.asarray(xe))["params"]
-    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(xr),
-                             jnp.asarray(xe))
+    want = jax.jit(jm.apply, compiler_options=FAST_XLA)(
+        {"params": params}, jnp.asarray(xr), jnp.asarray(xe))
     tm = _load_module(getattr(tss2d, name)(32, d_state=4), params)
     with torch.inference_mode():
         got = tm(torch.from_numpy(xr), torch.from_numpy(xe))
@@ -92,8 +95,8 @@ def test_encoder_decoder_sigma_mini_golden_tier():
     params, _, missing = convert_sigma_full(
         zeros, {k: v.numpy() for k, v in tm.state_dict().items()})
     assert missing == []
-    want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(rgb),
-                                        jnp.asarray(mx)))
+    want = np.asarray(jax.jit(jm.apply, compiler_options=FAST_XLA)(
+        {"params": params}, jnp.asarray(rgb), jnp.asarray(mx)))
     with torch.inference_mode():
         got = tm.eval()(torch.from_numpy(rgb), torch.from_numpy(mx)).numpy()
     assert got.shape == want.shape == (1, 64, 80, 9)

@@ -21,6 +21,7 @@ from sigma_tpu_torch.ops.selective_scan import (
     selective_scan_cl,
     selective_scan_ref,
 )
+from _port_load import few_torch_threads  # noqa: F401 (a fixture)
 
 RTOL, ATOL = 6e-4, 2e-3
 

@@ -23,6 +23,7 @@ from sigma_tpu.ops.pallas_scan_seq import (
 )
 from sigma_tpu_torch.ops.scan_cf import selective_scan_cf
 from sigma_tpu_torch.ops.scan_seq import selective_scan_seq_cl
+from _port_load import few_torch_threads  # noqa: F401 (a fixture)
 
 RTOL, ATOL = 6e-4, 2e-3
 NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")

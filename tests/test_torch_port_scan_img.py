@@ -32,6 +32,7 @@ from sigma_tpu.ops.pallas_scan_g import (
 )
 from sigma_tpu_torch.ops import scan_g, scan_img
 from sigma_tpu_torch.ops.scan_g import selective_scan_ss2d_proj
+from _port_load import FAST_XLA, few_torch_threads  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 6e-4, 2e-3
@@ -93,7 +94,8 @@ def _jax_result(name):
                         with_bias=with_bias)
     live = [i for i, a in enumerate(args) if a is not None]
     planned = _plan_img(b, H, W, dg, N, 4) is not None
-    got = jax_ss2d_proj(*args, delta_softplus=softplus, interpret=True)
+    got = jax.eval_shape(lambda: jax_ss2d_proj(*args, delta_softplus=softplus,
+                                               interpret=True))
     assert (got is None) != planned
 
     def fn(*live_args):
@@ -105,8 +107,13 @@ def _jax_result(name):
                                  interpret=True)
         return _jax_stacked(*full, softplus)
 
-    y, vjp = jax.vjp(fn, *(jnp.asarray(args[i]) for i in live))
-    grads = dict(zip((NAMES[i] for i in live), vjp(jnp.asarray(cot))))
+    @functools.partial(jax.jit, compiler_options=FAST_XLA)
+    def value_and_vjp(*live_args):
+        y, vjp = jax.vjp(fn, *live_args)
+        return y, vjp(jnp.asarray(cot))
+
+    y, vjps = value_and_vjp(*(jnp.asarray(args[i]) for i in live))
+    grads = dict(zip((NAMES[i] for i in live), vjps))
     return args, cot, softplus, np.asarray(y), {
         k: np.asarray(v) for k, v in grads.items()}
 

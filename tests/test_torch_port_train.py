@@ -57,6 +57,7 @@ from sigma_tpu_torch.ops import merge_ln_gate as mlg
 from sigma_tpu_torch.models.vssm import VSSBlock
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
+from _port_load import FAST_XLA
 
 # torch's CPU threads per test process: the suite runs several processes
 # on the host's cores, and torch's default (one thread per core) in each
@@ -278,7 +279,9 @@ def jax_train_run(jax_test_model):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jvssm, "DropPath", _NoDropPath)
         jstep = jax_make_step(jm, tx, donate=False, norm_mean=cfg.norm_mean,
-                              norm_std=cfg.norm_std)
+                              norm_std=cfg.norm_std).lower(
+            state, _uint8_batch(0), jax.random.PRNGKey(1)).compile(
+            compiler_options=FAST_XLA)
         for seed in _TRAIN_BATCHES:
             state, loss = jstep(state, _uint8_batch(seed),
                                 jax.random.PRNGKey(1))
@@ -380,15 +383,17 @@ def test_vss_block_branches_draw_their_own_masks():
     branch without the other."""
     block = VSSBlock(16, drop_path=0.5, d_state=4, mlp_ratio=2.0)
     block.op, block.mlp = _Ones(), _Ones()
-    set_drop_path_seeds(block, 1, 0)
+    set_drop_path_seeds(block, 1, 0, rows=(0, 64, 64))
     y = block.train()(torch.zeros(64, 2, 2, 16))[:, 0, 0, 0]
     assert set(y.tolist()) == {0.0, 2.0, 4.0}
 
 
 def test_train_step_refuses_a_mesh():
+    """Data parallel, the step takes a torch.distributed process group
+    (`group`, tests/test_torch_port_ddp.py), not a JAX mesh."""
     model = _PixelLinear()
     opt = build_optimizer(get_config("mfnet"), model)
-    with pytest.raises(NotImplementedError, match="item A5"):
+    with pytest.raises(TypeError, match="mesh"):
         make_train_step(model, opt, lambda k: 0.0, mesh=object())
 
 
@@ -458,9 +463,13 @@ def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused, monkeypatch,
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--profile", "x"], "item A1"), (["--distributed"], "item A5")])
+    (["--profile", "x"], "item A1"),
+    (["--distributed"], "torchrun's environment")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
+    """`--profile` waits for the port's bench; `--distributed` runs only
+    under torchrun (tests/test_torch_port_ddp.py)."""
     from sigma_tpu_torch.train import main
 
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if "--profile" in flag else RuntimeError
+    with pytest.raises(error, match=item):
         main(["-n", "mfnet", "--device", "cpu", *flag])

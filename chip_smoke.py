@@ -127,7 +127,24 @@ its findings:
                 sigma_test logits at 96x128 and one SGDM step at 64x80 in
                 bf16 on the card against bf16 on the CPU, the gap at most
                 twice the CPU's own bf16-vs-fp32 gap, both ways.
-  9. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
+  9. decoders — the decoders besides the flagship's and MambaDecoder's
+                deep supervision (UPernet + the FCN aux head, MLPDecoder,
+                deeplabv3+ + the FCN aux head, FCN; global-batch
+                BatchNorm) at sigma_tiny 480x640 fp32, built by
+                build_train: the first step rerun bit for bit, 3 steps at
+                batch 2 (finite losses, K1-K5 launched, s/step, peak
+                memory), a 4-image evaluation in eval mode (img/s, peak
+                memory); then each at sigma_test 64x80 batch 6, one step
+                on the card against the CPU (loss, gradients, running
+                statistics at the fp32 tier).
+ 10. determinism — ROADMAP C10: one sigma_tiny 480x640 batch-2 fp32 train
+                step rerun from the same state in a child process
+                (CUBLAS_WORKSPACE_CONFIG set) under PyTorch's default,
+                cudnn.deterministic, and use_deterministic_algorithms:
+                the gradients whose bits moved by kind of layer, what
+                raised or warned, s/step of each. The script, as the
+                train CLI, runs with cudnn.deterministic.
+ 11. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
                 = None`): first the JPEG decoder (`jpeg_part`: every
                 committed fixture, colour and gray, against the digests of
                 cv2.imread's arrays; host ms of a 480x640 decode, 8
@@ -149,10 +166,10 @@ its findings:
                 MFNet tree (finite losses, weights moved, K1-K5 launched,
                 s/step). Then checkpoints (`ckpt_part`, 2 iterations an
                 epoch, a checkpoint and an evaluation every epoch): a
-                train step run twice (the same bits or not); run A, 2
+                train step run twice (the same bits); run A, 2
                 epochs with async saves; run B, `--steps 2` then `-c`,
-                equal to A (bit for bit, or at the fp32 tier when the step
-                does not rerun bit for bit); the epochs on disk after each
+                equal to A bit for bit (cuDNN deterministic, ROADMAP
+                C10); the epochs on disk after each
                 run against the best-k policy; `eval.main -e last` / `-e
                 1-` on A's checkpoints giving the train-time mIoU;
                 `--pretrained` with a released-scheme sigma_tiny VMamba
@@ -169,9 +186,12 @@ its findings:
                 no warmup against this process's one-process run at the
                 fp32 tier, drop path on; a 4-image evaluation split 2 / 2
                 giving the
-                one-process confusion matrix exactly); s/step of each and
+                one-process confusion matrix exactly); the same ranks with
+                UPernet at batch 3 each (global-batch BatchNorm): the
+                all-reduced gradient and both ranks' running statistics
+                against one process at the fp32 tier; s/step of each and
                 the gradient bytes all-reduced a step.
- 10. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
+ 12. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
                 phase.
@@ -192,6 +212,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -2421,6 +2442,192 @@ TRAIN_SCALES = (0.5, 0.75, 1, 1.25, 1.5, 1.75)
 EVAL_SCALES = (0.75, 1.25)
 
 
+# the decoders phase: (decoder, deep supervision) of sigma_tpu_torch's
+# builder besides the flagship's plain MambaDecoder
+DECODER_CASES = (("UPernet", False), ("MLPDecoder", False),
+                 ("deeplabv3+", False), ("FCN", False),
+                 ("MambaDecoder", True))
+# the sigma_test card-vs-CPU step of the decoders phase: batch 6, since
+# UPerHead's 1x1 pool and ASPP's image pool give BatchNorm one value per
+# channel and sample, and with 2 samples fp32 rounding alone moves the
+# gradients by percents (tests/test_torch_port_decoders.py)
+DECODER_CHECK_BATCH = 6
+
+
+def _state_bits(model, loss):
+    """(loss, gradients, buffers) of `model` after a step, copied."""
+    return (loss.detach().clone(),
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None},
+            {k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+def decoders_phase(device, steps=3):
+    """The decoders besides the flagship's and MambaDecoder's deep
+    supervision, at full width: sigma_tiny, the MFNet preset (480x640, 9
+    classes), fp32, seeded, built by `build_train` as the train CLI
+    builds it (`--decoder`, `--override deep_supervision=True`). For each
+    of DECODER_CASES: the first step run twice from the same weights,
+    running statistics and AdamW state (loss, every gradient and buffer
+    the same bits: the decoders add no nondeterministic op, ROADMAP C10);
+    then `steps` train steps at batch 2 on the train phase's batches with
+    the launch counts zeroed before and read after (finite losses, K2 +
+    K4 + K5 and K1 + K3 launched), s/step of the last two and peak
+    memory; then the model in eval mode (its running statistics)
+    through SlidingEvaluator.run on four seeded images: img/s, peak
+    memory, K1 / K2 and no backward kernel. Then each decoder at
+    sigma_test, 64x80, batch DECODER_CHECK_BATCH, one step on the card
+    against the same step on the CPU from the same weights and batch
+    (drop path and dropout 0, lr 0): loss, every gradient and running
+    statistic at the fp32 tier. Returns {name: metrics}; raises on a
+    failed check."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
+    from sigma_tpu_torch.engine.optim import build_optimizer
+    from sigma_tpu_torch.engine.train import (
+        build_train,
+        create_train_state,
+        make_train_step,
+    )
+    from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
+    from sigma_tpu_torch.models.common import DropPath, Dropout
+    from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch_n
+    from sigma_tpu_torch.trace_step import synthetic_batch
+
+    t_phase = time.perf_counter()
+    base = get_config("mfnet")
+    h, w = base.image_height, base.image_width
+    rng = np.random.default_rng(SEED + 3)
+    batches = [synthetic_batch(rng, batch_n, h, w) for _ in range(steps)]
+    data = _SyntheticMFNet(4, h, w, SEED)
+    out = {}
+    for decoder, ds in DECODER_CASES:
+        name = decoder + (" + deep supervision" if ds else "")
+        cfg = get_config("mfnet", decoder=decoder, deep_supervision=ds)
+        t0 = time.perf_counter()
+        state, step, _ = build_train(cfg, device)
+        model, opt = state.model, state.optimizer
+        build_s = time.perf_counter() - t0
+        model_0 = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_0 = copy.deepcopy(opt.state_dict())
+
+        def restart():
+            model.load_state_dict(model_0)
+            opt.load_state_dict(opt_0)
+            state.step = 0
+
+        runs = []
+        for _ in range(2):
+            restart()
+            runs.append(_state_bits(model, step(state, batches[0])))
+        rerun = all(torch.equal(a, b) for a, b in
+                    [(runs[0][0], runs[1][0])]
+                    + [(v, runs[1][i][k]) for i in (1, 2)
+                       for k, v in runs[0][i].items()])
+        n_bn = sum(k.endswith("running_var") for k in runs[0][2])
+        del runs
+        restart()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        seconds, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, b)))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        s_step = sum(seconds[1:]) / len(seconds[1:])
+
+        model.eval()
+        ev = SlidingEvaluator(
+            model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
+            multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
+            eval_crop_size=cfg.eval_crop_size,
+            stride_rate=cfg.eval_stride_rate, device=device)
+        ev.sliding_eval(data[0]["data"], data[0]["modal_x"])  # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, detail = ev.run(data)
+        torch.cuda.synchronize()
+        img_s = len(data) / (time.perf_counter() - t0)
+        eval_launches = _launches()
+        eval_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"decoders: sigma_tiny/{name} MFNet {h}x{w} fp32, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"{n_bn} BatchNorms, built in {build_s:.2f}s: first step "
+              f"rerun {'bit for bit' if rerun else 'with OTHER bits'}; "
+              f"{steps} steps at batch {batch_n}: losses {losses}, seconds "
+              f"{[round(t, 4) for t in seconds]}, last {steps - 1} "
+              f"{s_step:.4f} s/step, peak {peak:.3f} GiB, launches "
+              f"{ {k: n for k, n in launches.items() if n} }; eval of "
+              f"{len(data)} images {img_s:.4f} img/s, mIoU {miou:.4f} "
+              f"(random weights), peak {eval_peak:.3f} GiB, launches "
+              f"{ {k: n for k, n in eval_launches.items() if n} }",
+              flush=True)
+        del state, step, model, opt, model_0, ev
+        torch.cuda.empty_cache()
+        missing = [k for k in FORWARD + SCAN_BACKWARD if launches[k] == 0]
+        backward = [k for k in SCAN_BACKWARD if eval_launches[k]]
+        if not rerun or not np.all(np.isfinite(losses)) or missing or \
+                not np.isfinite(miou) or backward or \
+                any(eval_launches[k] == 0 for k in FORWARD):
+            raise AssertionError(
+                f"decoders {name}: rerun {rerun}, losses {losses}, kernels "
+                f"not launched {missing}, mIoU {miou}, backward kernels in "
+                f"eval {backward}")
+        out[name] = dict(s_step=s_step, img_s=img_s, peak=peak,
+                         eval_peak=eval_peak)
+
+    # sigma_test: the card's step against the CPU's
+    cfg_t = get_config("mfnet")
+    small = synthetic_batch(np.random.default_rng(SEED + 6),
+                            DECODER_CHECK_BATCH, 64, 80)
+    for decoder, ds in DECODER_CASES:
+        name = decoder + (" + deep supervision" if ds else "")
+        cpu = init_parameters(EncoderDecoder(9, "sigma_test", decoder,
+                                             deep_supervision=ds),
+                              seed=SEED + 4)
+        for m in cpu.modules():  # the CPU and CUDA generators differ
+            if isinstance(m, (DropPath, Dropout)):
+                m.rate = 0.0
+        gpu = copy.deepcopy(cpu).to(device)
+        got = {}
+        for where, m in (("cpu", cpu), ("gpu", gpu)):
+            o = build_optimizer(cfg_t, m)
+            loss = make_train_step(m, o, lambda k: 0.0)(
+                create_train_state(m, o), small)
+            got[where] = _state_bits(m, loss)
+        (l_c, g_c, b_c), (l_g, g_g, b_g) = got["cpu"], got["gpu"]
+        l_err, l_ok = _scaled_err(l_g.cpu(), l_c)
+        g_errs = [_scaled_err(g_g[k].cpu(), v) for k, v in g_c.items()]
+        b_errs = [_scaled_err(b_g[k].cpu(), v) for k, v in b_c.items()] \
+            or [(0.0, True)]
+        ok = l_ok and all(o for _, o in g_errs + b_errs) and \
+            g_g.keys() == g_c.keys()
+        print(f"decoders: sigma_test/{name} 64x80 batch "
+              f"{DECODER_CHECK_BATCH}, one step card vs CPU: loss "
+              f"{float(l_g):.6f} vs {float(l_c):.6f}, max abs err loss "
+              f"{l_err:.3e}, {len(g_errs)} gradients "
+              f"{max(e for e, _ in g_errs):.3e}, {len(b_c)} running "
+              f"statistics {max(e for e, _ in b_errs):.3e} (fp32 tier "
+              f"{'ok' if ok else 'FAIL'})", flush=True)
+        if not ok:
+            raise AssertionError(f"decoders {name}: the card's sigma_test "
+                                 f"step differs from the CPU's")
+    print(f"decoders: phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return out
+
+
 def _write_tree(cfg, n, seed, labels):
     """A seeded dataset tree of `n` pairs at cfg's folders and image size,
     written by the port's PNG writer: RGB, a 1-channel modal-x, labels in
@@ -2592,13 +2799,15 @@ _RELEASED_TO_PORT = ((".self_attention.", ".op."), (".ln_1.", ".norm."),
 # `tests/test_torch_port_jpeg.py`)
 JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
 JPEG_SCENES = ("scene_420_q95_480x640_a.jpg", "scene_420_q95_480x640_b.jpg")
+JPEG_PROGRESSIVE = "prog_scene_420_q95_480x640.jpg"
 
 
 def jpeg_part():
     """The port's JPEG decoder (`data/jpeg.py`, host C++ built with g++ at
     first use) on every committed fixture, colour and gray, against the
-    digests of cv2.imread's arrays; the build's seconds, the host ms of a
-    480x640 4:2:0 decode, and 16 decodes on 8 threads against one thread
+    digests of cv2.imread's arrays (sequential and progressive files); the
+    build's seconds, the host ms of a 480x640 4:2:0 decode, sequential and
+    progressive, and 16 decodes on 8 threads against one thread
     (ctypes releases the GIL). Returns {metric: value}; raises on a digest
     that differs."""
     import hashlib
@@ -2620,13 +2829,14 @@ def jpeg_part():
                     list(got.shape[:2]) != want["shape"][:2]:
                 bad.append((name, "gray" if gray else "color"))
     big = JPEG_FIXTURES / JPEG_SCENES[0]
-    for gray in (False, True):
-        jpeg.read_jpeg(big, gray=gray)
+    for key, path, gray in (("rgb", big, False), ("gray", big, True),
+                            ("prog", JPEG_FIXTURES / JPEG_PROGRESSIVE,
+                             False)):
+        jpeg.read_jpeg(path, gray=gray)
         t0 = time.perf_counter()
         for _ in range(20):
-            jpeg.read_jpeg(big, gray=gray)
-        out[f"jpeg_ms_{'gray' if gray else 'rgb'}"] = \
-            (time.perf_counter() - t0) / 20 * 1e3
+            jpeg.read_jpeg(path, gray=gray)
+        out[f"jpeg_ms_{key}"] = (time.perf_counter() - t0) / 20 * 1e3
     paths = [JPEG_FIXTURES / JPEG_SCENES[i % 2] for i in range(16)]
     t0 = time.perf_counter()
     for p in paths:
@@ -2642,7 +2852,8 @@ def jpeg_part():
           f"and gray) against cv2.imread's digests: "
           f"{'all equal' if not bad else f'DIFFER {bad}'}; {big.name} "
           f"{out['jpeg_ms_rgb']:.2f} host ms RGB, {out['jpeg_ms_gray']:.2f}"
-          f" gray; 16 decodes {one * 1e3:.1f} ms on one thread, "
+          f" gray, progressive {JPEG_PROGRESSIVE} {out['jpeg_ms_prog']:.2f}"
+          f" RGB; 16 decodes {one * 1e3:.1f} ms on one thread, "
           f"{eight * 1e3:.1f} ms on 8 ({out['jpeg_threads_speedup']:.2f}x)",
           flush=True)
     if bad:
@@ -2734,6 +2945,54 @@ def _ddp_run(cfg, device):
     return rec, model
 
 
+# the BatchNorm run of the data-parallel part takes one step: after it,
+# AdamW's first update moves each weight by about lr whatever its
+# gradient's size, and a conv bias ahead of a BatchNorm has a zero
+# gradient in exact arithmetic, so rounding noise sets the sign of its
+# move, and two runs that sum in another order part by about 2 lr there
+# (6.3e-2 of the second step's gradient norm at lr 1e-3 on the card)
+DDP_BN_STEPS = 1
+# and its global batch: 3 a rank, as tests/test_torch_port_ddp.py runs
+# it. UPerHead's 1x1-pool BatchNorm sees one value per channel and
+# sample, and with 2 samples fp32 rounding alone moves the gradient by
+# percents (the port on the CPU in fp32 against fp64: 4% of its norm at
+# sigma_test); at 1 a rank the card's two ranks gave 6.756e-04 of the
+# one-process norm, at 3 a rank the CPU test gives 1.9e-06
+DDP_BN_BATCH = 6
+
+
+def _ddp_bn_run(cfg, device):
+    """The data-parallel part's BatchNorm run: `cfg` with UPernet
+    (BatchNorm in every ConvBNReLU, the FCN aux head), DDP_BN_STEPS train
+    steps on this rank's shard of seeded global batches (one process: the
+    whole batch). Returns (losses, {name: the last step's gradient},
+    {name: running statistic}), on the host."""
+    import dataclasses
+
+    import numpy as np
+
+    from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.parallel import dist
+    from sigma_tpu_torch.trace_step import synthetic_batch
+
+    cfg = dataclasses.replace(cfg, decoder="UPernet",
+                              batch_size=DDP_BN_BATCH)
+    state, step, _ = build_train(cfg, device)
+    shard, shards = dist.rank(), dist.world()
+    n = cfg.batch_size // shards
+    losses = []
+    for k in range(DDP_BN_STEPS):
+        batch = synthetic_batch(np.random.default_rng(SEED + 80 + k),
+                                cfg.batch_size, cfg.image_height,
+                                cfg.image_width)
+        losses.append(float(step(state, {
+            key: v[shard * n:(shard + 1) * n] for key, v in batch.items()})))
+    model = state.model
+    return (losses, {k: p.grad.detach().cpu() for k, p in
+                     model.named_parameters() if p.grad is not None},
+            {k: b.detach().cpu() for k, b in model.named_buffers()})
+
+
 def _ddp_worker(argv):
     """A rank of the data-parallel part, run by this script in a process
     of its own (`--ddp-worker MODE OUT ...`): MODE `cli` runs the train
@@ -2748,6 +3007,7 @@ def _ddp_worker(argv):
     sys.modules["cv2"] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     mode, out = argv[0], argv[1]
     if mode == "cli":
         from sigma_tpu_torch.engine import train as train_engine
@@ -2794,12 +3054,138 @@ def _ddp_worker(argv):
                                       model.named_parameters()
                                       if p.grad is not None}},
                            out + ".pt")
+            del model
+            torch.cuda.empty_cache()
+            losses, grads, stats = _ddp_bn_run(_ddp_cfg(argv[2]),
+                                               torch.device("cuda", 0))
+            rec["bn_losses"] = losses
+            torch.save({"grads": grads, "stats": stats},
+                       f"{out}.bn{rank}.pt")
         finally:
             tdist.destroy_process_group()
         out = f"{out}.rank{rank}"
     with open(out, "w") as f:
         json.dump(rec, f)
     return 0
+
+
+def _determinism_worker(argv):
+    """ROADMAP C10, in a process of its own (`--determinism-worker
+    OUT.json`; started with CUBLAS_WORKSPACE_CONFIG=:4096:8, which
+    `torch.use_deterministic_algorithms` needs for cuBLAS and which must
+    be set before cuBLAS starts). One fp32 sigma_tiny train step at
+    480x640, batch 2 (`build_train`, the train phase's seeded batch), run
+    twice from the same weights and AdamW state under each setting:
+    PyTorch's default, `cudnn.deterministic`, and
+    `use_deterministic_algorithms(True)` with it (an op that has no
+    deterministic path raises; its message is kept, then the step is
+    taken with warn_only to name every such op). Per setting: whether the
+    loss and every gradient rerun bit for bit, the parameters whose
+    gradient bits moved grouped by the kind of layer that owns them (the
+    backward's first nondeterministic op moves every gradient it feeds:
+    the ones that kept their bits lie between it and the loss), and
+    s/step over 3 more steps. Writes OUT.json."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.trace_step import TRAIN_BATCH, synthetic_batch
+
+    device = torch.device("cuda", 0)
+    cfg = get_config("mfnet")
+    batch = synthetic_batch(np.random.default_rng(SEED + 3), TRAIN_BATCH,
+                            cfg.image_height, cfg.image_width)
+    state, step, _ = build_train(cfg, device)
+    model, opt = state.model, state.optimizer
+    model_0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_0 = opt.state_dict()
+
+    def kind(name):
+        m = model.get_submodule(name.rsplit(".", 1)[0])
+        if isinstance(m, torch.nn.Conv2d):
+            return ("depthwise conv" if m.groups > 1 and
+                    m.groups == m.in_channels else f"conv {m.kernel_size}")
+        return type(m).__name__
+
+    def once():
+        model.load_state_dict(model_0)
+        opt.load_state_dict(opt_0)
+        state.step = 0
+        loss = step(state, batch)
+        return loss.detach().clone(), {
+            k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    out = []
+    for name, cudnn_det, algos in (("default", False, False),
+                                   ("cudnn.deterministic", True, False),
+                                   ("use_deterministic_algorithms", True,
+                                    True)):
+        torch.backends.cudnn.deterministic = cudnn_det
+        rec = dict(setting=name, raised=None, warned=[])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if algos:
+                torch.use_deterministic_algorithms(True)
+                try:
+                    once()
+                except RuntimeError as e:
+                    rec["raised"] = str(e).splitlines()[0][:300]
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+            (l1, g1), (l2, g2) = once(), once()
+            seconds = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step(state, batch))
+                seconds.append(time.perf_counter() - t0)
+        rec["warned"] = sorted({str(w.message).splitlines()[0][:200]
+                                for w in caught
+                                if "determinis" in str(w.message)})
+        moved = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+        kinds = defaultdict(int)
+        for k in moved:
+            kinds[kind(k)] += 1
+        kept = [k for k in g1 if k not in moved]
+        rec.update(loss_same=bool(torch.equal(l1, l2)), grads=len(g1),
+                   grads_moved=len(moved), moved_kinds=dict(kinds),
+                   kept=kept[:16], seconds=seconds,
+                   s_step=float(np.mean(seconds[1:])))
+        out.append(rec)
+        torch.use_deterministic_algorithms(False)
+    with open(argv[0], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def determinism_part(device, tmp):
+    """ROADMAP C10: `_determinism_worker` in a child process; prints what
+    it found and returns its records."""
+    path = os.path.join(tmp, "determinism.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    _spawn([([sys.executable, str(ROOT / "chip_smoke.py"),
+              "--determinism-worker", path], env)], tmp, "determinism")
+    with open(path) as f:
+        recs = json.load(f)
+    for r in recs:
+        print(f"determinism: {r['setting']}: a sigma_tiny 480x640 batch-2 "
+              f"fp32 train step rerun from the same state: loss "
+              f"{'same' if r['loss_same'] else 'other'} bits, "
+              f"{r['grads_moved']} of {r['grads']} gradients with other "
+              f"bits {r['moved_kinds']} (the same bits: {r['kept']}); "
+              f"s/step {[round(t, 4) for t in r['seconds']]} mean of the "
+              f"last 2 {r['s_step']:.4f}; raised {r['raised']!r}; warned "
+              f"{r['warned']}", flush=True)
+    print(f"determinism: part {time.perf_counter() - t0:.1f}s", flush=True)
+    return recs
 
 
 def _spawn(cmds, tmp, tag, timeout=600):
@@ -2843,11 +3229,16 @@ def ddp_part(device, cfg, tmp):
     gradient (relative to the one-process gradient's norm and largest
     entry: the check that holds DDP's all-reduce) and the weights after 2
     steps against this process's one-process run on the whole global
-    batches at the fp32 tier (a card's step does not rerun bit for bit),
+    batches at the fp32 tier (the ranks sum in another order),
     drop path at sigma_tiny's rate; the
     4-image evaluation split 2 / 2, its all-reduced confusion matrix equal
-    to the one-process one. s/step of each and the gradient bytes DDP
-    all-reduces a step. Returns {metric: value}; raises on a failed check.
+    to the one-process one; then the same ranks with UPernet (global-batch
+    BatchNorm, the FCN aux head; DDP_BN_BATCH split 3 / 3), DDP_BN_STEPS
+    step: its
+    all-reduced gradient within FP32_TOL's rtol of the
+    one-process gradient's norm, both ranks' running statistics at the
+    fp32 tier. s/step of each and the gradient bytes DDP all-reduces a
+    step. Returns {metric: value}; raises on a failed check.
     Gloo between two processes on one card is not NCCL between cards: (b)
     checks the arithmetic, not the speed of data parallelism."""
     import socket
@@ -2957,9 +3348,36 @@ def ddp_part(device, cfg, tmp):
             ranks[1]["losses"]:
         raise AssertionError(f"ddp (b): two ranks differ from one process "
                              f"or missed a kernel ({missing})")
+    # (b) with UPernet: BatchNorm's statistics over the global batch
+    losses, want_g, want_s = _ddp_bn_run(_ddp_cfg(cfg.dataset_path), device)
+    bn = [torch.load(f"{rec_b}.bn{r}.pt", weights_only=True)
+          for r in range(2)]
+    d_sq = sum(float((bn[0]["grads"][k].double() - g.double()).pow(2).sum())
+               for k, g in want_g.items())
+    g_sq = sum(float(g.double().pow(2).sum()) for g in want_g.values())
+    bn_rel = (d_sq / g_sq) ** 0.5
+    s_errs = [_scaled_err(b["stats"][k], v) for b in bn
+              for k, v in want_s.items()]
+    bn_l_err, bn_l_ok = _scaled_err(torch.tensor(ranks[0]["bn_losses"]),
+                                    torch.tensor(losses))
+    bn_ok = (bn_rel <= FP32_TOL[0] and bn_l_ok
+             and all(o for _, o in s_errs) and len(s_errs) == 2 * 26
+             and set(bn[0]["grads"]) == set(want_g))
+    print(f"files: ddp (b) UPernet, batch {DDP_BN_BATCH // 2} a rank "
+          f"against one process at batch {DDP_BN_BATCH}, {DDP_BN_STEPS} "
+          f"step (lr 1e-3): losses "
+          f"{ranks[0]['bn_losses']} / {ranks[1]['bn_losses']} vs {losses}"
+          f" (max abs err {bn_l_err:.3e}), the step's all-reduced "
+          f"gradient relative err {bn_rel:.3e} (norm, <= {FP32_TOL[0]}), "
+          f"{len(want_s)} running statistics on both ranks max abs err "
+          f"{max(e for e, _ in s_errs):.3e} (fp32 tier) "
+          f"{'ok' if bn_ok else 'FAIL'}", flush=True)
+    if not bn_ok:
+        raise AssertionError("ddp (b): UPernet under two ranks differs "
+                             "from one process")
     out.update(ddp_gloo_s_step=max(r["seconds"][-1] for r in ranks),
                ddp_one_s_step=one["seconds"][-1], ddp_grad_bytes=grad_bytes,
-               ddp_grad_rel_err=g_rel)
+               ddp_grad_rel_err=g_rel, ddp_bn_grad_rel_err=bn_rel)
     print(f"files: ddp part {time.perf_counter() - t_part:.1f}s", flush=True)
     return out
 
@@ -3075,8 +3493,9 @@ def ckpt_part(device, cfg, tmp):
     twice from the same seeded state: the same bits or not. Run A: 2
     epochs with async saves, K1-K5 launched. Run B: `--steps 2` (epoch 1),
     then `-c` (epoch 2): its weights, AdamW state and step against A's,
-    bit for bit when the card's step reruns bit for bit, else at the fp32
-    tier. The epochs on disk after each run against the retention policy.
+    bit for bit (the step reruns bit for bit: the convolutions are
+    deterministic, ROADMAP C10). The epochs on disk after each run
+    against the retention policy.
     `eval.main -e last` and `-e 1-` on A's checkpoints: the mIoU the
     train-time evaluation logged for each epoch, K1 / K2 and no backward
     kernel. `--pretrained`: a released-scheme VMamba trunk at sigma_tiny
@@ -3135,8 +3554,12 @@ def ckpt_part(device, cfg, tmp):
     bitwise = all(torch.equal(v, after[1][k]) for k, v in after[0].items())
     print(f"files: ckpt: a train step on the card, run twice from the same "
           f"state and batch, gives {'the same' if bitwise else 'other'} "
-          f"bits ({len(after[0])} tensors)", flush=True)
+          f"bits ({len(after[0])} tensors; cuDNN deterministic, ROADMAP "
+          f"C10)", flush=True)
     del after
+    if not bitwise:
+        raise AssertionError("ckpt: a train step with deterministic "
+                             "convolutions does not rerun bit for bit")
     torch.cuda.empty_cache()
 
     _reset_launches()
@@ -3173,14 +3596,12 @@ def ckpt_part(device, cfg, tmp):
     same = all(torch.equal(v, saved["b"][k]) for k, v in saved["a"].items())
     errs = [_scaled_err(saved["b"][k], v) for k, v in saved["a"].items()]
     worst, tier = max(e for e, _ in errs), all(ok for _, ok in errs)
-    held = same if bitwise else tier
     print(f"files: ckpt: B (--steps 2, then -c) against A at epoch 2, "
           f"{len(saved['a'])} tensors (weights and AdamW moments), step "
           f"{meta['b']['step']}: {'equal bit for bit' if same else 'differ'}"
           f", max abs err {worst:.3e}, within the fp32 tier: {tier}; held "
-          f"to {'bit for bit' if bitwise else 'the fp32 tier'} "
-          f"{'ok' if held else 'FAIL'}", flush=True)
-    if not held:
+          f"to bit for bit {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
         raise AssertionError("ckpt: the resumed run differs from A")
     d = os.path.join(cks["a"], "epoch-2")
     mib = sum(os.path.getsize(os.path.join(d, n))
@@ -3247,7 +3668,7 @@ def ckpt_part(device, cfg, tmp):
         ckpt_bg_write_s=float(np.mean(rec_a["bg_write_s"])),
         ckpt_mib=mib, ckpt_restore_s=rec_b2["restore_s"][0],
         ckpt_s_step=[r["s_step"] for r in (rec_a, rec_b1, rec_b2, rec_p)],
-        ckpt_resume="bit for bit" if bitwise else "the fp32 tier")
+        ckpt_resume="bit for bit")
     print(f"files: ckpt part {time.perf_counter() - t_part:.1f}s: save "
           f"blocking {out['ckpt_save_async_s']:.4f}s async (the host copy) "
           f"/ {out['ckpt_save_sync_s']:.4f}s sync, background write "
@@ -3535,6 +3956,8 @@ def main() -> int:
     # and a bf16 product accumulates in fp32 and rounds once, as the
     # reference's does: cuBLAS may otherwise sum split-K partials in bf16
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # deterministic convolutions, as the train CLI sets them (ROADMAP C10)
+    torch.backends.cudnn.deterministic = True
     device = torch.device("cuda", 0)
 
     t_start = time.perf_counter()
@@ -3551,6 +3974,9 @@ def main() -> int:
     launches, train_timing = train_phase(device)
     bf16_train_timing = bf16_train_phase(device)
     bf16_cross_check(device)
+    decoders = decoders_phase(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        determinism = determinism_part(device, tmp)
     files = files_phase(device)
     # last, so that its large calls precede no timed phase
     if body_bits_check(device):
@@ -3636,7 +4062,8 @@ def main() -> int:
     print(f"summary: JPEG (files phase, no cv2): the fixtures equal "
           f"cv2.imread's digests; a 480x640 4:2:0 q95 decode "
           f"{files['jpeg_ms_rgb']:.2f} host ms RGB, "
-          f"{files['jpeg_ms_gray']:.2f} gray; 8 threads "
+          f"{files['jpeg_ms_gray']:.2f} gray, progressive "
+          f"{files['jpeg_ms_prog']:.2f} RGB; 8 threads "
           f"{files['jpeg_threads_speedup']:.2f}x one; the NYU-protocol "
           f"eval CLI read its RGB from JPEG")
     print(f"summary: data parallel (files phase, sigma_tiny 480x640 fp32, "
@@ -3644,8 +4071,25 @@ def main() -> int:
           f"{files['ddp_cli_s_step']:.4f} s/step; 2 gloo ranks on one card "
           f"{files['ddp_gloo_s_step']:.4f} s/step against one process "
           f"{files['ddp_one_s_step']:.4f}, all-reduced gradient within "
-          f"{files['ddp_grad_rel_err']:.3e} of its norm; "
+          f"{files['ddp_grad_rel_err']:.3e} of its norm (UPernet, "
+          f"global-batch BatchNorm: {files['ddp_bn_grad_rel_err']:.3e}); "
           f"{files['ddp_grad_bytes']} gradient bytes all-reduced a step")
+    for name, d in decoders.items():
+        print(f"summary: decoders: sigma_tiny/{name} MFNet 480x640 fp32 "
+              f"train {d['s_step']:.4f} s/step at batch 2, peak "
+              f"{d['peak']:.3f} GiB; eval {d['img_s']:.4f} img/s, peak "
+              f"{d['eval_peak']:.3f} GiB")
+    det = {r["setting"]: r for r in determinism}
+    print(f"summary: determinism (ROADMAP C10, sigma_tiny fp32 batch 2): "
+          f"default {det['default']['grads_moved']} of "
+          f"{det['default']['grads']} gradients rerun with other bits, "
+          f"{det['default']['s_step']:.4f} s/step; cudnn.deterministic "
+          f"{det['cudnn.deterministic']['grads_moved']} moved, "
+          f"{det['cudnn.deterministic']['s_step']:.4f} s/step; "
+          f"use_deterministic_algorithms "
+          f"{det['use_deterministic_algorithms']['grads_moved']} moved, "
+          f"{det['use_deterministic_algorithms']['s_step']:.4f} s/step, "
+          f"raised {det['use_deterministic_algorithms']['raised']!r}")
     print(f"summary: checkpoints (files phase, sigma_tiny fp32 batch 2): "
           f"save blocking {files['ckpt_save_async_s']:.4f}s async / "
           f"{files['ckpt_save_sync_s']:.4f}s sync, background write "
@@ -3665,4 +4109,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(_ddp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--determinism-worker"]:
+        sys.exit(_determinism_worker(sys.argv[2:]))
     sys.exit(main())

@@ -9,6 +9,15 @@
 //     stuffing, fill bytes; a segment that runs out of data is padded
 //     with zero bits, and the MCUs after the one that needed the padding
 //     stay zero (uniform gray) until the next restart (jdhuff.c);
+//   * progressive Huffman frames (SOF2) as jdphuff.c decodes them: DC
+//     first and refinement scans, AC first scans with EOB runs, AC
+//     refinement scans (correction bits, the zero-run rules), spectral
+//     selection and successive approximation, restart intervals in every
+//     scan type (the EOB run reset too), the MCUs after a segment ran out
+//     left as they were. The whole file is read before the IDCT, as
+//     jpeg_start_decompress reads a multi-scan file; libjpeg smooths the
+//     blocks (jdcoefct.c) only where coefficients 1-9 of a component are
+//     not yet complete at that point, and such a file raises here;
 //   * dequantisation and the accurate integer IDCT, jidctint.c's
 //     jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2), clamped to 0..255
 //     after the +128 level shift;
@@ -112,6 +121,9 @@ void build_huff(Huff& h, const uint8_t* bits, const uint8_t* vals, int n,
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
+  // bits of each coefficient not yet sent by a progressive scan (the
+  // last scan's Al), -1 before any scan (libjpeg's coef_bits)
+  int coef_bits[64];
   int bw = 0, bh = 0;    // block grid (padded to whole MCUs)
   int dw = 0, dh = 0;    // downsampled size (real samples)
   bool latched = false;  // quant table copied at the first scan
@@ -253,7 +265,7 @@ struct Decoder {
   long pos = 0;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;
-  bool frame = false;
+  bool frame = false, progressive = false;
   int restart_interval = 0;
   Component comp[4];
   uint16_t qt[4][64];
@@ -294,8 +306,9 @@ struct Decoder {
     }
   }
 
-  void read_sof(long end) {
+  void read_sof(long end, bool prog) {
     if (frame) fail("two frame headers");
+    progressive = prog;
     int precision = byte();
     height = word();
     width = word();
@@ -325,13 +338,13 @@ struct Decoder {
       c.dw = (int)(((long)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((long)height * c.v + vmax - 1) / vmax);
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     frame = true;
   }
 
-  void decode_block(Bits& br, Component& c, int bx, int by, int& pred,
-                    const Huff& hd, const Huff& ha) {
-    int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+  void decode_block(Bits& br, int16_t* blk, int& pred, const Huff& hd,
+                    const Huff& ha) {
     int s = br.decode(hd);
     int diff = s ? extend((int)br.get(s), s) : 0;
     pred += diff;
@@ -350,6 +363,86 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c's four progressive block decoders
+  static void dc_first(Bits& br, int16_t* blk, int& pred, const Huff& hd,
+                       int al) {
+    int s = br.decode(hd);
+    pred += s ? extend((int)br.get(s), s) : 0;
+    blk[0] = (int16_t)((unsigned)pred << al);
+  }
+
+  static void dc_refine(Bits& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  static void ac_first(Bits& br, int16_t* blk, const Huff& ha, int ss,
+                       int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int v = extend((int)br.get(s), s);
+        blk[kNatural[k]] = (int16_t)((unsigned)v << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += (int)br.get(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  // a correction bit raises the magnitude of a coefficient already
+  // nonzero by one in bit al, unless an earlier pass of this scan did
+  static void correct(Bits& br, int16_t& c, int p1, int m1) {
+    if (br.get(1) && (c & p1) == 0) c = (int16_t)(c + (c >= 0 ? p1 : m1));
+  }
+
+  static void ac_refine(Bits& br, int16_t* blk, const Huff& ha, int ss,
+                        int se, int al, int& eobrun) {
+    int p1 = 1 << al, m1 = (int)(~0u << al);
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = br.decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient: its sign (size 1)
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += (int)br.get(r);
+          break;  // the band's rest is the EOB run's
+        }
+        // over the nonzero coefficients (a correction bit each) and r
+        // zero ones, to the zero one that takes s
+        do {
+          int16_t& c = blk[kNatural[k]];
+          if (c != 0) {
+            correct(br, c, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t& c = blk[kNatural[k]];
+        if (c != 0) correct(br, c, p1, m1);
+      }
+      eobrun--;
+    }
+  }
+
   // one scan; `pos` is just past its header
   void read_scan(long hdr_end) {
     if (!frame) fail("a scan before the frame header");
@@ -365,10 +458,25 @@ struct Decoder {
       td[i] = t >> 4;
       ta[i] = t & 15;
       if (td[i] > 3 || ta[i] > 3) fail("bad Huffman table id");
-      if (!dc[td[i]].defined || !ac[ta[i]].defined)
-        fail("scan uses an undefined Huffman table");
     }
-    pos = hdr_end;  // Ss, Se, Ah/Al are those of a sequential scan
+    int ss = byte(), se = byte(), ahl = byte();
+    int ah = ahl >> 4, al = ahl & 15;
+    pos = hdr_end;  // a sequential scan's Ss, Se, Ah / Al mean nothing
+    bool dc_band = ss == 0;
+    if (progressive) {
+      // jdphuff.c start_pass_phuff_decoder: the legal progressions
+      bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13 || bad)
+        fail("bad progression: Ss %d Se %d", ss, se);
+    }
+    for (int i = 0; i < ns; i++) {
+      bool need_dc = !progressive || (dc_band && ah == 0);
+      bool need_ac = !progressive || !dc_band;
+      if ((need_dc && !dc[td[i]].defined) || (need_ac && !ac[ta[i]].defined))
+        fail("scan uses an undefined Huffman table");
+      if (progressive)
+        for (int k = ss; k <= se; k++) comp[idx[i]].coef_bits[k] = al;
+    }
     for (int i = 0; i < ns; i++) {
       Component& c = comp[idx[i]];
       if (!c.latched) {
@@ -385,6 +493,7 @@ struct Decoder {
     br.p = data + pos;
     br.end = data + size;
     int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int next_rst = 0;
     int togo = restart_interval;
     // non-interleaved: one block per MCU over the component's own grid
@@ -411,23 +520,34 @@ struct Decoder {
           }
           next_rst = (next_rst + 1) & 7;
           for (int& x : pred) x = 0;
+          eobrun = 0;
           togo = restart_interval;
           if (br.marker == 0) br.insufficient = false;
         }
         togo--;
       }
-      if (br.insufficient) continue;  // the MCU stays zero
+      // out of data: a sequential MCU stays zero, a progressive one as
+      // the earlier scans left it
+      if (br.insufficient) continue;
       int mx = (int)(m % units_x), my = (int)(m / units_x);
       for (int i = 0; i < ns; i++) {
         Component& c = comp[idx[i]];
-        if (ns == 1) {
-          decode_block(br, c, mx, my, pred[i], dc[td[i]], ac[ta[i]]);
-          continue;
-        }
-        for (int yy = 0; yy < c.v; yy++)
-          for (int xx = 0; xx < c.h; xx++)
-            decode_block(br, c, mx * c.h + xx, my * c.v + yy, pred[i],
-                         dc[td[i]], ac[ta[i]]);
+        int reps_y = ns == 1 ? 1 : c.v, reps_x = ns == 1 ? 1 : c.h;
+        for (int yy = 0; yy < reps_y; yy++)
+          for (int xx = 0; xx < reps_x; xx++) {
+            int bx = mx * reps_x + xx, by = my * reps_y + yy;
+            int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+            if (!progressive)
+              decode_block(br, blk, pred[i], dc[td[i]], ac[ta[i]]);
+            else if (dc_band && ah == 0)
+              dc_first(br, blk, pred[i], dc[td[i]], al);
+            else if (dc_band)
+              dc_refine(br, blk, al);
+            else if (ah == 0)
+              ac_first(br, blk, ac[ta[i]], ss, se, al, eobrun);
+            else
+              ac_refine(br, blk, ac[ta[i]], ss, se, al, eobrun);
+          }
       }
     }
     // marker parsing resumes at the marker that ended the segment
@@ -454,7 +574,8 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_sof(end);
+        case 0xC2:
+          read_sof(end, m == 0xC2);
           break;
         case 0xC4:
           read_dht(end);
@@ -468,7 +589,7 @@ struct Decoder {
         case 0xDA:
           read_scan(end);
           continue;  // pos is at the marker after the scan
-        case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
+        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
         case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
           fail("unsupported frame type SOF marker 0x%02x", m);
         default:
@@ -477,6 +598,21 @@ struct Decoder {
       pos = end;
     }
     if (!frame) fail("no frame header");
+    // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a file whose
+    // scans left coefficients 1-9 of a component short, when every
+    // component has a DC scan and nonzero quantizers for them
+    bool smooth = progressive, useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Component& c = comp[i];
+      if (!c.latched || c.coef_bits[0] < 0) smooth = false;
+      for (int k = 0; k < 10; k++) {
+        if (c.latched && c.q[kNatural[k]] == 0) smooth = false;
+        if (k && c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    if (smooth && useful)
+      fail("progressive scans end before the first 10 coefficients are "
+           "complete (libjpeg's block smoothing is not ported)");
   }
 };
 

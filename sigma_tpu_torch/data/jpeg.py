@@ -5,8 +5,9 @@
 order, or `IMREAD_GRAYSCALE`, bit for bit, for what libjpeg-turbo decodes
 with its default parameters:
 
-  * baseline and extended sequential Huffman JPEG (SOF0 / SOF1), 8-bit
-    samples, 1 or 3 components, any sampling factors;
+  * baseline and extended sequential Huffman JPEG (SOF0 / SOF1) and
+    progressive Huffman JPEG (SOF2), 8-bit samples, 1 or 3 components,
+    any sampling factors;
   * the colour space guessed as libjpeg's `default_decompress_parms`
     guesses it: a JFIF marker means YCbCr, an Adobe marker's transform 0
     RGB and 1 YCbCr, else component ids 'R', 'G', 'B' mean RGB, else
@@ -22,9 +23,10 @@ conversion are `csrc/jpeg_decode.cpp` (host C++, plain C interface),
 built with g++ at first use into `build/sigma_tpu_torch/` (listed in
 .gitignore) and loaded with ctypes, which releases the GIL for the call,
 so the loader's threads decode in parallel. A missing compiler raises.
-Progressive, arithmetic-coded, lossless, 12-bit and 4-component files
-raise a ValueError naming the file (ROADMAP C8), and so does a damaged
-one.
+Arithmetic-coded, lossless, 12-bit and 4-component files raise a
+ValueError naming the file (ROADMAP C8), and so does a damaged one, and a
+progressive one whose scans stop before its first 10 coefficients are
+complete (libjpeg would smooth its blocks).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ _BUILD_LOCK = threading.Lock()
 
 # SOF markers the port does not decode, and what they are
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+    0xC3: "lossless", 0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless",
     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless",
@@ -152,7 +154,7 @@ def _header(path, data: bytes):
             raise _unsupported(path, _UNSUPPORTED_SOF[m])
         if m == 0xCC:
             raise _unsupported(path, "arithmetic-coded")
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             if len(seg) < 6:
                 raise ValueError(f"{path}: damaged JPEG: short frame "
                                  "header (ROADMAP C8)")

@@ -87,12 +87,20 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
                     norm_std=None, dropout_seed: int = 0) -> Callable:
     """Returns train_step(state, batch) -> loss (a 0-d device tensor).
 
+    The loss is the JAX step's: the main head's CE, plus each
+    deep-supervision head's CE at unit weight, or plus `model.aux_rate`
+    times the FCN aux head's CE (`model(rgb, modal_x, return_aux=True)`
+    gives (logits, aux)). The model runs in train mode: BatchNorm
+    normalises with the batch's statistics (the global batch's in a
+    data-parallel rank) and moves its running statistics once a step.
+
     batch: {"data": (B,H,W,3), "modal_x": (B,H,W,3), "label": (B,H,W)}
     numpy or tensors, uint8 with "margins" or float. The update with
     0-based index k = state.step uses lr schedule(k) (optax's count
     convention). DropPath draws from generators seeded by
     (dropout_seed, k), the counterpart of fold_in(rng, step); the CLI
-    passes cfg.seed + 1 as the JAX trainer does.
+    passes cfg.seed + 1 as the JAX trainer does. The decoders' dropout
+    draws the same way (models/common.py::Dropout).
 
     Made in a rank of data-parallel training (`dist.data_parallel()`),
     the step is that rank's: its batch is its shard of the global batch,
@@ -107,8 +115,13 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     shard, shards = rank(), world()
     net = model
     if parallel:
+        # BatchNorm's statistics are the global batch's on every rank
+        # (models/norm.py), so its running buffers agree without DDP's
+        # broadcast of rank 0's
         net = DistributedDataParallel(
-            model, device_ids=[device.index] if device.type == "cuda" else None)
+            model,
+            device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False)
 
     def train_step(state: TrainState, batch):
         lr = float(schedule(state.step))
@@ -120,7 +133,15 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
                             rows=(shard * b, b, shards * b))
         net.train()
         opt.zero_grad(set_to_none=True)
-        share = segmentation_loss(net(rgb, mx), labels, sharded=parallel)
+        logits, aux = net(rgb, mx, return_aux=True)
+        share = segmentation_loss(logits, labels, sharded=parallel)
+        if isinstance(aux, list):  # deep-supervision heads, unit weight
+            for a in aux:
+                share = share + segmentation_loss(a, labels,
+                                                  sharded=parallel)
+        elif aux is not None:  # the FCN aux head, at the model's aux_rate
+            share = share + model.aux_rate * segmentation_loss(
+                aux, labels, sharded=parallel)
         # DDP averages the ranks' gradients: scaled by the world size,
         # their average is the gradient of the global mean (the shares' sum)
         (share * shards).backward()

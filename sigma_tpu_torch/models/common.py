@@ -136,15 +136,50 @@ class DropPath(nn.Module):
         return x * mask / keep
 
 
+class Dropout(nn.Module):
+    """Element-wise dropout (flax nn.Dropout): each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); the identity in
+    eval mode or at rate 0.
+
+    Seeded as DropPath is (`set_drop_path_seeds`): a generator on the
+    input's device made anew in each call from `seed` draws the mask of
+    the whole global batch (`rows[2]` samples) and the call keeps its own
+    rows, so a mask is a function of (seed, step, module, global sample
+    index) alone. With no seed set it draws from the global generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.seed = None
+        self.rows = None  # (offset, local batch, global batch)
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        if self.seed is None:
+            mask = torch.empty(x.shape, device=x.device).bernoulli_(keep)
+        else:
+            n = x.shape[0]
+            offset, _, total = self.rows or (0, n, n)
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(self.seed)
+            mask = torch.empty((total,) + x.shape[1:], device=x.device
+                               ).bernoulli_(keep, generator=gen)
+            mask = mask[offset:offset + n]
+        return x * mask.to(x.dtype) / keep
+
+
 def set_drop_path_seeds(model: nn.Module, seed: int, step: int,
                         rows) -> None:
-    """Seed every DropPath of `model` for one train step: module i draws
-    from streams of its own, a fixed mix of (seed, step, i). `rows`:
-    (offset, local batch, global batch) of this process's samples in the
-    global batch ((0, b, b) in one process)."""
+    """Seed every DropPath and Dropout of `model` for one train step:
+    module i (in module order) draws from streams of its own, a fixed mix
+    of (seed, step, i). `rows`: (offset, local batch, global batch) of
+    this process's samples in the global batch ((0, b, b) in one
+    process)."""
     base = (seed * 1_000_003 + step) % 2**62
     for i, m in enumerate(x for x in model.modules()
-                          if isinstance(x, DropPath)):
+                          if isinstance(x, (DropPath, Dropout))):
         m.seed = (base * 65_537 + i) % 2**62
         m.rows = rows
 

@@ -9,12 +9,21 @@ into the 1x1 classifier, so the full-resolution work is num_classes + 3
 maps instead of C channels; the math is exact. `dtype` is the compute
 dtype of the linears and blocks (models/common.py); the head returns its
 logits in it, as the JAX head does.
+
+Deep supervision (`deep_supervision`, the JAX decoder's aux heads): a
+LayerNorm `norm_ds_i` taps the output of `layers_up_0..2` and a
+bias-free 1x1 classifier `output_ds_i` turns it into logits at the input
+resolution. JAX resizes the tap x16 / x8 / x4 and then classifies; the
+port classifies at the tap's resolution and resizes the class maps,
+which is the same linear map (the classifier acts per pixel, the resize
+per channel) on num_classes channels instead of C.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sigma_tpu_torch.models.common import (
@@ -171,10 +180,6 @@ class MambaDecoder(nn.Module):
                  d_state=4, ssm_ratio=2.0, drop_path_rate=0.1,
                  deep_supervision=False, remat=True, dtype=torch.float32):
         super().__init__()
-        if deep_supervision:
-            raise NotImplementedError(
-                "MambaDecoder deep supervision is not ported (off in every "
-                "config); see ROADMAP.md queue A item A7")
         n = len(depths)
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
         layers = [PatchExpand(embed_dim * 2 ** (n - 1), dtype)]
@@ -189,15 +194,42 @@ class MambaDecoder(nn.Module):
         self.norm_up = LayerNorm(embed_dim)
         self.up = FinalUpsampleX4(embed_dim, dtype)
         self.output = nn.Conv2d(embed_dim, num_classes, 1, bias=False)
+        self.deep_supervision = deep_supervision
+        self.compute_dtype = dtype
+        if deep_supervision:  # taps after layers_up_0 .. n-2
+            for i in range(n - 1):
+                dim = embed_dim * 2 ** (n - 2 - i)
+                setattr(self, f"norm_ds_{i}", LayerNorm(dim))
+                setattr(self, f"output_ds_{i}",
+                        nn.Conv2d(dim, num_classes, 1, bias=False))
 
-    def forward(self, inputs):
+    def forward(self, inputs, aux: bool = False):
+        """Logits at 4x the stride-4 map; with `aux` and deep supervision,
+        (logits, [the deep-supervision heads' logits]) at 16x, 8x and 4x
+        their taps' resolutions."""
         n = len(self.layers_up)
+        taps = aux and self.deep_supervision
+        ds = []
         y = self.layers_up[0](inputs[n - 1])
         for i in range(1, n):
+            if taps:
+                ds.append(self._ds_head(i - 1, y))
             skip = inputs[n - 1 - i]
             h, w = skip.shape[1:3]
             if y.shape[1:3] != (h, w):  # odd sizes (PST900)
                 y = resize_bilinear(y, h, w)
             y = self.layers_up[i](y + skip)
         w_out = self.output.weight[:, :, 0, 0].t()  # (C, nc)
-        return self.up(self.norm_up(y), w_out)
+        logits = self.up(self.norm_up(y), w_out)
+        return (logits, ds) if taps else logits
+
+    def _ds_head(self, i, y):
+        """Deep-supervision head i on its tap y: LayerNorm, the 1x1
+        classifier in the compute dtype, then the x2^(4-i) bilinear
+        resize of the class maps in fp32."""
+        dt = self.compute_dtype
+        w = getattr(self, f"output_ds_{i}").weight[:, :, 0, 0]
+        z = F.linear(getattr(self, f"norm_ds_{i}")(y).to(dt), w.to(dt))
+        scale = 2 ** (4 - i)
+        _, h, wd, _ = z.shape
+        return resize_bilinear(z.float(), h * scale, wd * scale).to(dt)

@@ -75,6 +75,30 @@ def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """y = the sum of x over the ranks; its backward sums the ranks'
+    incoming gradients, since every rank's y depends on every rank's x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM)
+        return grad
+
+
+def all_reduce_sum_autograd(tensor: torch.Tensor) -> torch.Tensor:
+    """The sum of `tensor` over the ranks (a new tensor) as a
+    differentiable op: global-batch BatchNorm statistics
+    (models/norm.py)."""
+    return _AllReduceSum.apply(tensor) if data_parallel() else tensor
+
+
 def barrier() -> None:
     if data_parallel():
         dist.barrier()

@@ -96,6 +96,8 @@ def main(argv=None) -> int:
     # and a bf16 product accumulates in fp32 and rounds once, as the
     # reference's does: cuBLAS may otherwise sum split-K partials in bf16
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # the train CLI's deterministic convolutions (ROADMAP C10)
+    torch.backends.cudnn.deterministic = True
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator

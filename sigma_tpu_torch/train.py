@@ -115,6 +115,10 @@ def _train(args, device) -> int:
     # and a bf16 product accumulates in fp32 and rounds once, as the
     # reference's does: cuBLAS may otherwise sum split-K partials in bf16
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # and a step reruns bit for bit, so -c resumes the run it continues:
+    # cuDNN's default backward algorithms for the convolutions are not
+    # deterministic (ROADMAP C10)
+    torch.backends.cudnn.deterministic = True
 
     from sigma_tpu_torch.configs import get_config
     from sigma_tpu_torch.data import RGBXDataset, TrainLoader, TrainPre, ValPre

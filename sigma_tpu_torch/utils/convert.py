@@ -12,8 +12,13 @@ the reference torch scheme. It is the inverse of the key map of
                                    -> Conv2d weight (O, I, 1, 1)
   x_proj_weight (K, D, C)          -> (K, C, D)
   dt_projs_weight (K, R, D)        -> (K, D, R)
-  LayerNorm scale / bias           -> weight / bias
+  LayerNorm / BatchNorm scale, bias -> weight / bias
+  BatchNorm batch_stats mean / var -> running_mean / running_var
   nn.scan-stacked stage leaves     -> one tensor per block
+
+The decoders that the reference never trained (SURVEY.md: its non-Mamba
+decoders raise) keep the JAX tree's module names (`decode_head.psp.
+scale_0.conv.weight`, `aux_head.conv.bn.running_var`, ...).
 
 The ingest half is the port's copy of the JAX package's (its
 `load_torch_state_dict`, `_strip`, `_torch_candidates`,
@@ -93,7 +98,8 @@ def _flatten(tree, prefix=()):
 
 def _transform(path: str, leaf: str, ndim: int):
     if leaf == "kernel":
-        if "conv_blk/attn/" in path or path.startswith("decode_head/output/"):
+        if "conv_blk/attn/" in path or re.match(
+                r"decode_head/output(_ds_\d+)?/", path):
             return _CONV1x1
         return _CONV if ndim == 4 else _T
     if leaf in ("x_proj_weight", "dt_projs_weight"):
@@ -109,13 +115,21 @@ def _torch_key(path: str) -> str:
     return path.replace("/", ".")
 
 
-def state_dict_from_jax(params, model: nn.Module | None = None):
-    """JAX EncoderDecoder params -> the port's state_dict (fp32 tensors).
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def state_dict_from_jax(params, model: nn.Module | None = None,
+                        batch_stats=None):
+    """JAX EncoderDecoder params (and, for a BatchNorm decoder, its
+    `batch_stats` collection) -> the port's state_dict (fp32 tensors).
 
     Every JAX leaf maps to exactly one key. With `model`, the keys must
     equal the model's state_dict keys: a port key left unfilled or a JAX
     leaf left unused raises KeyError naming them."""
     out = {}
+    for parts, w in _flatten(batch_stats or {}):
+        key = _torch_key("/".join(parts[:-1])) + "." + _STATS[parts[-1]]
+        out[key] = torch.from_numpy(np.array(w, dtype=np.float32))
 
     def put(path, w):
         key = _torch_key(path)

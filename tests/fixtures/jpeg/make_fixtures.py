@@ -3,7 +3,9 @@ digests (needs cv2):
 
     python tests/fixtures/jpeg/make_fixtures.py
 
-Each file is written by `cv2.imwrite` from a seeded image; `digests.json`
+Each file is written by `cv2.imwrite` from a seeded image (the `prog_*`
+ones with IMWRITE_JPEG_PROGRESSIVE: libjpeg-turbo's default progression
+of spectral selection and successive approximation); `digests.json`
 holds the sha256 of `cv2.imread`'s array for each file, colour (in RGB
 order, as the readers return it) and gray, so that a host without cv2 can
 hold the port's decoder to cv2's.
@@ -41,7 +43,7 @@ def scene(h, w, seed):
 
 
 # name: (height, width, sampling or None for 1 component, quality,
-# restart interval, seed)
+# restart interval, seed[, progressive])
 CASES = {
     "s444_q95_37x53": (37, 53, "444", 95, 0, 1),
     "s422_q50_47x61": (47, 61, "422", 50, 0, 2),
@@ -50,6 +52,11 @@ CASES = {
     "gray_q95_37x53": (37, 53, None, 95, 0, 5),
     "scene_420_q95_480x640_a": (480, 640, "420", 95, 0, 6),
     "scene_420_q95_480x640_b": (480, 640, "420", 95, 0, 7),
+    "prog_gray_q90_37x53": (37, 53, None, 90, 0, 8, True),
+    "prog_s444_q95_47x61": (47, 61, "444", 95, 0, 9, True),
+    "prog_s420_q75_37x53": (37, 53, "420", 75, 0, 10, True),
+    "prog_s420_q50_47x61_rst2": (47, 61, "420", 50, 2, 11, True),
+    "prog_scene_420_q95_480x640": (480, 640, "420", 95, 0, 12, True),
 }
 
 
@@ -59,10 +66,12 @@ def digest(a):
 
 def main():
     out = {}
-    for name, (h, w, sampling, q, rst, seed) in CASES.items():
+    for name, (h, w, sampling, q, rst, seed, *prog) in CASES.items():
         img = scene(h, w, seed)
         params = [cv2.IMWRITE_JPEG_QUALITY, q,
                   cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+        if prog:
+            params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
         if sampling is None:
             img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
         else:

@@ -5,8 +5,10 @@ Dense / Conv casts its input and kernel to bf16, every LayerNorm promotes
 to fp32, the scans take bf16 io with fp32 state, the head returns bf16
 logits and the loss runs in fp32. The port holds the same policy on its
 layers (`sigma_tpu_torch/models/common.py`). Here the same seeded numpy
-inputs and the JAX modules' weights (carried by `state_dict_from_jax`) go
-through both, sigma_test widths:
+inputs and the port modules' seeded weights (`init_parameters`, moved
+into a JAX tree that jax.eval_shape laid out, so no JAX init is
+compiled, and back through `state_dict_from_jax`) go through both,
+sigma_test widths:
 
   * every module with a compute dtype, JAX with `dtype=bfloat16`: the
     outputs' dtypes equal JAX's and their values lie within the bf16 tier,
@@ -42,8 +44,9 @@ from sigma_tpu_torch.models import sigma_encoder as tencoder
 from sigma_tpu_torch.models import ss2d as tss2d
 from sigma_tpu_torch.models import vssm as tvssm
 from sigma_tpu_torch.models.decoders import mamba_decoder as tdecoder
+from sigma_tpu_torch.models.builder import init_parameters
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
-from _port_load import FAST_XLA
+from _port_load import FAST_XLA, jax_tree_from_port
 
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
@@ -91,10 +94,16 @@ def _load(module, params, wrap, strip):
 
 
 # ------------------------------------------------------------ modules
-def _jax_run(jm, xs, **kw):
+def _jax_run(jm, tm, xs, wrap, strip, **kw):
+    """(JAX params, JAX output) of `jm` holding the port module `tm`'s
+    seeded tensors (`init_parameters`: the same initialisers as the JAX
+    package's), laid out by jax.eval_shape, so no init is compiled; `tm`
+    comes back in eval mode."""
     xs = [jnp.asarray(x) for x in xs]
-    params = jax.jit(jm.init, compiler_options=FAST_XLA)(
-        jax.random.PRNGKey(0), *xs, **kw)["params"]
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *xs, **kw)
+    params = jax_tree_from_port(shapes["params"],
+                                init_parameters(tm, seed=0).eval(),
+                                wrap, strip)
     return params, jax.jit(lambda p, *a: jm.apply({"params": p}, *a, **kw),
                            compiler_options=FAST_XLA)(params, *xs)
 
@@ -172,8 +181,8 @@ def test_module_matches_jax_in_bf16(name):
     make_jax, make_port, shapes, (wrap, strip) = MODULES[name]
     xs = _inputs(len(shapes), shapes[0], seed=len(name))
     jm = make_jax()
-    params, want = _jax_run(jm, xs)
-    tm = _load(make_port(), params, wrap, strip)
+    params, want = _jax_run(jm, tm := make_port(), xs, wrap, strip)
+    _load(make_port(), params, wrap, strip)  # the key map round trip
     in_dtypes = [torch.float32]
     if name in ("VSSBlock", "CVSSDecoderBlock", "CrossMambaFusionBlock",
                 "ConcatMambaFusionBlock"):
@@ -201,9 +210,9 @@ def test_channel_attention_nchw_and_final_upsample_in_bf16():
     bf16, as JAX's head returns them."""
     (x,) = _inputs(1, (2, 4, 5, 32), seed=3)
     jm = jvssm.ChannelAttention(32, 8, dtype=jnp.bfloat16)
-    params, want = _jax_run(jm, [x])
-    tm = _load(tvssm.ChannelAttention(32, 8, dtype=BF16), params,
-               ["conv_blk", "attn"], "conv_blk.cab.3.")
+    tm = tvssm.ChannelAttention(32, 8, dtype=BF16)
+    params, want = _jax_run(jm, tm, [x], ["conv_blk", "attn"],
+                            "conv_blk.cab.3.")
     with torch.inference_mode():
         got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     _close_bf16(got, want)
@@ -211,9 +220,10 @@ def test_channel_attention_nchw_and_final_upsample_in_bf16():
     (x,) = _inputs(1, (2, 3, 4, 16), seed=4)
     w_out = _inputs(1, (16, 9), seed=5)[0] * 0.25
     jm = jdecoder.FinalUpsampleX4(16, dtype=jnp.bfloat16)
-    params, want = _jax_run(jm, [x], w_out=jnp.asarray(w_out))
+    tm = tdecoder.FinalUpsampleX4(16, dtype=BF16)
+    params, want = _jax_run(jm, tm, [x], ["m"], "m.",
+                            w_out=jnp.asarray(w_out))
     assert want.dtype == jnp.bfloat16
-    tm = _load(tdecoder.FinalUpsampleX4(16, dtype=BF16), params, ["m"], "m.")
     with torch.inference_mode():
         got = tm(torch.from_numpy(x), torch.from_numpy(w_out))
     _close_bf16(got, want)

@@ -35,7 +35,7 @@ from sigma_tpu.utils.convert import convert_sigma_full
 from sigma_tpu_torch.configs import get_config
 from sigma_tpu_torch.models.builder import build_model
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
-from _port_load import FAST_XLA
+from _port_load import FAST_XLA, JAX_SCAN_CHUNK
 
 TORCH_THREADS = 2
 H, W = 80, 64  # stride-32 height 2.5, as PST900's 720 gives 22.5
@@ -52,6 +52,7 @@ def _few_torch_threads():
 def _jax_cfg(bf16):
     cfg = jax_get_config("mfnet", backbone="sigma_test", bf16=bf16)
     object.__setattr__(cfg, "remat", False)
+    object.__setattr__(cfg, "scan_chunk", JAX_SCAN_CHUNK)
     return cfg
 
 
@@ -64,7 +65,7 @@ def logits():
     rgb, mx = (rng.standard_normal((1, H, W, 3)).astype(np.float32)
                for _ in range(2))
     out = {}
-    port_sd = None
+    port_sd = params = None
     for name, bf16 in (("fp32", False), ("bf16", True)):
         cfg = get_config("mfnet", backbone="sigma_test", bf16=bf16)
         port = build_model(cfg, device="cpu", seed=7)
@@ -76,14 +77,18 @@ def logits():
         assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
         out[("port", name)] = got.float().numpy()
         jm = jax_build_model(_jax_cfg(bf16))
-        shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
-                                jnp.asarray(rgb), jnp.asarray(mx))["params"]
-        zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
-        params, _, missing = convert_sigma_full(
-            zeros, {k: v.numpy() for k, v in port_sd.items()})
-        assert missing == []
-        # the weights went over whole: back through the port's bridge too
-        assert state_dict_from_jax(params, port).keys() == port_sd.keys()
+        if params is None:  # fp32 parameters in both: one tree serves
+            shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                                    jnp.asarray(rgb),
+                                    jnp.asarray(mx))["params"]
+            zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                                 shapes)
+            params, _, missing = convert_sigma_full(
+                zeros, {k: v.numpy() for k, v in port_sd.items()})
+            assert missing == []
+            # the weights went over whole: back through the port's bridge
+            assert state_dict_from_jax(params, port).keys() == \
+                port_sd.keys()
         want = jax.jit(jm.apply, compiler_options=FAST_XLA)(
             {"params": params}, jnp.asarray(rgb), jnp.asarray(mx))
         assert want.dtype == (jnp.bfloat16 if bf16 else jnp.float32)

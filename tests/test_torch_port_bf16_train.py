@@ -38,7 +38,7 @@ from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import DropPath
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
-from _port_load import FAST_XLA
+from _port_load import FAST_XLA, JAX_SCAN_CHUNK
 
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
@@ -105,6 +105,7 @@ def test_bf16_train_steps_match_jax():
     sd = port.state_dict()
     jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_test",
                            drop_path_rate=0.0, remat=False,
+                           scan_chunk=JAX_SCAN_CHUNK,
                            dtype=jnp.bfloat16)
     x = jnp.zeros((2, 32, 32, 3), jnp.float32)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(3), x, x)["params"]

@@ -21,6 +21,11 @@ gloo ranks under torchrun against one process with the same global batch.
   * the loss shares of the two ranks on a batch whose second shard is all
     ignored: they sum to JAX's `segmentation_loss` on the global batch,
     the ignored rank's is 0, and their gradients are JAX's gradient of it.
+  * global-batch BatchNorm: a sigma_test UPernet step in the same ranks
+    (three samples each) against one process at batch 6, the all-reduced
+    gradient within 1e-5 of its norm and both ranks' new running
+    statistics within 1e-5; a planted fault (each rank's statistics of
+    its own shard) fails that check.
 """
 
 import json
@@ -92,6 +97,8 @@ def runs(tmp_path_factory):
     ranks = [json.loads((base / "ddp_out" / f"rank{r}.json").read_text())
              for r in range(2)]
     grads = torch.load(base / "ddp_out" / "grads0.pt", weights_only=True)
+    bn_ranks = [grads.pop("bn_steps"), torch.load(
+        base / "ddp_out" / "grads1.pt", weights_only=True)["bn_steps"]]
     threads = torch.get_num_threads()
     torch.set_num_threads(TORCH_THREADS)
     try:
@@ -99,7 +106,8 @@ def runs(tmp_path_factory):
     finally:
         torch.set_num_threads(threads)
     return dict(base=base, tree=tree, ranks=ranks, grads=grads, one=one,
-                ddp=base / "ddp", single=base / "one", log=proc.stderr)
+                ddp=base / "ddp", single=base / "one", log=proc.stderr,
+                bn_ranks=bn_ranks)
 
 
 def _weights(log):
@@ -133,6 +141,35 @@ def test_two_ranks_equal_one_process(runs):
     assert e_ddp == e_one == 1 and m_ddp == m_one
 
 
+def _bn_gaps(rank_steps, one_step):
+    """(the all-reduced gradient's distance from one process's, relative
+    to its norm; the largest running-statistic difference over both
+    ranks) of one UPernet step."""
+    (grads, _), (want_g, want_s) = rank_steps[0], one_step
+    diff = sum(float((grads[k] - want_g[k]).double().pow(2).sum())
+               for k in want_g)
+    norm = sum(float(want_g[k].double().pow(2).sum()) for k in want_g)
+    stats = max(float((s[k] - want_s[k]).abs().max())
+                for _, s in rank_steps for k in want_s)
+    return (diff / norm) ** 0.5, stats
+
+
+def test_batchnorm_statistics_are_the_global_batchs(runs):
+    """UPernet (BatchNorm in every ConvBNReLU, UPerHead's 1x1 pool at
+    three values a channel on each rank): two ranks' step gives one
+    process's all-reduced
+    gradient (within GRAD_TOL of its norm) and, on both ranks, its new
+    running statistics (within TOL); the step with a planted fault, each
+    rank's statistics of its own shard, fails that check."""
+    one = runs["one"]["bn_steps"]["global"]
+    assert len(one[1]) == 26  # 13 BatchNorms, mean and var each
+    gaps = {case: _bn_gaps([r[case] for r in runs["bn_ranks"]], one)
+            for case in ("global", "per_shard")}
+    print(f"BatchNorm under two ranks (gradient, statistics): {gaps}")
+    assert gaps["global"][0] <= GRAD_TOL and gaps["global"][1] <= TOL
+    assert gaps["per_shard"][0] > GRAD_TOL and gaps["per_shard"][1] > TOL
+
+
 def test_one_checkpoint_resumes_and_evaluates_in_one_process(
         runs, monkeypatch):
     from sigma_tpu_torch import eval as eval_cli
@@ -155,7 +192,7 @@ def test_one_checkpoint_resumes_and_evaluates_in_one_process(
             argv = _argv(runs["tree"], log)
             argv[argv.index("--steps") + 1] = "1"
             rec = worker.run(str(runs["base"] / f"resumed{i}"),
-                             [*argv, "-c", "--no-eval"])
+                             [*argv, "-c", "--no-eval"], with_bn=False)
             resumed.append(rec["losses"])
             meta = json.loads((log / "checkpoint" / "epoch-2" /
                                "meta.json").read_text())

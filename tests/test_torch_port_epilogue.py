@@ -41,7 +41,7 @@ from sigma_tpu_torch.ops.merge_ln_gate import (
     merge_ln_gate_plain,
 )
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
-from _port_load import FAST_XLA
+from _port_load import FAST_XLA, JAX_SCAN_CHUNK
 
 ROOT = Path(__file__).resolve().parents[1]
 EPS = 1e-5
@@ -218,7 +218,8 @@ def test_encoder_decoder_sigma_mini_fused_golden_tier():
                 c = m.out_norm.weight.shape[0]
                 m.out_norm.weight.add_(0.1 * torch.randn(c, generator=gen))
                 m.out_norm.bias.copy_(0.1 * torch.randn(c, generator=gen))
-    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini", remat=False)
+    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini", remat=False,
+                           scan_chunk=JAX_SCAN_CHUNK)
     xz = jnp.zeros(rgb.shape, jnp.float32)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), xz, xz)["params"]
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)

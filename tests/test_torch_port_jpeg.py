@@ -4,17 +4,22 @@
   * the committed fixtures (`tests/fixtures/jpeg/`, written by
     `make_fixtures.py` with cv2.imwrite: sampling 4:4:4, 4:2:2 and 4:2:0,
     one component, a restart interval, 37x53 and 47x61, qualities 50 and
-    95, two 480x640 scenes) against the sha256 of `cv2.imread`'s arrays
-    recorded with them: no cv2 needed, as on the card's machine;
+    95, two 480x640 scenes; and progressive ones: one component, 4:4:4,
+    4:2:0, a restart interval, a 480x640 scene) against the sha256 of
+    `cv2.imread`'s arrays recorded with them: no cv2 needed, as on the
+    card's machine;
   * the dataset reader `_read` against the JAX package's reader
     (`sigma_tpu/data/dataset.py`: cv2.imread, colour and gray) bit for
     bit, tolerance 0, on the fixtures and on files written here: 4:4:0
     and 4:1:1, 1x1 and 16x17, restart intervals, files cut short inside
     their scan (with and without an EOI), every EXIF orientation in both
     byte orders, no JFIF marker with an Adobe transform 0 and with 'RGB'
-    component ids;
-  * progressive, arithmetic-coded, lossless, 12-bit and 4-component files
-    and damaged ones raise a ValueError naming the file and ROADMAP C8.
+    component ids; progressive 4:4:0, 4:1:1, 1x1, 16x17 with a restart
+    interval, and files cut short in their last scan;
+  * arithmetic-coded, lossless, 12-bit and 4-component files, damaged
+    ones, and a progressive one cut short before its first 10
+    coefficients are complete (libjpeg smooths its blocks) raise a
+    ValueError naming the file and ROADMAP C8.
 """
 
 import hashlib
@@ -83,14 +88,26 @@ def _rgb_ids(data):
     return bytes(b)
 
 
-def _cut(data, frac, eoi):
-    sos = data.find(b"\xff\xda")
+def _cut(data, frac, eoi, last_scan=False):
+    """`data` cut `frac` of the way into its first scan (or its last) and
+    ended with an EOI or not."""
+    sos = data.rfind(b"\xff\xda") if last_scan else data.find(b"\xff\xda")
     cut = sos + 14 + int(frac * (len(data) - sos - 14))
     return data[:cut] + (b"\xff\xd9" if eoi else b"")
 
 
-# name: (height, width, sampling, quality, restart interval, edit)
+# name: (height, width, sampling, quality, restart interval, edit[,
+# progressive])
 _LIVE = {
+    "prog_s440_q95_37x53": (37, 53, "440", 95, 0, None, True),
+    "prog_s411_q50_47x61": (47, 61, "411", 50, 0, None, True),
+    "prog_s420_q95_1x1": (1, 1, "420", 95, 0, None, True),
+    "prog_s422_q95_16x17_rst1": (16, 17, "422", 95, 1, None, True),
+    # libjpeg smooths no block: coefficients 1-9 are complete by then
+    "prog_s420_q95_cut_in_last_scan": (
+        47, 61, "420", 95, 0, lambda d: _cut(d, 0.5, False, True), True),
+    "prog_s420_q95_rst2_cut_in_last_scan_eoi": (
+        47, 61, "420", 95, 2, lambda d: _cut(d, 0.3, True, True), True),
     "s440_q95_37x53": (37, 53, "440", 95, 0, None),
     "s411_q50_47x61": (47, 61, "411", 50, 0, None),
     "s420_q95_1x1": (1, 1, "420", 95, 0, None),
@@ -113,11 +130,12 @@ _LIVE = {
 
 def _write_live(path, case):
     cv2 = pytest.importorskip("cv2")
-    h, w, sampling, q, rst, edit = case
+    h, w, sampling, q, rst, edit, *prog = case
     factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
     ok, buf = cv2.imencode(".jpg", _scene(h, w, h * w), [
         cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-        factor, cv2.IMWRITE_JPEG_RST_INTERVAL, rst])
+        factor, cv2.IMWRITE_JPEG_RST_INTERVAL, rst,
+        cv2.IMWRITE_JPEG_PROGRESSIVE, int(bool(prog))])
     assert ok
     data = buf.tobytes()
     path.write_bytes(edit(data) if edit else data)
@@ -157,9 +175,13 @@ def test_unsupported_and_damaged_files_raise_naming_the_file(tmp_path):
     cv2 = pytest.importorskip("cv2")
     img = _scene(21, 34, 0)
     base = cv2.imencode(".jpg", img)[1].tobytes()
+    progressive = cv2.imencode(
+        ".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     cases = {
-        "progressive": cv2.imencode(
-            ".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes(),
+        # cut in its third scan: libjpeg would smooth the blocks
+        "block smoothing": progressive[:progressive.find(
+            b"\xff\xda", progressive.find(b"\xff\xda", progressive.find(
+                b"\xff\xda") + 2) + 2) + 40],
         "arithmetic-coded": _patched(base, marker=0xC9),
         "lossless": _patched(base, marker=0xC3),
         "12-bit": _patched(base, precision=12),

@@ -26,7 +26,11 @@ from sigma_tpu_torch.models import ss2d as tss2d
 from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import resize_bilinear
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
-from _port_load import FAST_XLA, few_torch_threads  # noqa: F401 (a fixture)
+from _port_load import (  # noqa: F401 (few_torch_threads: a fixture)
+    FAST_XLA,
+    JAX_SCAN_CHUNK,
+    few_torch_threads,
+)
 
 
 def _np_tree(params):
@@ -87,7 +91,8 @@ def test_encoder_decoder_sigma_mini_golden_tier():
     port's. `test_torch_port_bridge.py` holds the converters' round trip
     on the same tree."""
     rgb, mx = _inputs(2, (1, 64, 80, 3), seed=123)
-    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini", remat=False)
+    jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_mini", remat=False,
+                           scan_chunk=JAX_SCAN_CHUNK)
     xz = jnp.zeros(rgb.shape, jnp.float32)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(42), xz, xz)["params"]
     zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
@@ -134,9 +139,7 @@ def test_resize_bilinear_matches_jax(hw, out):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncoderDecoder(9, "mit_b2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncoderDecoder(9, "sigma_test", decoder="MLPDecoder")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncoderDecoder(9, "sigma_test", deep_supervision=True)
+    """The MiT and Swin backbones wait for ROADMAP item A7c."""
+    for backbone in ("mit_b2", "swin_s"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A7c"):
+            EncoderDecoder(9, backbone)

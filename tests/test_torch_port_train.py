@@ -57,7 +57,7 @@ from sigma_tpu_torch.ops import merge_ln_gate as mlg
 from sigma_tpu_torch.models.vssm import VSSBlock
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
-from _port_load import FAST_XLA
+from _port_load import FAST_XLA, JAX_SCAN_CHUNK
 
 # torch's CPU threads per test process: the suite runs several processes
 # on the host's cores, and torch's default (one thread per core) in each
@@ -118,15 +118,16 @@ def test_warmup_poly_lr_matches_jax_at_every_step():
 
 
 class _PixelLinear(torch.nn.Module):
-    """(rgb, modal_x) -> per-pixel logits: a model small enough to test
-    the step's bookkeeping."""
+    """(rgb, modal_x) -> per-pixel logits, and no aux head: a model small
+    enough to test the step's bookkeeping."""
 
     def __init__(self):
         super().__init__()
         self.proj = torch.nn.Linear(6, 9)
 
-    def forward(self, rgb, mx):
-        return self.proj(torch.cat([rgb, mx], -1))
+    def forward(self, rgb, mx, return_aux=False):
+        logits = self.proj(torch.cat([rgb, mx], -1))
+        return (logits, None) if return_aux else logits
 
 
 def test_update_k_uses_schedule_k():
@@ -161,7 +162,8 @@ def jax_test_model():
     port's seeded weights, moved across by the JAX package's converter
     into a tree that jax.eval_shape laid out (no init is compiled)."""
     jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_test",
-                           drop_path_rate=0.0, remat=False)
+                           drop_path_rate=0.0, remat=False,
+                           scan_chunk=JAX_SCAN_CHUNK)
     x = jnp.zeros((2, 32, 32, 3), jnp.float32)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(3), x, x)["params"]
     zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)

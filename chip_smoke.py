@@ -137,14 +137,25 @@ its findings:
                 memory); then each at sigma_test 64x80 batch 6, one step
                 on the card against the CPU (loss, gradients, running
                 statistics at the fp32 tier).
- 10. determinism — ROADMAP C10: one sigma_tiny 480x640 batch-2 fp32 train
+ 10. backbones — the MiT and Swin dual encoders (FRM / FFM fusion) and
+                the VSSM classifier, fp32: swin_s + MambaDecoder and
+                mit_b2 + MLPDecoder at 480x640 built by build_train (the
+                first step rerun bit for bit, 3 steps at batch 2: s/step
+                and peak memory; a 4-image evaluation: img/s and peak
+                memory; K2 + K4 + K5 in Swin's training and K2 alone in
+                its eval, no scan kernel in MiT's); VSSMClassifier at
+                VMamba-T widths, 224x224 batch 8, a forward + backward
+                (ms, peak memory, K1-K5 launched) rerun bit for bit; then
+                each at the CPU tests' widths, one step card vs CPU at
+                the fp32 tier.
+ 11. determinism — ROADMAP C10: one sigma_tiny 480x640 batch-2 fp32 train
                 step rerun from the same state in a child process
                 (CUBLAS_WORKSPACE_CONFIG set) under PyTorch's default,
                 cudnn.deterministic, and use_deterministic_algorithms:
                 the gradients whose bits moved by kind of layer, what
                 raised or warned, s/step of each. The script, as the
                 train CLI, runs with cudnn.deterministic.
- 11. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
+ 12. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
                 = None`): first the JPEG decoder (`jpeg_part`: every
                 committed fixture, colour and gray, against the digests of
                 cv2.imread's arrays; host ms of a 480x640 decode, 8
@@ -191,7 +202,7 @@ its findings:
                 all-reduced gradient and both ranks' running statistics
                 against one process at the fp32 tier; s/step of each and
                 the gradient bytes all-reduced a step.
- 12. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
+ 13. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
                 phase.
@@ -2628,6 +2639,282 @@ def decoders_phase(device, steps=3):
     return out
 
 
+# the backbones phase: (backbone, decoder) at full width, built as the
+# train CLI builds them (`--override backbone=... decoder=...`)
+BACKBONE_CASES = (("swin_s", "MambaDecoder"), ("mit_b2", "MLPDecoder"))
+# VSSMClassifier at VMamba-T widths, 224x224, batch 8
+CLASSIFIER = dict(num_classes=1000, depths=(2, 2, 9, 2),
+                  dims=(96, 192, 384, 768), d_state=16)
+CLASSIFIER_BATCH = 8
+# the card-vs-CPU checks at the CPU tests' widths
+# (tests/test_torch_port_backbones.py): a Swin variant at 16-128
+# (registered for the phase only), mit_b0 with MLPDecoder at width 32,
+# the classifier at depths 1 and dims 16-128
+SWIN_CHECK = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                  window_size=4)
+BACKBONE_CHECKS = (("swin_check", "MambaDecoder", 512),
+                   ("mit_b0", "MLPDecoder", 32))
+CLASSIFIER_CHECK = dict(num_classes=10, depths=(1, 1, 1, 1),
+                        dims=(16, 32, 64, 128), d_state=8)
+
+
+def _no_dropout(model):
+    from sigma_tpu_torch.models.common import DropPath, Dropout
+
+    for m in model.modules():  # the CPU and CUDA generators differ
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    return model
+
+
+def _classifier_step(model, x, labels):
+    """Logits, loss and gradients of one forward + backward of `model`
+    (CE over the labels)."""
+    import torch.nn.functional as F
+
+    model.zero_grad(set_to_none=True)
+    logits = model(x)
+    loss = F.cross_entropy(logits.float(), labels)
+    loss.backward()
+    return logits.detach(), loss.detach()
+
+
+def backbones_phase(device, card, steps=3, reps=3):
+    """The MiT and Swin dual encoders and the VSSM classifier, fp32,
+    seeded. For each of BACKBONE_CASES at full width under the MFNet
+    preset (480x640, 9 classes), built by `build_train` as the train CLI
+    builds it: the first step run twice from the same state (loss, every
+    gradient and every BatchNorm buffer the same bits: Swin's bias gather
+    is a product, ROADMAP C10's convolutions deterministic); `steps`
+    steps at batch 2 with the launch counts zeroed before and read after
+    (s/step of the last two, peak memory); the model in eval mode through
+    SlidingEvaluator.run on four seeded images (img/s, peak memory). Swin
+    + MambaDecoder must launch K2 + K4 + K5 in training and K2 and no
+    backward kernel in eval; MiT + MLPDecoder no scan kernel. Then
+    VSSMClassifier at VMamba-T widths, 224x224, batch 8: a forward and a
+    backward (ms, peak memory, launches: K2 at stages 0-2, K1 at stage
+    3, K4 + K5 and K3), rerun bit for bit. Then each at the CPU tests'
+    widths, one step on the card against the same step on the CPU from
+    the same weights and batch (dropout and drop path 0, lr 0): loss,
+    gradients, running statistics at the fp32 tier. Returns {name:
+    metrics}; raises on a failed check."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
+    from sigma_tpu_torch.engine.optim import build_optimizer
+    from sigma_tpu_torch.engine.train import (
+        build_train,
+        create_train_state,
+        make_train_step,
+    )
+    from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
+    from sigma_tpu_torch.models.swin_encoder import SWIN_VARIANTS
+    from sigma_tpu_torch.models.vssm import VSSMClassifier
+    from sigma_tpu_torch.trace_step import TRAIN_BATCH as batch_n
+    from sigma_tpu_torch.trace_step import synthetic_batch
+
+    t_phase = time.perf_counter()
+    base = get_config("mfnet")
+    h, w = base.image_height, base.image_width
+    rng = np.random.default_rng(SEED + 7)
+    batches = [synthetic_batch(rng, batch_n, h, w) for _ in range(steps)]
+    data = _SyntheticMFNet(4, h, w, SEED)
+    out = {}
+    for backbone, decoder in BACKBONE_CASES:
+        name = f"{backbone}/{decoder}"
+        cfg = get_config("mfnet", backbone=backbone, decoder=decoder)
+        t0 = time.perf_counter()
+        state, step, _ = build_train(cfg, device)
+        model, opt = state.model, state.optimizer
+        build_s = time.perf_counter() - t0
+        model_0 = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_0 = copy.deepcopy(opt.state_dict())
+
+        def restart():
+            model.load_state_dict(model_0)
+            opt.load_state_dict(opt_0)
+            state.step = 0
+
+        runs = []
+        for _ in range(2):
+            restart()
+            runs.append(_state_bits(model, step(state, batches[0])))
+        rerun = all(torch.equal(a, b) for a, b in
+                    [(runs[0][0], runs[1][0])]
+                    + [(v, runs[1][i][k]) for i in (1, 2)
+                       for k, v in runs[0][i].items()])
+        n_bn = sum(k.endswith("running_var") for k in runs[0][2])
+        del runs
+        restart()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        seconds, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, b)))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        s_step = sum(seconds[1:]) / len(seconds[1:])
+
+        model.eval()
+        ev = SlidingEvaluator(
+            model, cfg.num_classes, cfg.norm_mean, cfg.norm_std,
+            multi_scales=cfg.eval_scale_array, is_flip=cfg.eval_flip,
+            eval_crop_size=cfg.eval_crop_size,
+            stride_rate=cfg.eval_stride_rate, device=device)
+        ev.sliding_eval(data[0]["data"], data[0]["modal_x"])  # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, _ = ev.run(data)
+        torch.cuda.synchronize()
+        img_s = len(data) / (time.perf_counter() - t0)
+        eval_launches = _launches()
+        eval_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"backbones: {name} MFNet {h}x{w} fp32, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"{n_bn} BatchNorms, built in {build_s:.2f}s: first step "
+              f"rerun {'bit for bit' if rerun else 'with OTHER bits'}; "
+              f"{steps} steps at batch {batch_n}: losses {losses}, seconds "
+              f"{[round(t, 4) for t in seconds]}, last {steps - 1} "
+              f"{s_step:.4f} s/step, peak {peak:.3f} GiB, launches "
+              f"{ {k: n for k, n in launches.items() if n} }; eval of "
+              f"{len(data)} images {img_s:.4f} img/s, mIoU {miou:.4f} "
+              f"(random weights), peak {eval_peak:.3f} GiB, launches "
+              f"{ {k: n for k, n in eval_launches.items() if n} }; {card}",
+              flush=True)
+        del state, step, model, opt, model_0, ev
+        torch.cuda.empty_cache()
+        if decoder == "MambaDecoder":
+            want_train = ("scan_proj_fwd", "scan_proj_bwd", "proj_grad")
+            bad = [k for k in want_train if launches[k] == 0] + \
+                [k for k in SCAN_BACKWARD if eval_launches[k]]
+            if eval_launches["scan_proj_fwd"] == 0:
+                bad.append("scan_proj_fwd in eval")
+        else:
+            bad = [k for k in FORWARD + SCAN_BACKWARD
+                   if launches[k] or eval_launches[k]]
+        if not rerun or not np.all(np.isfinite(losses)) or bad or \
+                not np.isfinite(miou):
+            raise AssertionError(
+                f"backbones {name}: rerun {rerun}, losses {losses}, launch "
+                f"counts off {bad}, mIoU {miou}")
+        out[name] = dict(s_step=s_step, img_s=img_s, peak=peak,
+                         eval_peak=eval_peak)
+
+    # the classifier at VMamba-T widths
+    cls = init_parameters(VSSMClassifier(**CLASSIFIER), seed=SEED + 8)
+    cls = _no_dropout(cls).to(device).train()
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    x = torch.randn(CLASSIFIER_BATCH, 224, 224, 3, device=device,
+                    generator=gen)
+    labels = torch.randint(0, CLASSIFIER["num_classes"], (CLASSIFIER_BATCH,),
+                           device=device, generator=gen)
+    runs = []
+    for _ in range(2):
+        logits, loss = _classifier_step(cls, x, labels)
+        runs.append((logits, loss, {k: p.grad.clone()
+                                    for k, p in cls.named_parameters()}))
+    rerun = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(v, runs[1][2][k]) for k, v in runs[0][2].items())
+    del runs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logits, loss = _classifier_step(cls, x, labels)
+    torch.cuda.synchronize()
+    cls_ms = (time.perf_counter() - t0) / reps * 1e3
+    cls_launches = _launches()
+    cls_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    n_cls = sum(p.numel() for p in cls.parameters())
+    print(f"backbones: VSSMClassifier VMamba-T ({n_cls} params) 224x224 "
+          f"batch {CLASSIFIER_BATCH} fp32: forward + backward "
+          f"{cls_ms:.2f} ms (mean of {reps}), peak {cls_peak:.3f} GiB, "
+          f"loss {float(loss):.4f}, launches per forward + backward "
+          f"{ {k: n // reps for k, n in cls_launches.items() if n} }; rerun "
+          f"{'bit for bit' if rerun else 'with OTHER bits'}; {card}",
+          flush=True)
+    missing = [k for k in FORWARD + SCAN_BACKWARD if cls_launches[k] == 0]
+    if not rerun or missing or not torch.isfinite(logits).all() or \
+            logits.shape != (CLASSIFIER_BATCH, CLASSIFIER["num_classes"]):
+        raise AssertionError(f"backbones classifier: rerun {rerun}, kernels "
+                             f"not launched {missing}, logits "
+                             f"{tuple(logits.shape)}")
+    out["VSSMClassifier"] = dict(ms=cls_ms, peak=cls_peak)
+    del cls, x, logits
+    torch.cuda.empty_cache()
+
+    # the CPU tests' widths: the card's step against the CPU's
+    cfg_t = get_config("mfnet")
+    small = synthetic_batch(np.random.default_rng(SEED + 10),
+                            DECODER_CHECK_BATCH, 64, 80)
+    SWIN_VARIANTS["swin_check"] = SWIN_CHECK
+    try:
+        for backbone, decoder, width in BACKBONE_CHECKS:
+            cpu = _no_dropout(init_parameters(EncoderDecoder(
+                9, backbone, decoder, decoder_embed_dim=width),
+                seed=SEED + 11))
+            gpu = copy.deepcopy(cpu).to(device)
+            got = {}
+            for where, m in (("cpu", cpu), ("gpu", gpu)):
+                o = build_optimizer(cfg_t, m)
+                loss = make_train_step(m, o, lambda k: 0.0)(
+                    create_train_state(m, o), small)
+                got[where] = _state_bits(m, loss)
+            _check_card_vs_cpu(f"{backbone}/{decoder}", "64x80 batch "
+                               f"{DECODER_CHECK_BATCH}", got, card)
+    finally:
+        del SWIN_VARIANTS["swin_check"]
+    cpu = _no_dropout(init_parameters(VSSMClassifier(**CLASSIFIER_CHECK),
+                                      seed=SEED + 12)).train()
+    gpu = copy.deepcopy(cpu).to(device)
+    x = torch.from_numpy(np.random.default_rng(SEED + 13).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    labels = torch.tensor([1, 7])
+    got = {}
+    for where, m in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(m.parameters()).device
+        logits, loss = _classifier_step(m, x.to(dev), labels.to(dev))
+        got[where] = (loss, {k: p.grad for k, p in m.named_parameters()},
+                      {"logits": logits})
+    _check_card_vs_cpu("VSSMClassifier depths 1, dims 16-128",
+                       "32x32 batch 2", got, card)
+    print(f"backbones: phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return out
+
+
+def _check_card_vs_cpu(name, at, got, card):
+    """(loss, gradients, tensors) of one step on the CPU and the card at
+    the fp32 tier; raises if they differ."""
+    (l_c, g_c, b_c), (l_g, g_g, b_g) = got["cpu"], got["gpu"]
+    l_err, l_ok = _scaled_err(l_g.cpu(), l_c)
+    g_errs = [_scaled_err(g_g[k].cpu(), v) for k, v in g_c.items()]
+    b_errs = [_scaled_err(b_g[k].cpu(), v) for k, v in b_c.items()] \
+        or [(0.0, True)]
+    ok = l_ok and all(o for _, o in g_errs + b_errs) and \
+        g_g.keys() == g_c.keys()
+    print(f"backbones: {name} {at}, one step card vs CPU: loss "
+          f"{float(l_g):.6f} vs {float(l_c):.6f}, max abs err loss "
+          f"{l_err:.3e}, {len(g_errs)} gradients "
+          f"{max(e for e, _ in g_errs):.3e}, {len(b_c)} running statistics "
+          f"or outputs {max(e for e, _ in b_errs):.3e} (fp32 tier "
+          f"{'ok' if ok else 'FAIL'}); {card}", flush=True)
+    if not ok:
+        raise AssertionError(f"backbones {name}: the card's step differs "
+                             f"from the CPU's")
+
+
 def _write_tree(cfg, n, seed, labels):
     """A seeded dataset tree of `n` pairs at cfg's folders and image size,
     written by the port's PNG writer: RGB, a 1-channel modal-x, labels in
@@ -3975,6 +4262,7 @@ def main() -> int:
     bf16_train_timing = bf16_train_phase(device)
     bf16_cross_check(device)
     decoders = decoders_phase(device)
+    backbones = backbones_phase(device, card)
     with tempfile.TemporaryDirectory() as tmp:
         determinism = determinism_part(device, tmp)
     files = files_phase(device)
@@ -4079,6 +4367,16 @@ def main() -> int:
               f"train {d['s_step']:.4f} s/step at batch 2, peak "
               f"{d['peak']:.3f} GiB; eval {d['img_s']:.4f} img/s, peak "
               f"{d['eval_peak']:.3f} GiB")
+    for name, d in backbones.items():
+        if name == "VSSMClassifier":
+            print(f"summary: backbones: VSSMClassifier VMamba-T 224x224 "
+                  f"batch {CLASSIFIER_BATCH} fp32 forward + backward "
+                  f"{d['ms']:.2f} ms, peak {d['peak']:.3f} GiB; {card}")
+            continue
+        print(f"summary: backbones: {name} MFNet 480x640 fp32 train "
+              f"{d['s_step']:.4f} s/step at batch 2, peak {d['peak']:.3f} "
+              f"GiB; eval {d['img_s']:.4f} img/s, peak "
+              f"{d['eval_peak']:.3f} GiB; {card}")
     det = {r["setting"]: r for r in determinism}
     print(f"summary: determinism (ROADMAP C10, sigma_tiny fp32 batch 2): "
           f"default {det['default']['grads_moved']} of "

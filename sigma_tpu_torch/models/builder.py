@@ -7,8 +7,9 @@ deep-supervision heads' logits (a list), the FCN aux head's (one
 tensor) or None, each resized to the input as well. The decoders are the
 JAX package's: MambaDecoder (with deep supervision), MLPDecoder, UPernet
 and deeplabv3+ (each with the FCN aux head on the 1/16 feature) and FCN.
-The other backbones (MiT, Swin) are not ported yet: asking for them
-raises.
+The backbones are the JAX package's: the Sigma variants (Siamese VMamba
+with CroMB / ConMB fusion), MiT `mit_b0`-`mit_b5` and Swin `swin_s` /
+`swin_b` (two trunks with FRM / FFM fusion).
 """
 
 from __future__ import annotations
@@ -25,17 +26,21 @@ from sigma_tpu_torch.models.decoders.fcnhead import FCNHead
 from sigma_tpu_torch.models.decoders.mamba_decoder import MambaDecoder
 from sigma_tpu_torch.models.decoders.mlp_decoder import MLPDecoder
 from sigma_tpu_torch.models.decoders.upernet import UPerHead
+from sigma_tpu_torch.models.mit_encoder import MIT_VARIANTS, DualMiTEncoder
 from sigma_tpu_torch.models.norm import BatchNorm
 from sigma_tpu_torch.models.sigma_encoder import SIGMA_VARIANTS, SigmaEncoder
+from sigma_tpu_torch.models.swin_encoder import SWIN_VARIANTS, DualSwinEncoder
 from sigma_tpu_torch.parallel.dist import all_reduce_sum
 
 DECODERS = ("MambaDecoder", "MLPDecoder", "UPernet", "deeplabv3+", "FCN",
             "fcn")
+BACKBONES = sorted(SIGMA_VARIANTS) + sorted(MIT_VARIANTS) + \
+    sorted(SWIN_VARIANTS)
 
 
 class EncoderDecoder(nn.Module):
-    """Sigma RGB-X segmentation network: Siamese VMamba encoder + one of
-    the JAX package's decoders."""
+    """RGB-X segmentation network: one of the JAX package's encoders
+    (Sigma, MiT, Swin) + one of its decoders."""
 
     def __init__(self, num_classes, backbone="sigma_tiny",
                  decoder="MambaDecoder", decoder_embed_dim=512,
@@ -48,17 +53,34 @@ class EncoderDecoder(nn.Module):
         back in it. `decoder_embed_dim`: MLPDecoder's width. `aux_rate`:
         the FCN aux head's loss weight (engine/train.py)."""
         super().__init__()
-        if backbone not in SIGMA_VARIANTS:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported; the port has "
-                f"{sorted(SIGMA_VARIANTS)} (ROADMAP.md queue A item A7c)")
         if decoder not in DECODERS:
             raise ValueError(f"unknown decoder {decoder!r}; options: "
                              f"{list(DECODERS)}")
-        variant = SIGMA_VARIANTS[backbone]
-        dims = variant["dims"]
+        if backbone in SIGMA_VARIANTS:
+            variant = SIGMA_VARIANTS[backbone]
+            dims = tuple(variant["dims"])
+            self.backbone = SigmaEncoder(**variant, remat=remat, dtype=dtype)
+        elif backbone in MIT_VARIANTS:
+            variant = MIT_VARIANTS[backbone]
+            dims = tuple(variant["embed_dims"])
+            self.backbone = DualMiTEncoder(**variant, dtype=dtype)
+        elif backbone in SWIN_VARIANTS:
+            variant = SWIN_VARIANTS[backbone]
+            dims = tuple(variant["embed_dim"] * 2 ** i for i in range(4))
+            self.backbone = DualSwinEncoder(**variant, dtype=dtype)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}; options: "
+                             f"{BACKBONES}")
+        if decoder == "MambaDecoder" and \
+                dims != tuple(dims[0] * 2 ** i for i in range(4)):
+            # JAX fails here with a TypeError, adding (.., 4C) to (.., 5C)
+            raise ValueError(
+                f"MambaDecoder needs stage widths that double ({dims[0]}, "
+                f"{2 * dims[0]}, {4 * dims[0]}, {8 * dims[0]}): its skip "
+                f"adds meet the upsampled path at twice the width; "
+                f"{backbone} has {dims}. Use MLPDecoder, UPernet, "
+                f"deeplabv3+ or FCN")
         self.aux_rate = aux_rate
-        self.backbone = SigmaEncoder(**variant, remat=remat, dtype=dtype)
         self.aux_head = None
         if decoder == "MambaDecoder":
             self.decode_head = MambaDecoder(
@@ -110,7 +132,10 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     package's torch_linear_kernel_init gives every head), LayerNorm
     ones/zeros, BatchNorm flax's (ones / zeros, running 0 / 1), then each
     module's SSM-specific init (`init_ssm`: S4D A_logs, D ones,
-    dt-projection init)."""
+    dt-projection init), then the MiT / Swin encoders' own
+    (`init_weights`: the JAX package's truncated-normal linears,
+    fan-out-normal convolutions and bias tables; an encoder inside
+    another is initialised once, by the outer one)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -127,6 +152,11 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
         for m in model.modules():
             if hasattr(m, "init_ssm"):
                 m.init_ssm(gen)
+        done = set()
+        for m in model.modules():  # outer modules first
+            if hasattr(m, "init_weights") and id(m) not in done:
+                m.init_weights(gen)
+                done.update(id(x) for x in m.modules())
     return model
 
 

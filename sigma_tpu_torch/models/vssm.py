@@ -1,16 +1,16 @@
 """VMamba (VSSM) trunk and its blocks (counterpart of
 `sigma_tpu/models/vssm.py`), channel-last (B, H, W, C).
 
-  PatchEmbed, PatchMerging2D (v1), VSSBlock, VSSMBackbone (per-block
-  modules; the JAX package stacks stages of 12+ blocks under nn.scan),
+  PatchEmbed, PatchMerging2D (v1), VSSBlock, VSSMBackbone and
+  VSSMClassifier (per-block modules; the JAX package stacks stages of
+  12+ blocks under nn.scan, and utils/convert.py unstacks them),
   ChannelAttention(+Block) and CVSSDecoderBlock.
 Training rematerializes each VSSBlock of a stage where `should_remat`
-says so (`remat=True` by default, as in the JAX package). `dtype` is the
-compute dtype of the linears and convolutions (models/common.py): with
-bf16 the trunk's residual stream is fp32 in stage 0 (PatchEmbed ends in
-a LayerNorm) and bf16 from the first PatchMerging2D on, as JAX's
-promotion makes it.
-VSSMClassifier is not ported yet.
+says so (`remat=True` by default in the segmentation trunk, False in the
+classifier, as in the JAX package). `dtype` is the compute dtype of the
+linears and convolutions (models/common.py): with bf16 the trunk's
+residual stream is fp32 in stage 0 (PatchEmbed ends in a LayerNorm) and
+bf16 from the first PatchMerging2D on, as JAX's promotion makes it.
 """
 
 from __future__ import annotations
@@ -98,11 +98,28 @@ class VSSBlock(nn.Module):
         return x
 
 
-class _Stage(nn.Module):
+class Stage(nn.Module):
     def __init__(self, blocks, downsample):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
+
+
+def _vss_stages(depths, dims, d_state, ssm_ratio, mlp_ratio,
+                drop_path_rate, dtype):
+    dpr = np.linspace(0.0, drop_path_rate, sum(depths))
+    stages, k = [], 0
+    for i, depth in enumerate(depths):
+        blocks = [
+            VSSBlock(dims[i], float(dpr[k + j]), d_state, ssm_ratio,
+                     mlp_ratio, dtype=dtype)
+            for j in range(depth)
+        ]
+        k += depth
+        down = (PatchMerging2D(dims[i], dims[i + 1], dtype=dtype)
+                if i < len(depths) - 1 else None)
+        stages.append(Stage(blocks, down))
+    return nn.ModuleList(stages)
 
 
 class VSSMBackbone(nn.Module):
@@ -115,20 +132,9 @@ class VSSMBackbone(nn.Module):
                  drop_path_rate=0.2, remat=True, dtype=torch.float32):
         super().__init__()
         self.remat = remat
-        dpr = np.linspace(0.0, drop_path_rate, sum(depths))
         self.patch_embed = PatchEmbed(3, dims[0], dtype=dtype)
-        stages, k = [], 0
-        for i, depth in enumerate(depths):
-            blocks = [
-                VSSBlock(dims[i], float(dpr[k + j]), d_state, ssm_ratio,
-                         mlp_ratio, dtype=dtype)
-                for j in range(depth)
-            ]
-            k += depth
-            down = (PatchMerging2D(dims[i], dims[i + 1], dtype=dtype)
-                    if i < len(depths) - 1 else None)
-            stages.append(_Stage(blocks, down))
-        self.layers = nn.ModuleList(stages)
+        self.layers = _vss_stages(depths, dims, d_state, ssm_ratio,
+                                  mlp_ratio, drop_path_rate, dtype)
         for i, dim in enumerate(dims):
             self.add_module(f"outnorm{i}", LayerNorm(dim))
 
@@ -143,6 +149,45 @@ class VSSMBackbone(nn.Module):
             if stage.downsample is not None:
                 x = stage.downsample(x)
         return outs
+
+
+class _ClassifierHead(nn.Module):
+    """The reference's `classifier` (norm, permute, pool, flatten, head)."""
+
+    def __init__(self, dim, num_classes, dtype=torch.float32):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+        self.head = Linear(dim, num_classes, dtype=dtype)
+
+    def forward(self, x):
+        return self.head(self.norm(x).mean(dim=(1, 2)))
+
+
+class VSSMClassifier(nn.Module):
+    """The VMamba image classifier (the reference's `VSSM`): patch embed,
+    4 stages of VSSBlocks with v1 downsamples, then LayerNorm, a global
+    mean and a linear head. NHWC images in, (B, num_classes) logits
+    out. `remat`: True rematerializes every block in training."""
+
+    def __init__(self, num_classes=1000, depths=(2, 2, 9, 2),
+                 dims=(96, 192, 384, 768), d_state=16, ssm_ratio=2.0,
+                 mlp_ratio=0.0, drop_path_rate=0.2, remat=False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.remat = remat
+        self.patch_embed = PatchEmbed(3, dims[0], dtype=dtype)
+        self.layers = _vss_stages(depths, dims, d_state, ssm_ratio,
+                                  mlp_ratio, drop_path_rate, dtype)
+        self.classifier = _ClassifierHead(dims[-1], num_classes, dtype=dtype)
+
+    def forward(self, x):
+        x = self.patch_embed(x)
+        for stage in self.layers:
+            for blk in stage.blocks:
+                x = maybe_remat(blk, self.remat, x)
+            if stage.downsample is not None:
+                x = stage.downsample(x)
+        return self.classifier(x)
 
 
 class ChannelAttention(nn.Module):

@@ -7,7 +7,9 @@
 
 One device, fp32 or, with `--bf16`, bf16 compute (fp32 parameters,
 LayerNorms, scan state and loss, as the JAX trainer's `--bf16`): config by
-dataset name, seeded model, `--pretrained` VMamba trunk ingest, AdamW (or
+dataset name, seeded model (`--backbone`: Sigma, MiT or Swin),
+`--pretrained` VMamba trunk ingest (Sigma backbones only: with MiT or
+Swin it raises, naming utils/convert.py's dual-path loaders), AdamW (or
 SGDM) with warmup-poly lr, the device-norm uint8 input path,
 per-iteration loss logging, and the JAX trainer's epoch loop: on a
 checkpoint epoch (`checkpoint_start_epoch`, `checkpoint_step`, the last
@@ -58,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("-c", "--continue", dest="resume", action="store_true",
                    help="resume from the last checkpoint")
     p.add_argument("--backbone", default=None,
-                   help="sigma_tiny | sigma_small | sigma_base")
+                   help="sigma_tiny | sigma_small | sigma_base | mit_b0-b5 "
+                        "| swin_s | swin_b")
     p.add_argument("--decoder", default=None)
     p.add_argument("--pretrained", default=None,
                    help="VMamba ImageNet checkpoint (.pth/.npz) for the "
@@ -133,6 +136,7 @@ def _train(args, device) -> int:
     from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.engine.train import build_train
+    from sigma_tpu_torch.models.sigma_encoder import SIGMA_VARIANTS
     from sigma_tpu_torch.models.ss2d import FUSED_EPILOGUE
     from sigma_tpu_torch.utils.convert import load_vmamba_into_model
 
@@ -163,6 +167,13 @@ def _train(args, device) -> int:
     if not cfg.checkpoint_dir:
         object.__setattr__(
             cfg, "checkpoint_dir", os.path.join(cfg.log_dir, "checkpoint"))
+    if cfg.pretrained_model and cfg.backbone not in SIGMA_VARIANTS:
+        # as in the JAX trainer, --pretrained is the VMamba trunk's ingest
+        raise ValueError(
+            f"--pretrained loads a VMamba trunk into a Sigma backbone; "
+            f"{cfg.backbone} takes a released single-trunk file through "
+            f"sigma_tpu_torch.utils.convert.load_mit_dualpath (MiT) or "
+            f"load_swin_dualpath (Swin)")
 
     logger = get_logger()
     logger.info("device: %s", torch.cuda.get_device_name(device)

@@ -36,11 +36,22 @@ port's module names:
       `op`, `ln_1` / `norm`) is accepted, a tensor of the wrong shape
       raises, a tensor the file lacks keeps the model's seeded init (the
       `outnorm*` layers), a key the trunk does not have (the classifier) is
-      dropped;
+      dropped. Given a VSSMClassifier, the file fills the whole classifier, its
+      head from `classifier.norm.*` / `classifier.head.*` or the
+      published `norm.*` / `head.*`;
   `load_checkpoint_into_model(model, path)`   the dispatch of the eval
       CLI's `-e FILE`: a file whose keys start with `backbone.` /
       `decode_head.` is a full model (the same strict=False rules over
-      the whole model), any other file a trunk.
+      the whole model), any other file a trunk;
+  `load_mit_dualpath(model, path)` / `load_swin_dualpath(model, path)`
+      a released single-trunk MiT / Swin ImageNet file into both
+      modality paths of the model's dual encoder (the reference's
+      `load_dualpath_model`): the MiT trunks' keys are the file's, the
+      Swin X path's the same under `patch_embed_d` / `layers_d`; FRM,
+      FFM and the out-norms keep their init, the file's head and
+      buffers (`relative_position_index`) are dropped.
+      `convert_mit_trunk(trunk, sd)` / `convert_swin_dual(encoder, sd)`
+      do it on a module.
 
 A `.pth` is read with `torch.load(weights_only=False)`, as the JAX package
 reads it: a released checkpoint's envelope pickles objects besides its
@@ -58,6 +69,7 @@ import torch
 from torch import nn
 
 from sigma_tpu_torch.engine.logger import get_logger
+from sigma_tpu_torch.models.vssm import VSSMClassifier
 
 _T = lambda w: w.T  # noqa: E731
 _CONV = lambda w: np.transpose(w, (3, 2, 0, 1))  # noqa: E731
@@ -83,8 +95,29 @@ _RULES = [
     (r"/op/dt_proj_([12])_(weight|bias)$", r"/op/CMA_ssm/dt_proj_\1/\2"),
     (r"/op/(A_log_[12]|D_[12])$", r"/op/CMA_ssm/\1"),
     (r"/op/(out_norm_[12])/", r"/op/CMA_ssm/\1/"),
+    (r"^classifier_(norm|head)/", r"classifier/\1/"),
     (r"/(kernel|scale)$", "/weight"),
 ]
+
+# the MiT and Swin dual encoders (a `backbone/` path outside the Sigma
+# encoder's three subtrees) take these rules instead: the global ones
+# would rewrite Swin's `layers_d_0_blocks_1` as a `blocks_(\d+)` list
+# and send a patch conv to VMamba's Sequential keys. Their keys are the
+# released single-trunk files' (utils/convert.py of the JAX package,
+# convert_mit_trunk / convert_swin_dual)
+_DUAL_RULES = [
+    (r"^backbone/patch_embed(_d)?/", r"backbone/patch_embed\1/proj/"),
+    (r"^backbone/patch_norm(_d)?/", r"backbone/patch_embed\1/norm/"),
+    (r"/layers(_d)?_(\d+)_blocks_(\d+)/", r"/layers\1/\2/blocks/\3/"),
+    (r"/layers(_d)?_(\d+)_downsample/", r"/layers\1/\2/downsample/"),
+    (r"/block(\d+)_(\d+)/", r"/block\1/\2/"),
+    (r"/(frm|ffm)_(\d+)/", r"/\1/\2/"),
+    (r"/attn/sr_norm/", "/attn/norm/"),
+    (r"/mlp/dwconv/", "/mlp/dwconv/dwconv/"),
+    (r"/(kernel|scale)$", "/weight"),
+]
+_SIGMA_BACKBONE = re.compile(
+    r"backbone/(vssm|cross_mamba_\d+|channel_attn_mamba_\d+)/")
 
 
 def _flatten(tree, prefix=()):
@@ -110,7 +143,10 @@ def _transform(path: str, leaf: str, ndim: int):
 
 
 def _torch_key(path: str) -> str:
-    for pat, rep in _RULES:
+    rules = _RULES
+    if path.startswith("backbone/") and not _SIGMA_BACKBONE.match(path):
+        rules = _DUAL_RULES
+    for pat, rep in rules:
         path = re.sub(pat, rep, path)
     return path.replace("/", ".")
 
@@ -197,6 +233,14 @@ def _trunk_candidates(key: str) -> list[str]:
     return [key]
 
 
+def _classifier_candidates(key: str) -> list[str]:
+    """A VSSMClassifier key's candidates: the head's under `classifier.`
+    first, then the published name; the trunk's as `_trunk_candidates`."""
+    if key.startswith("classifier."):
+        return [key, key[len("classifier."):]]
+    return _trunk_candidates(key)
+
+
 def _full_candidates(key: str) -> list[str]:
     trunk = "backbone.vssm."
     if key.startswith(trunk):
@@ -226,14 +270,22 @@ def _ingest(module: nn.Module, sd, candidates):
     return loaded, missing
 
 
+def _state_dict(path):
+    return _strip(load_torch_state_dict(path) if isinstance(path, str)
+                  else path)
+
+
 def load_vmamba_into_model(model: nn.Module, path):
     """Load a VMamba ImageNet checkpoint (a path, or its state dict) into
-    `model.backbone.vssm` in place (strict=False semantics, see above).
-    Returns (loaded, missing, unexpected): the checkpoint keys used, the
-    trunk keys left at their init, the checkpoint keys dropped."""
-    sd = _strip(load_torch_state_dict(path) if isinstance(path, str)
-                else path)
-    loaded, missing = _ingest(model.backbone.vssm, sd, _trunk_candidates)
+    `model.backbone.vssm` in place, or into the whole of a VSSMClassifier
+    (strict=False semantics, see above). Returns (loaded, missing,
+    unexpected): the checkpoint keys used, the trunk keys left at their
+    init, the checkpoint keys dropped."""
+    sd = _state_dict(path)
+    if isinstance(model, VSSMClassifier):
+        loaded, missing = _ingest(model, sd, _classifier_candidates)
+    else:
+        loaded, missing = _ingest(model.backbone.vssm, sd, _trunk_candidates)
     unexpected = sorted(set(sd) - set(loaded))
     logger = get_logger()
     logger.info(
@@ -263,6 +315,59 @@ def load_checkpoint_into_model(model: nn.Module, path: str):
     if unexpected:
         logger.debug("unexpected: %s", unexpected[:20])
     return loaded, missing, unexpected
+
+
+def convert_mit_trunk(trunk: nn.Module, sd):
+    """Fill one MiTTrunk in place from a released SegFormer (MiT) state
+    dict, whose keys are the trunk's own (`patch_embed{i}.*`,
+    `block{i}.{j}.*`, `norm{i}.*`). Returns (loaded sd keys, trunk keys
+    left at their init)."""
+    return _ingest(trunk, _strip(sd), lambda k: [k])
+
+
+def load_mit_dualpath(model: nn.Module, path):
+    """A released single-trunk MiT file (a path, or its state dict) into
+    both trunks of `model.backbone` (a DualMiTEncoder). Returns (loaded,
+    missing): the file's keys used (once per trunk) and the trunks' keys
+    left at their init."""
+    sd = _state_dict(path)
+    loaded, missing = [], []
+    for name in ("trunk", "extra_trunk"):
+        got, fresh = convert_mit_trunk(getattr(model.backbone, name), sd)
+        get_logger().info("mit ingest %s: %d loaded, %d fresh", name,
+                          len(got), len(fresh))
+        loaded += got
+        missing += [f"{name}.{k}" for k in fresh]
+    return loaded, missing
+
+
+def _swin_candidates(key: str) -> list[str]:
+    """The released single-trunk key of a DualSwinEncoder key: both
+    modality paths read the trunk's; FRM, FFM and the out-norms none."""
+    for ours, released in (("patch_embed_d.", "patch_embed."),
+                           ("layers_d.", "layers."),
+                           ("patch_embed.", "patch_embed."),
+                           ("layers.", "layers.")):
+        if key.startswith(ours):
+            return [released + key[len(ours):]]
+    return []
+
+
+def convert_swin_dual(encoder: nn.Module, sd):
+    """Fill a DualSwinEncoder in place from a released single-trunk Swin
+    state dict, the same weights into both modality paths. Returns
+    (loaded sd keys, encoder keys left at their init)."""
+    return _ingest(encoder, _strip(sd), _swin_candidates)
+
+
+def load_swin_dualpath(model: nn.Module, path):
+    """A released single-trunk Swin file (a path, or its state dict) into
+    both paths of `model.backbone` (a DualSwinEncoder). Returns (loaded,
+    missing)."""
+    loaded, missing = convert_swin_dual(model.backbone, _state_dict(path))
+    get_logger().info("swin dual ingest: %d loaded, %d fresh", len(loaded),
+                      len(missing))
+    return loaded, missing
 
 
 def load_checkpoint(path: str):

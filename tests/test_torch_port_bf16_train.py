@@ -2,7 +2,9 @@
 the CPU.
 
 Two steps of `make_train_step` on sigma_test in bf16 compute (seeded port
-weights carried into JAX, drop path 0, AdamW, a warmup of one update)
+weights carried into JAX, MambaDecoder cut to one block a level on both
+sides as `_port_load.DS_DEPTHS`, drop path 0, AdamW, a warmup of one
+update)
 against JAX `make_train_step` with a bf16 model, from the same uint8
 batches. The losses agree within 5e-2, and so does the gradient, read
 through AdamW's first moment (which after update k holds sum_j 0.1 *
@@ -38,7 +40,7 @@ from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
 from sigma_tpu_torch.models.common import DropPath
 from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from sigma_tpu_torch.utils.lr_schedule import warmup_poly_lr
-from _port_load import FAST_XLA, JAX_SCAN_CHUNK
+from _port_load import FAST_XLA, JAX_SCAN_CHUNK, cut_decoder, cut_jax_decoder
 
 TORCH_THREADS = 2
 BF16_TOL = 5e-2
@@ -80,7 +82,8 @@ def _port_run(sd, dtype):
     [AdamW's first moment by name after each update], the model)."""
     cfg = get_config("mfnet", backbone="sigma_test",
                      bf16=dtype == torch.bfloat16)
-    model = EncoderDecoder(9, "sigma_test", remat=False, dtype=dtype)
+    model = cut_decoder(EncoderDecoder(9, "sigma_test", remat=False,
+                                       dtype=dtype))
     model.load_state_dict(sd)
     for m in model.modules():
         if isinstance(m, DropPath):
@@ -100,29 +103,31 @@ def _port_run(sd, dtype):
 
 
 def test_bf16_train_steps_match_jax():
-    port = init_parameters(EncoderDecoder(9, "sigma_test", remat=False),
-                           seed=3)
+    port = init_parameters(cut_decoder(EncoderDecoder(9, "sigma_test",
+                                                      remat=False)), seed=3)
     sd = port.state_dict()
     jm = JaxEncoderDecoder(num_classes=9, backbone="sigma_test",
                            drop_path_rate=0.0, remat=False,
                            scan_chunk=JAX_SCAN_CHUNK,
                            dtype=jnp.bfloat16)
     x = jnp.zeros((2, 32, 32, 3), jnp.float32)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(3), x, x)["params"]
-    zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
-    params, _, missing = convert_sigma_full(
-        zeros, {k: v.numpy() for k, v in sd.items()})
-    assert missing == []
-
     cfg = get_config("mfnet", backbone="sigma_test")
-    tx = jax_build_optimizer(jax_get_config("mfnet", backbone="sigma_test"),
-                             jax_warmup_poly(1e-3, 0.9, 100, 1), params)
-    jparams = jax.tree.map(jnp.asarray, params)
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
-                          opt_state=tx.init(jparams))
     want_losses, want_mu = [], []
     with pytest.MonkeyPatch.context() as mp:
+        cut_jax_decoder(mp)
         mp.setattr(jvssm, "DropPath", _NoDropPath)
+        shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(3), x,
+                                x)["params"]
+        zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+        params, _, missing = convert_sigma_full(
+            zeros, {k: v.numpy() for k, v in sd.items()})
+        assert missing == []
+        tx = jax_build_optimizer(
+            jax_get_config("mfnet", backbone="sigma_test"),
+            jax_warmup_poly(1e-3, 0.9, 100, 1), params)
+        jparams = jax.tree.map(jnp.asarray, params)
+        state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
+                              opt_state=tx.init(jparams))
         jstep = jax_make_step(jm, tx, donate=False, norm_mean=cfg.norm_mean,
                               norm_std=cfg.norm_std)
         jstep = jstep.lower(state, _uint8_batch(BATCHES[0]),

@@ -30,7 +30,9 @@ points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
 SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
 image, odd and small images, dg not a multiple of 32, d_state 1-256 and
 above its bound, in bf16, with its counts and K11 reruns bit for bit (one
-state tile and three).
+state tile and three). The MiT and Swin segmentation models and the VSSM
+classifier take one step on the card against the CPU at the CPU tests'
+widths.
 Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
 against max(|ref|, 1).
 """
@@ -731,6 +733,79 @@ def test_sigma_test_train_step_on_the_card_matches_the_cpu(dev, fused):
                          gpu.state_dict().values()):
         diff = (b.cpu() - a).abs().max().item()
         assert diff < 1e-5, (k, diff)
+
+
+# the test Swin variant of tests/test_torch_port_backbones.py (widths
+# 16-128), registered inside the test
+SWIN_CHECK = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                  window_size=4)
+
+
+@pytest.mark.parametrize("backbone,decoder", [
+    ("swin_check", "MambaDecoder"), ("mit_b0", "MLPDecoder"),
+    ("classifier", None)])
+def test_new_backbones_step_on_the_card_matches_the_cpu(dev, backbone,
+                                                        decoder,
+                                                        monkeypatch):
+    """One lr-0 train step at the CPU tests' widths (Swin + MambaDecoder,
+    mit_b0 + MLPDecoder at width 32, batch 6 at 64x80; the classifier at
+    depths 1, batch 2 at 32x32: a forward and a backward) on the card
+    against the CPU from the same weights and batch, dropout and drop
+    path 0: the loss, every gradient and running statistic."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.engine.optim import build_optimizer
+    from sigma_tpu_torch.engine.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from sigma_tpu_torch.models.builder import EncoderDecoder, init_parameters
+    from sigma_tpu_torch.models.common import DropPath, Dropout
+    from sigma_tpu_torch.models.swin_encoder import SWIN_VARIANTS
+    from sigma_tpu_torch.models.vssm import VSSMClassifier
+
+    monkeypatch.setitem(SWIN_VARIANTS, "swin_check", SWIN_CHECK)
+    if decoder is None:
+        cpu = VSSMClassifier(10, depths=(1, 1, 1, 1), dims=(16, 32, 64, 128),
+                             d_state=8)
+    else:
+        cpu = EncoderDecoder(9, backbone, decoder, decoder_embed_dim=32)
+    cpu = init_parameters(cpu, seed=12)
+    for m in cpu.modules():  # the CPU and CUDA generators draw differently
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(13)
+    batch = dict(
+        data=rng.integers(0, 256, (6, 64, 80, 3), dtype=np.uint8),
+        modal_x=rng.integers(0, 256, (6, 64, 80, 3), dtype=np.uint8),
+        label=rng.integers(0, 9, (6, 64, 80)).astype(np.uint8),
+        margins=np.zeros((6, 4), np.int32))
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    losses = {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        if decoder is None:
+            m.train()
+            where = next(m.parameters()).device
+            loss = F.cross_entropy(m(x.to(where)),
+                                   torch.tensor([1, 7], device=where))
+            loss.backward()
+        else:
+            opt = build_optimizer(get_config("mfnet"), m)
+            loss = make_train_step(m, opt, lambda k: 0.0)(
+                create_train_state(m, opt), batch)
+        losses[name] = loss.detach().cpu()
+    _close(losses["gpu"], losses["cpu"], torch.float32)
+    grads = dict(gpu.named_parameters())
+    for k, p in cpu.named_parameters():
+        _close(grads[k].grad.cpu(), p.grad, torch.float32)
+    bufs = dict(gpu.named_buffers())
+    for k, b in cpu.named_buffers():
+        _close(bufs[k].cpu(), b, torch.float32)
 
 
 # ------------------------------------------------------------ epilogue

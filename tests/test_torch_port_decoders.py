@@ -36,18 +36,15 @@ through `state_dict_from_jax(..., batch_stats=...)`.
   * no port module reaches SyncBatchNorm, adaptive pools or interpolate.
 """
 
-import functools
 import logging
 
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-import sigma_tpu.models.builder as jbuilder
 import sigma_tpu.models.vssm as jvssm
 from sigma_tpu.engine.train import TrainState as JaxTrainState
 from sigma_tpu.engine.train import make_train_step as jax_make_step
@@ -81,8 +78,15 @@ from sigma_tpu_torch.utils.convert import state_dict_from_jax
 from _port_load import (  # noqa: F401 (few_torch_threads: a fixture)
     FAST_XLA,
     JAX_SCAN_CHUNK,
+    NoDropout,
+    NoDropPath,
+    cut_decoder,
+    cut_jax_decoder,
     few_torch_threads,
+    fill_seeded,
+    float_batch,
     jax_tree_from_port,
+    keep_grads,
 )
 
 FP32 = (6e-4, 2e-3)  # rtol, atol of max(|ref|, 1)
@@ -98,55 +102,10 @@ def _close(got, want, tol=FP32, what=""):
                                err_msg=what)
 
 
-def _fill(tree, seed):
-    """Seeded values on an eval_shape tree: kernels ~ N / sqrt(fan_in),
-    scales 1 + 0.1 N, biases and running means 0.1 N, running
-    variances in [0.5, 1.5)."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, a):
-        name = path[-1].key
-        if name == "kernel":
-            fan_in = int(np.prod(a.shape[:-1]))
-            return (rng.standard_normal(a.shape) / np.sqrt(fan_in)).astype(
-                np.float32)
-        if name == "scale":
-            return (1 + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-        if name == "var":
-            return (0.5 + rng.random(a.shape)).astype(np.float32)
-        if name in ("A_logs", "A_log_1", "A_log_2"):
-            return np.log(np.broadcast_to(np.arange(1, a.shape[-1] + 1),
-                                          a.shape)).astype(np.float32)
-        return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(leaf, tree)
-
-
-class _NoDropout(fnn.Module):
-    """Identity in place of flax's Dropout inside a test: the parity
-    tests run dropout at rate 0 on both sides."""
-
-    rate: float = 0.0
-    broadcast_dims: tuple = ()
-    deterministic: bool | None = None
-
-    @fnn.compact
-    def __call__(self, x, deterministic=None, rng=None):
-        return x
-
-
-class _NoDropPath(fnn.Module):
-    rate: float = 0.0
-
-    @fnn.compact
-    def __call__(self, x, deterministic: bool = True):
-        return x
-
-
 @pytest.fixture
 def no_jax_dropout(monkeypatch):
-    monkeypatch.setattr(fnn, "Dropout", _NoDropout)
-    monkeypatch.setattr(jvssm, "DropPath", _NoDropPath)
+    monkeypatch.setattr(fnn, "Dropout", NoDropout)
+    monkeypatch.setattr(jvssm, "DropPath", NoDropPath)
 
 
 def _no_port_dropout(model):
@@ -295,8 +254,8 @@ def test_head_matches_jax(name, no_jax_dropout):
     arg = feats if len(use) > 1 else feats[0]
     jhead = make_j(jnp.float32)
     shapes = jax.eval_shape(jhead.init, jax.random.PRNGKey(0), arg)
-    params = _fill(shapes["params"], seed=2)
-    stats = _fill(shapes["batch_stats"], 3) if "batch_stats" in shapes \
+    params = fill_seeded(shapes["params"], seed=2)
+    stats = fill_seeded(shapes["batch_stats"], 3) if "batch_stats" in shapes \
         else None
     rng = np.random.default_rng(4)
 
@@ -409,44 +368,6 @@ def test_dropout_keep_rate_and_one_mask_per_seed_step_and_sample():
 
 
 # ------------------------------------------------------------ train step
-class _KeepGrads:
-    """An optax transformation whose state is the last gradient and whose
-    update is zero: it reads the JAX step's gradients out exactly."""
-
-    @staticmethod
-    def make():
-        return optax.GradientTransformation(
-            lambda p: jax.tree.map(jnp.zeros_like, p),
-            lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
-
-
-def _float_batch(seed, b=2, h=32, w=32):
-    rng = np.random.default_rng(seed)
-    label = rng.integers(0, 9, (b, h, w)).astype(np.int32)
-    label[:, :3] = 255
-    return dict(data=rng.standard_normal((b, h, w, 3)).astype(np.float32),
-                modal_x=rng.standard_normal((b, h, w, 3)).astype(np.float32),
-                label=label)
-
-
-# MambaDecoder's depths in the whole-step test with deep supervision: the
-# JAX builder has no option for them, and at sigma_test's (4, 4, 4, 4)
-# the JAX step takes three times as long to compile
-DS_DEPTHS = (1, 1, 1, 1)
-
-
-def _cut_decoder(model):
-    """`model` with a MambaDecoder of DS_DEPTHS blocks (deep supervision
-    as it was); any other decoder as it is."""
-    head = model.decode_head
-    if isinstance(head, MambaDecoder):
-        model.decode_head = MambaDecoder(
-            head.output.out_channels, embed_dim=head.output.in_channels,
-            depths=DS_DEPTHS, deep_supervision=head.deep_supervision,
-            remat=False)
-    return model
-
-
 @pytest.fixture(scope="module", params=["UPernet", "MambaDecoder+DS"])
 def jax_step(request):
     """One JAX `make_train_step` of sigma_test (drop path and dropout 0,
@@ -469,14 +390,13 @@ def jax_step(request):
                            drop_path_rate=0.0, remat=False,
                            scan_chunk=JAX_SCAN_CHUNK if ds else 128)
     mp = pytest.MonkeyPatch()
-    if ds:  # one block a level (_cut_decoder)
-        mp.setattr(jbuilder, "MambaDecoder", functools.partial(
-            jmd.MambaDecoder, depths=DS_DEPTHS))
-    batch = _float_batch(20, b=b)
+    if ds:  # one block a level (cut_decoder)
+        cut_jax_decoder(mp)
+    batch = float_batch(20, b=b)
     x = jnp.zeros((b, 32, 32, 3), jnp.float32)
     shapes = jax.eval_shape(
         lambda: jm.init(jax.random.PRNGKey(0), x, x, return_aux=True))
-    port = init_parameters(_cut_decoder(EncoderDecoder(
+    port = init_parameters(cut_decoder(EncoderDecoder(
         9, "sigma_test", decoder, deep_supervision=ds)), seed=21)
     gen = torch.Generator().manual_seed(22)
     with torch.no_grad():
@@ -490,13 +410,13 @@ def jax_step(request):
     params = jax_tree_from_port(shapes["params"], port)
     stats = jax_tree_from_port(shapes["batch_stats"], port, stats=True) \
         if "batch_stats" in shapes else None
-    tx = _KeepGrads.make()
+    tx = keep_grads()
     jparams = jax.tree.map(jnp.asarray, params)
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
                           opt_state=tx.init(jparams), batch_stats=stats)
     try:
-        mp.setattr(fnn, "Dropout", _NoDropout)
-        mp.setattr(jvssm, "DropPath", _NoDropPath)
+        mp.setattr(fnn, "Dropout", NoDropout)
+        mp.setattr(jvssm, "DropPath", NoDropPath)
         step = jax_make_step(jm, tx, donate=False).lower(
             state, batch, jax.random.PRNGKey(1)).compile(
             compiler_options=FAST_XLA)
@@ -513,7 +433,7 @@ def test_train_step_with_aux_losses_matches_jax(jax_step):
     the loss with its aux terms, every gradient leaf within GRAD_RTOL of
     its norm, the new running statistics at the fp32 tier."""
     decoder, ds, params, stats, batch, want_loss, want_g, want_bs = jax_step
-    model = _cut_decoder(EncoderDecoder(9, "sigma_test", decoder,
+    model = cut_decoder(EncoderDecoder(9, "sigma_test", decoder,
                                         deep_supervision=ds, remat=False))
     model.load_state_dict(state_dict_from_jax(params, model,
                                               batch_stats=stats))
@@ -571,7 +491,7 @@ def test_loss_weights_aux_heads_as_jax(monkeypatch):
 
     monkeypatch.setattr("sigma_tpu_torch.engine.train.segmentation_loss",
                         counted)
-    batch = _float_batch(5, b=1, h=4, w=4)
+    batch = float_batch(5, b=1, h=4, w=4)
     for aux, want in ((lambda lo: [lo, lo, lo], 4.0),
                       (lambda lo: lo, 1.4), (lambda lo: None, 1.0)):
         m = _Fixed(aux)

@@ -138,8 +138,27 @@ def test_resize_bilinear_matches_jax(hw, out):
                                atol=1e-5)
 
 
-def test_unported_parts_raise():
-    """The MiT and Swin backbones wait for ROADMAP item A7c."""
-    for backbone in ("mit_b2", "swin_s"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A7c"):
-            EncoderDecoder(9, backbone)
+@pytest.mark.parametrize("backbone,decoder,params", [
+    ("mit_b2", "MLPDecoder", 66_565_009), ("swin_s", "MambaDecoder",
+                                           143_202_460)])
+def test_mit_and_swin_backbones_build(backbone, decoder, params):
+    """JAX's EncoderDecoder dispatch of MiT and Swin, at full width
+    (built on the meta device: no memory, no init)."""
+    with torch.device("meta"):
+        model = EncoderDecoder(9, backbone, decoder)
+    assert sum(p.numel() for p in model.parameters()) == params
+
+
+@pytest.mark.parametrize("backbone,decoder,match", [
+    ("sigma_huge", "MambaDecoder", "unknown backbone 'sigma_huge'; "
+                                   r"options: \['sigma_base'.*'swin_s'\]"),
+    ("mit_b0", "MambaDecoder", r"MambaDecoder needs stage widths that "
+                               r"double.*\(32, 64, 160, 256\)"),
+    ("mit_b2", "MambaDecoder", r"\(64, 128, 320, 512\)")])
+def test_unknown_backbone_and_mit_with_mamba_decoder_raise(backbone, decoder,
+                                                           match):
+    """An unknown backbone names the options, as JAX's EncoderDecoder
+    does; MiT with MambaDecoder (a TypeError deep in JAX's decoder: MiT's
+    widths do not double) says why."""
+    with pytest.raises(ValueError, match=match):
+        EncoderDecoder(9, backbone, decoder)

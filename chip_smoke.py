@@ -80,10 +80,12 @@ its findings:
                 forward, K11 + K5 backward) at sigma_tiny's four trunk SS2D
                 shapes at 480x640, batch 2 (RGB and X stacked), d_state
                 16, S4D A and dt-bias inits: fp32 and bf16 forward at every
-                stage and all seven gradients at stages 0 and 3 against
-                the plain version (the stacked composition, autograd, each
-                chunk recomputed), one K10 per forward and K11 + two K5 per
-                backward and nothing else; K10 (y, hck) and K11 rerun bit
+                stage and all seven gradients at stages 0 and 3, fp32 and
+                bf16 io (bf16 at 5e-2: K10, K11 and both K5 on bf16
+                operands), against the plain version (the stacked
+                composition, autograd, each chunk recomputed), one K10 per
+                forward and K11 + two K5 per backward and nothing else;
+                K10 (y, hck) and K11 rerun bit
                 for bit, and K10's checkpoints hold the plain walk's states
                 (K11's layout).
                 Then the grouped and per-row scan entry points at d_state
@@ -94,7 +96,8 @@ its findings:
                 copy, two selective_scan_g_proj_ml calls, the
                 un-transpose), forward and forward + backward, the image
                 route's forward + backward beside the two-call route's on
-                one line per stage.
+                one line per stage; K10 and K11 with bf16 io beside fp32,
+                with their bounds at 2-byte io.
   7. model    — sigma_tiny / MambaDecoder / 9 classes, seeded weights, four
                 seeded 480x640 RGB-X pairs through the port's
                 SlidingEvaluator.run under the MFNet preset, with the fused
@@ -148,14 +151,23 @@ its findings:
                 (ms, peak memory, K1-K5 launched) rerun bit for bit; then
                 each at the CPU tests' widths, one step card vs CPU at
                 the fp32 tier.
- 11. determinism — ROADMAP C10: one sigma_tiny 480x640 batch-2 fp32 train
+ 11. surface  — the port's surface besides the models: every loss of
+                `utils/losses.py` on seeded (2, 480, 640, 9) logits, the
+                card against the CPU (value and gradient, fp32 tier, ms);
+                the analytic FLOP count (`utils/flops.py`) of sigma_tiny
+                at 480x640, batch 1 and 8, beside the JAX package's
+                TPU-route count, and the card's count equal to the CPU's
+                at 64x96, batch 1 and 2; TrainPre at 480x640 with
+                device_norm off, the native tail against the numpy path
+                (1e-5, labels exact), host ms with 1 and 8 threads.
+ 12. determinism — ROADMAP C10: one sigma_tiny 480x640 batch-2 fp32 train
                 step rerun from the same state in a child process
                 (CUBLAS_WORKSPACE_CONFIG set) under PyTorch's default,
                 cudnn.deterministic, and use_deterministic_algorithms:
                 the gradients whose bits moved by kind of layer, what
                 raised or warned, s/step of each. The script, as the
                 train CLI, runs with cudnn.deterministic.
- 12. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
+ 13. files    — the port on dataset files with no cv2 (`sys.modules["cv2"]
                 = None`): first the JPEG decoder (`jpeg_part`: every
                 committed fixture, colour and gray, against the digests of
                 cv2.imread's arrays; host ms of a 480x640 decode, 8
@@ -175,7 +187,9 @@ its findings:
                 protocol at sigma_test, card against CPU (argmax
                 agreement); `sigma_tpu_torch.train.main --steps 3` on the
                 MFNet tree (finite losses, weights moved, K1-K5 launched,
-                s/step). Then checkpoints (`ckpt_part`, 2 iterations an
+                s/step); the train CLI's `--profile` (`profile_part`, 31
+                steps: the trace of steps 20-29 names K2, K4 and K5, its
+                size, s/step traced and not). Then checkpoints (`ckpt_part`, 2 iterations an
                 epoch, a checkpoint and an evaluation every epoch): a
                 train step run twice (the same bits); run A, 2
                 epochs with async saves; run B, `--steps 2` then `-c`,
@@ -202,13 +216,13 @@ its findings:
                 all-reduced gradient and both ranks' running statistics
                 against one process at the fp32 tier; s/step of each and
                 the gradient bytes all-reduced a step.
- 13. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
+ 14. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
                 recorded before K9 joined their backward body
                 (`BODY_BITS`); last, so that its calls precede no timed
                 phase.
 
-Ends with the summary (the bf16 io ms of K1-K7 beside fp32 with their
-bounds at 2-byte io, bf16 eval img/s, train s/step and peak memory beside
+Ends with the summary (the bf16 io ms of K1-K7, K10 and K11 beside fp32
+with their bounds at 2-byte io, the losses' ms, the FLOP counts, bf16 eval img/s, train s/step and peak memory beside
 fp32), the card line, one JSON line of the kernels (fp32 numbers;
 launches from the train phase's last fp32 run with the switch on, K8 /
 K9's from the ops phase, K10 / K11's from the image phase; bound_ms from
@@ -437,15 +451,16 @@ def _work(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS, io=4):
     projections (the JAX package's count); K11 reads x, dy and the
     checkpoints and writes du once, dd / dB / dC per chain and dA /
     dbias / dD, with the scan backward and the re-projections (K10's and
-    K11's projections count at the TF32 rate, `_tf32_ops`)."""
+    K11's projections count at the TF32 rate, `_tf32_ops`); x, y, dy, du
+    and the weights at `io` bytes, K11's dd / dB / dC at 4."""
     from sigma_tpu_torch.ops.scan_g import CK_TOKENS
     from sigma_tpu_torch.ops.scan_img import IMG_CK_TOKENS
 
     if kernel in IMAGE:
         B, dg, N = kw["B"], kw["dg"], kw["N"]
         L = kw["H"] * kw["W"]
-        img, chains = 4 * B * L * dg, 4 * 4 * B * L
-        wts = 4 * 4 * dg * (dg + 2 * N)
+        img, chains = io * B * L * dg, 4 * 4 * B * L
+        wts = io * 4 * dg * (dg + 2 * N)
         params = 4 * 4 * dg * (N + 2)
         proj = 2 * 4 * B * L * dg * (dg + 2 * N)
         if kernel == "scan_img_fwd":
@@ -1766,12 +1781,13 @@ def _wide_state_checks(device):
 def image_phase(device, reps=3):
     """`selective_scan_ss2d_proj` at every trunk SS2D of sigma_tiny at
     480x640, batch 2: fp32 and bf16 forward at every stage and all seven
-    gradients (fp32) at stages 0 and 3 against the plain version, with the
+    gradients (fp32, and bf16 io at 5e-2 with every kernel on bf16
+    operands) at stages 0 and 3 against the plain version, with the
     launches checked (counters zeroed before these calls and read after);
     the d_state 17 / 40 entry points; then K10 and K11 (each run twice: the
     same bits; K10's checkpoints against the plain walk) and K5 alone, the
     plain version and the two-call route the port's SS2D takes today,
-    timed. Returns (per-kernel summaries, the counts); raises on
+    timed, and K10 and K11 at bf16 io. Returns (per-kernel summaries, the counts); raises on
     disagreement."""
     import torch
 
@@ -1783,6 +1799,7 @@ def image_phase(device, reps=3):
     names = ("x", "w_dt", "w_b", "w_c", "A", "D", "delta_bias")
     failures = []
     want_counts = defaultdict(int)
+    bf16_ms = {}  # (kernel, tag): bf16 io ms
     cases = image_scans()
     _reset_launches()
     for s, (tag, kw) in enumerate(cases):
@@ -1812,17 +1829,23 @@ def image_phase(device, reps=3):
             if not ok:
                 failures.append(line)
             del x, got, want
-        if s in IMG_GRAD_STAGES:
-            x = _img_inputs(kw, torch.float32, device, SEED + 30 + s)
+        for dtype, tol in (((torch.float32, FP32_TOL),
+                            (torch.bfloat16, BF16_TOL))
+                           if s in IMG_GRAD_STAGES else ()):
+            x = _img_inputs(kw, dtype, device, SEED + 30 + s)
             dy = torch.randn(x["x"].shape, device=device,
                              generator=torch.Generator(
                                  device=device).manual_seed(SEED + 40 + s))
             before = _launches()
+            before16 = {**scan_img.LAUNCHES_BF16, **scan_g.LAUNCHES_BF16}
             got_y, got = _ops_grads(lambda **a: scan_g.selective_scan_ss2d_proj(
                 **a, delta_softplus=True), x, dy)
             torch.cuda.synchronize()
             ran = {k: n - before[k] for k, n in _launches().items()
                    if n != before[k]}
+            ran16 = {k: n - before16[k] for k, n in {
+                **scan_img.LAUNCHES_BF16, **scan_g.LAUNCHES_BF16}.items()
+                if n != before16[k]}
             want_counts["scan_img_fwd"] += 1
             want_counts["scan_img_bwd"] += 1
             want_counts["proj_grad"] += 2
@@ -1831,18 +1854,26 @@ def image_phase(device, reps=3):
                     **a, delta_softplus=True, remat_chunks=True), x, dy)
             errs, bad = {}, []
             for k in ("y",) + names:
-                errs[k], ok = _scaled_err(got_y if k == "y" else got[k],
-                                          want_y if k == "y" else want[k])
-                bad += [] if ok else [k]
+                g_, w_ = (got_y, want_y) if k == "y" else (got[k], want[k])
+                errs[k], ok = _scaled_err(g_, w_, tol)
+                bad += [] if ok and g_.dtype == w_.dtype else [k]
             if ran != dict(scan_img_fwd=1, scan_img_bwd=1, proj_grad=2):
                 bad.append(f"launched {ran}")
+            # bf16 io all through: K10, K11 and both K5 on bf16 operands
+            want16 = (dict(scan_img_fwd=1, scan_img_bwd=1, proj_grad=2)
+                      if dtype == torch.bfloat16 else {})
+            if ran16 != want16:
+                bad.append(f"launched on bf16 operands {ran16}")
             m = summary["scan_img_bwd"]
-            m["max_abs_err"] = max(m["max_abs_err"], *(
+            key = ("max_abs_err" if dtype == torch.float32
+                   else "bf16_max_abs_err")
+            m[key] = max(m.get(key, 0.0), *(
                 v for k, v in errs.items() if k != "y"))
             line = (f"image: selective_scan_ss2d_proj gradients {tag} {kw} "
-                    "fp32 " + " ".join(f"{'d' * (k != 'y')}{k}={v:.2e}"
-                                       for k, v in errs.items())
-                    + f" launched {ran} "
+                    f"{str(dtype)[6:]} "
+                    + " ".join(f"{'d' * (k != 'y')}{k}={v:.2e}"
+                               for k, v in errs.items())
+                    + f" launched {ran}, on bf16 operands {ran16} "
                     + ("ok" if not bad else "FAIL " + str(bad)))
             print(line, flush=True)
             if bad:
@@ -1894,6 +1925,20 @@ def image_phase(device, reps=3):
             if not ok:
                 failures.append(f"image: {tag} {what}")
         del again, y1, y2, hck2, want_hck
+        # bf16 io: K10 and K11 on the same call's bf16 inputs
+        xb = _img_inputs(kw, torch.bfloat16, device, SEED + 30 + s)
+        args16 = [xb[k] for k in names]
+        dy16 = dy.to(torch.bfloat16)
+        with torch.no_grad():
+            _, hck16 = scan_img.launch_scan_img_fwd(
+                *args16, delta_softplus=True, with_hck=True)
+            ms16 = {
+                "scan_img_fwd": _time_ms(lambda: scan_img.launch_scan_img_fwd(
+                    *args16, delta_softplus=True), reps),
+                "scan_img_bwd": _time_ms(lambda: scan_img.launch_scan_img_bwd(
+                    *args16, hck16, dy16, True), reps)}
+        bf16_ms.update({(k, tag): v for k, v in ms16.items()})
+        del xb, args16, dy16, hck16
         with torch.no_grad():
             ms = {
                 "scan_img_fwd": _time_ms(lambda: scan_img.launch_scan_img_fwd(
@@ -1932,10 +1977,15 @@ def image_phase(device, reps=3):
               f"{ms['two_call_fwd_bwd']:.4f}; forward: K10 "
               f"{ms['scan_img_fwd']:.4f}, two-call route "
               f"{ms['two_call_fwd']:.4f}", flush=True)
+        bounds16 = {k: _bound(k, kw, io=2) for k in IMAGE}
         print(f"image: {tag} {kw} ms "
               + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
               + " bound " + " ".join(f"{k}={b[0]:.4f} ({b[1]})"
                                      for k, b in bounds.items())
+              + "; bf16 io ms " + " ".join(f"{k}={v:.4f}"
+                                           for k, v in ms16.items())
+              + " bound " + " ".join(f"{k}={b[0]:.4f} ({b[1]})"
+                                     for k, b in bounds16.items())
               + f"; two-call route agrees max_abs_err={err:.3e}; K10 hck "
                 f"against the plain walk max_abs_err={hck_err:.3e} "
                 f"{'ok' if hck_ok else 'FAIL'}; K10 (y, hck) rerun bit for "
@@ -1946,9 +1996,11 @@ def image_phase(device, reps=3):
             m = summary[k]
             if plain_key in ms and ms[k] > m["ms"]:
                 m.update(ms=ms[k], plain_ms=ms[plain_key],
-                         at=f"{tag} {kw}", kw=kw)
+                         at=f"{tag} {kw}", kw=kw, tag=tag)
         del x, args, dy, leaves, hck, first, du4, dd, dB, dC, route_y, img_y
         torch.cuda.empty_cache()
+    for k, m in summary.items():
+        m["bf16_ms"] = bf16_ms[(k, m["tag"])]
     _reset_launches()
     print(f"image: phase {time.perf_counter() - t_phase:.1f}s")
     if failures:
@@ -3965,6 +4017,232 @@ def ckpt_part(device, cfg, tmp):
           flush=True)
     return out
 
+# the JAX package's forward FLOP count of sigma_tiny + MambaDecoder at
+# 480x640 (`sigma_tpu.utils.flops.analytic_flops_split`, its TPU route:
+# `jax.default_backend` patched to "tpu" in the tracing process and the
+# model traced shape-only with jax.make_jaxpr on a CPU host, no kernel
+# run): {batch: (matmul / conv FLOPs, scan tally FLOPs)}. Counts of
+# operations, not times.
+JAX_TPU_ROUTE_FLOPS = {1: (193_643_979_456, 281_700_864_000),
+                       8: (1_441_947_182_784, 2_253_606_912_000)}
+SURFACE_COUNT_HW = (64, 96)  # the card-vs-CPU count's image
+
+
+def _loss_cases(rng, shape=(2, 480, 640), classes=9):
+    """(name, loss(logits tensor), the logits array) of every loss of
+    `utils/losses.py`: seeded logits with a tenth of the labels ignored
+    (255), class weights where a loss takes them; berHu a regression
+    target with a tenth at its ignore value 0, the sigmoid focal loss
+    binary labels."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.utils import losses
+
+    logits = (2 * rng.standard_normal((*shape, classes))).astype(np.float32)
+    labels = rng.integers(0, classes, shape)
+    labels[rng.random(shape) < 0.1] = 255
+    pred = rng.standard_normal(shape).astype(np.float32)
+    target = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    target[rng.random(shape) < 0.1] = 0.0
+    binary = rng.integers(0, 2, shape)
+    binary[rng.random(shape) < 0.1] = 255
+    weight = np.linspace(0.5, 1.5, classes).astype(np.float32)
+
+    def on(x, like):
+        return torch.as_tensor(x, device=like.device)
+
+    return [
+        ("cross_entropy", lambda t: losses.cross_entropy(
+            t, on(labels, t)), logits),
+        ("focal_loss_2d", lambda t: losses.focal_loss_2d(
+            t, on(labels, t), weight=on(weight, t)), logits),
+        ("balance_loss", lambda t: losses.balance_loss(
+            t, on(labels, t)), logits),
+        ("berhu_loss", lambda t: losses.berhu_loss(
+            t, on(target, t)), pred),
+        ("sigmoid_focal_loss", lambda t: losses.sigmoid_focal_loss(
+            t, on(binary, t), 255), pred),
+        ("ohem_cross_entropy", lambda t: losses.ohem_cross_entropy(
+            t, on(labels, t), thresh=0.3, min_kept=100_000), logits),
+        ("rce_loss", lambda t: losses.rce_loss(
+            t, on(labels, t), classes), logits),
+    ]
+
+
+def surface_phase(device, reps=10):
+    """The port's surface besides the models (ROADMAP A7e, A6): every loss
+    of `utils/losses.py` on seeded (2, 480, 640, 9) logits on the card
+    against the CPU, value and gradient at the fp32 tier, forward and
+    forward + backward ms; the analytic FLOP count (`utils/flops.py`) of
+    sigma_tiny + MambaDecoder at 480x640, batch 1 and 8, on the card,
+    printed beside the JAX package's TPU-route count, and the same model
+    counted on the card and on the CPU at 64x96, batch 1 and 2, equal
+    (the route rule that decides what counts depends on the widths only;
+    the CPU's plain scans would take minutes at 480x640); `TrainPre` with
+    `device_norm` off at 480x640, the native tail against the numpy path
+    (within 1e-5, labels exact), host ms a sample with 1 and 8 threads.
+    Returns {metric: value}; raises on a failed check."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.configs import get_config
+    from sigma_tpu_torch.data import TrainPre
+    from sigma_tpu_torch.models.builder import build_model
+    from sigma_tpu_torch.utils import flops
+
+    t_phase = time.perf_counter()
+    out, failures = {"loss_ms": {}}, []
+    hw = (480, 640)
+    for name, fn, x in _loss_cases(np.random.default_rng(SEED + 60),
+                                   (2, *hw)):
+        res = {}
+        for where in ("cpu", device):
+            t = torch.tensor(x, device=where, requires_grad=True)
+            v = fn(t)
+            (g,) = torch.autograd.grad(v, t)
+            res[str(where)] = (v.detach().cpu(), g.cpu())
+        (v0, g0), (v1, g1) = res["cpu"], res[str(device)]
+        err_v, ok_v = _scaled_err(v1, v0)
+        err_g, ok_g = _scaled_err(g1, g0)
+        t = torch.tensor(x, device=device, requires_grad=True)
+        with torch.no_grad():
+            ms = _time_ms(lambda: fn(t), reps)
+        ms_bwd = _time_ms(lambda: torch.autograd.grad(fn(t), t), reps)
+        out["loss_ms"][name] = (ms, ms_bwd)
+        line = (f"surface: loss {name} value {float(v1):.6f} (CPU "
+                f"{float(v0):.6f}) err {err_v:.2e}, gradient err "
+                f"{err_g:.2e}; {ms:.4f} ms forward, {ms_bwd:.4f} ms forward "
+                f"+ backward {'ok' if ok_v and ok_g else 'FAIL'}")
+        print(line, flush=True)
+        if not (ok_v and ok_g):
+            failures.append(line)
+
+    cfg = get_config("mfnet")
+    model = build_model(cfg, device=device, seed=SEED)
+    counts = {}
+    for batch in JAX_TPU_ROUTE_FLOPS:
+        t0 = time.perf_counter()
+        st = flops.model_stats(model, hw, batch)
+        counts[batch] = (int(st["flops_mm"]), int(st["flops_scan"]))
+        mm, sc = counts[batch]
+        jmm, jsc = JAX_TPU_ROUTE_FLOPS[batch]
+        print(f"surface: FLOPs sigma_tiny+MambaDecoder {hw[0]}x{hw[1]} batch "
+              f"{batch} on the card: matmul/conv {mm:,} + scan tally "
+              f"{sc:,} = {mm + sc:,} ({st['params']:,} params, counted in "
+              f"{time.perf_counter() - t0:.2f}s); the JAX package's TPU "
+              f"route {jmm:,} + {jsc:,} = {jmm + jsc:,}; port - JAX: "
+              f"{mm - jmm:,} + {sc - jsc:,}", flush=True)
+    out["flops"] = counts
+    cpu_model = build_model(cfg, device="cpu", seed=SEED)
+    for batch in (1, 2):
+        got = flops.model_stats(model, SURFACE_COUNT_HW, batch)
+        want = flops.model_stats(cpu_model, SURFACE_COUNT_HW, batch)
+        same = (got["flops_mm"], got["flops_scan"]) == (
+            want["flops_mm"], want["flops_scan"])
+        line = (f"surface: FLOPs sigma_tiny {SURFACE_COUNT_HW[0]}x"
+                f"{SURFACE_COUNT_HW[1]} batch {batch}: card "
+                f"{int(got['flops_mm']):,} + {int(got['flops_scan']):,}, "
+                f"CPU {int(want['flops_mm']):,} + "
+                f"{int(want['flops_scan']):,} "
+                f"{'equal' if same else 'DIFFER'}")
+        print(line, flush=True)
+        if not same:
+            failures.append(line)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 61)
+    rgb = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+    gt = rng.integers(0, 9, hw, dtype=np.uint8)
+    mx = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+    pres = {k: TrainPre(cfg.norm_mean, cfg.norm_std, cfg, use_native=k)
+            for k in (True, False)}
+    worst = 0.0
+    for i in range(8):
+        a = pres[True](np.random.default_rng(i), rgb, gt, mx)
+        b = pres[False](np.random.default_rng(i), rgb, gt, mx)
+        worst = max(worst, *(float(np.abs(p - q).max())
+                             for p, q in zip(a[::2], b[::2])))
+        if not (np.array_equal(a[1], b[1]) and worst <= 1e-5
+                and all(p.shape == q.shape for p, q in zip(a, b))):
+            failures.append(f"surface: TrainPre native against numpy, "
+                            f"sample {i}: max |diff| {worst:.3e}")
+    native_ms = {}
+    for native in (True, False):
+        for threads in (1, 8):
+            n = 16
+            with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda i: pres[native](
+                    np.random.default_rng(i), rgb, gt, mx), range(n)))
+                native_ms[(native, threads)] = (
+                    (time.perf_counter() - t0) / n * 1e3)
+    out["native_ms"] = native_ms
+    print(f"surface: TrainPre 480x640 (device_norm off, train scales) "
+          f"native tail against numpy: max |diff| {worst:.3e}, labels "
+          f"equal; host ms a sample (16 samples) native "
+          f"{native_ms[(True, 1)]:.2f} with 1 thread, "
+          f"{native_ms[(True, 8)]:.2f} with 8; numpy "
+          f"{native_ms[(False, 1)]:.2f} / {native_ms[(False, 8)]:.2f}",
+          flush=True)
+    print(f"surface: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    if failures:
+        raise AssertionError(f"{len(failures)} surface checks failed")
+    return out
+
+
+# kernel symbols of K2, K4 and K5 (csrc/scan_g_fwd.cu, scan_g_bwd.cu)
+PROFILED_KERNELS = {"K2": "proj_gemm_kernel", "K4": "bwd_proj_kernel",
+                    "K5": "weight_grad_kernel"}
+
+
+def profile_part(cfg, tmp):
+    """The train CLI's `--profile` on the files phase's MFNet tree: 31
+    steps at batch 2 (no evaluation), the trace of steps 20-29 under
+    DIR/trace_rank0.json naming K2, K4 and K5, the log line. Returns
+    {metric: value}; raises on a failed check."""
+    import logging
+
+    import numpy as np
+
+    from sigma_tpu_torch.engine.logger import get_logger
+
+    t_part = time.perf_counter()
+    prof = os.path.join(tmp, "profile")
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = get_logger()
+    logger.addHandler(handler)
+    try:
+        rec = _ckpt_train(["-n", "mfnet", "--dataset-path", cfg.dataset_path,
+                           "--steps", "31", "--batch-size", "2", "--no-eval",
+                           "--profile", prof, "--log-dir",
+                           os.path.join(tmp, "profile_log")], "--profile")
+    finally:
+        logger.removeHandler(handler)
+    trace = os.path.join(prof, "trace_rank0.json")
+    text = open(trace).read() if os.path.exists(trace) else ""
+    named = {k: sym in text for k, sym in PROFILED_KERNELS.items()}
+    mib = len(text.encode()) / 2 ** 20
+    traced = float(np.mean(rec["seconds"][20:30]))
+    others = float(np.mean(rec["seconds"][1:20] + rec["seconds"][30:]))
+    print(f"files: --profile: trace {trace} {mib:.2f} MiB, kernels named "
+          f"{named}, log line "
+          f"{'printed' if f'profiler trace written to {prof}' in lines else 'MISSING'}"
+          f"; s/step traced (steps 20-29) {traced:.4f}, untraced "
+          f"{others:.4f}; part {time.perf_counter() - t_part:.1f}s",
+          flush=True)
+    if not all(named.values()) or len(rec["seconds"]) != 31 or \
+            f"profiler trace written to {prof}" not in lines:
+        raise AssertionError(f"--profile: kernels {named}, "
+                             f"{len(rec['seconds'])} steps, log {lines[-3:]}")
+    return dict(profile_mib=mib, profile_s_step=traced,
+                profile_untraced_s_step=others)
+
 
 def files_phase(device):
     """The port on dataset files, with no cv2 (`sys.modules["cv2"] =
@@ -4215,6 +4493,7 @@ def files_phase(device):
         out["train_s_step"] = s_step
         del rec
         torch.cuda.empty_cache()
+        out.update(profile_part(cfgs["mfnet"], tmp))
         out.update(ckpt_part(device, cfgs["mfnet"], tmp))
         out.update(ddp_part(device, cfgs["mfnet"], tmp))
     torch.cuda.empty_cache()
@@ -4263,6 +4542,7 @@ def main() -> int:
     bf16_cross_check(device)
     decoders = decoders_phase(device)
     backbones = backbones_phase(device, card)
+    surface = surface_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
         determinism = determinism_part(device, tmp)
     files = files_phase(device)
@@ -4304,13 +4584,13 @@ def main() -> int:
               f"({'backward, autograd' if name.endswith('bwd') else 'forward'}"
               f") at {s['at']} (K6 / K7: ms, plain_ms and the unfused "
               f"chain are device time, torch.profiler)")
-    for name in FORWARD + SCAN_BACKWARD + EPILOGUE:
+    for name in FORWARD + SCAN_BACKWARD + EPILOGUE + IMAGE:
         s = summary[name]
         b32 = _bound(name, s["kw"])[0]
         b16, by16 = _bound(name, s["kw"], io=2)
         err = (f", bf16 max_abs_err over its gradients "
-               f"{s['bf16_max_abs_err']:.3e}" if name in SCAN_BACKWARD
-               else "")
+               f"{s['bf16_max_abs_err']:.3e}"
+               if name in SCAN_BACKWARD + ("scan_img_bwd",) else "")
         print(f"summary: {name} bf16 io at {s['at'].replace(' fp32', '')}: "
               f"{s['bf16_ms']:.4f} ms (fp32 {s['ms']:.4f}), bound "
               f"{b16:.4f} ms ({by16}, 2-byte io streams; fp32 {b32:.4f})"
@@ -4388,6 +4668,21 @@ def main() -> int:
           f"{det['use_deterministic_algorithms']['grads_moved']} moved, "
           f"{det['use_deterministic_algorithms']['s_step']:.4f} s/step, "
           f"raised {det['use_deterministic_algorithms']['raised']!r}")
+    for name, (ms, ms_bwd) in surface["loss_ms"].items():
+        print(f"summary: loss {name} (2, 480, 640, 9) logits on the card: "
+              f"{ms:.4f} ms forward, {ms_bwd:.4f} ms forward + backward")
+    for batch, (mm, sc) in surface["flops"].items():
+        jmm, jsc = JAX_TPU_ROUTE_FLOPS[batch]
+        print(f"summary: FLOPs sigma_tiny+MambaDecoder 480x640 batch {batch}"
+              f": port {mm:,} + {sc:,}, JAX TPU route {jmm:,} + {jsc:,}; "
+              f"card == CPU at {SURFACE_COUNT_HW[0]}x{SURFACE_COUNT_HW[1]}")
+    nm = surface["native_ms"]
+    print(f"summary: TrainPre 480x640 host ms a sample, native / numpy: 1 "
+          f"thread {nm[(True, 1)]:.2f} / {nm[(False, 1)]:.2f}, 8 threads "
+          f"{nm[(True, 8)]:.2f} / {nm[(False, 8)]:.2f}; --profile trace "
+          f"{files['profile_mib']:.2f} MiB, s/step traced "
+          f"{files['profile_s_step']:.4f} / untraced "
+          f"{files['profile_untraced_s_step']:.4f}")
     print(f"summary: checkpoints (files phase, sigma_tiny fp32 batch 2): "
           f"save blocking {files['ckpt_save_async_s']:.4f}s async / "
           f"{files['ckpt_save_sync_s']:.4f}s sync, background write "

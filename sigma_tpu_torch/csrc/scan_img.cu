@@ -49,8 +49,9 @@
 // cores). Design: K4's (csrc/scan_g_bwd.cu), four launches counted as one
 // call by the wrapper.
 //   img_proj_bwd_kernel — K10's projection again (the same tiles,
-//     tc::proj_tile in 3xTF32), into the same scratch P, so the streams K11
-//     scans back are the bits K10 scanned and checkpointed.
+//     tc::proj_tile: 3xTF32 at fp32 io, 1xTF32 at bf16), into the same
+//     scratch P, so the streams K11 scans back are the bits K10 scanned and
+//     checkpointed.
 //   then the chunk backward of csrc/chunk_bwd.cuh over the four chains
 //     (ImgBwdSrc): each 128-token chunk's adjoint from a zero exit adjoint,
 //     a fixed-order carry pass, the emission, with h recomputed in every
@@ -68,10 +69,17 @@
 //   itself (us = (x, x)); dB / dC as per-32-channel-block partials and dA /
 //   dbias / dD as per-chunk partials, which the wrapper sums in a fixed
 //   order. No atomics anywhere: a rerun gives the same bits.
+//   bf16 io (as the TPU kernel's, pallas_scan_g.py:2393-2399): the operand
+//   sources are templates over the io type, as K3 / K4's are
+//   (csrc/scan_g_bwd.cu). x and dy are read as bf16 and widened in
+//   registers; P, hck, the adjoints, the carries, every output (du4, dd,
+//   the partials) and every sum stay fp32, and K5 takes x as its bf16
+//   operand. At fp32 io the conversions are the identity: the same code,
+//   the same bits.
 //
 // Both launch on the caller's stream, allocate nothing (scratch comes from
-// the wrapper), and return cudaGetLastError(). K10 takes fp32 or bf16 io
-// (fp32 state and arithmetic); K11 is fp32.
+// the wrapper), and return cudaGetLastError(). Both take fp32 or bf16 io
+// (fp32 state and arithmetic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -222,8 +230,9 @@ int fwd_entry(const void* x, const void* wdt, const void* wbc,
 
 // ---------------------------------------------------------------- K11
 // K11a: K10's projection of the four chains (the same kernel body) into P
+template <typename T>
 __global__ void __launch_bounds__(tc::kGemmThreads)
-img_proj_bwd_kernel(const ImgSrc<float> p) {
+img_proj_bwd_kernel(const ImgSrc<T> p) {
   img_proj(p);
 }
 
@@ -232,10 +241,11 @@ img_proj_bwd_kernel(const ImgSrc<float> p) {
 // du4 (4, batch, L, dg), the direct du term per chain in image order; dd
 // (2, batch, 2, L, dg) and dBp, dCp (2, batch, nblk, 2, L, N) in image
 // order, [dir, batch, (blk,) layout]; hck (4, batch, n_ck, N, dg) as K10
-// wrote it.
+// wrote it. x and dy in the io type T, everything else fp32.
+template <typename T>
 struct ImgBwdSrc : chunk::BwdArgs {
-  const float* x;
-  const float* dy;
+  const T* x;
+  const T* dy;
   const float* P;
   const float* hck;
   float* du4;
@@ -245,16 +255,17 @@ struct ImgBwdSrc : chunk::BwdArgs {
   int batch, H, W, nblk;
 
   struct View {
-    const float *x, *dy, *P, *hck;
+    const T *x, *dy;
+    const float *P, *hck;
     float *du, *dd, *dB, *dC;
     size_t blk_step;  // between two channel blocks' partials
     PixelMap px;
     int dg, N;
     __device__ float u_at(int t, int e) const {
-      return x[(size_t)px(t) * dg + e];
+      return to_f(x[(size_t)px(t) * dg + e]);
     }
     __device__ float dy_at(int t, int e) const {
-      return dy[(size_t)px(t) * dg + e];
+      return to_f(dy[(size_t)px(t) * dg + e]);
     }
     __device__ float dt_at(int t, int e) const {
       return P[(size_t)t * (dg + 2 * N) + e];
@@ -298,6 +309,58 @@ struct ImgBwdSrc : chunk::BwdArgs {
   }
 };
 
+template <typename T>
+int bwd_entry(const void* x, const void* wdt, const void* wbc, const float* A,
+              const float* bias, const float* Dk, const float* hck,
+              const void* dy, float* du4, float* P, float* dd, float* dA,
+              float* dbias, float* dD, float* dBp, float* dCp, float* lam,
+              float* sd, int n_chunk, int nck, int batch, int H, int W,
+              int dg, int N, int softplus, cudaStream_t s) {
+  if (bad_image(batch, H, W, dg, N)) return kErrArguments;
+  if (N > kMaxState) return kErrStateWidth;
+  const int L = H * W;
+  if (n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk ||
+      nck != chunk::n_ck_of(L))
+    return kErrArguments;
+  ImgSrc<T> q{};
+  chunk::set_fwd_args(q, A, bias, Dk, nullptr, nullptr, nullptr, 4, L, dg, N,
+                      softplus, n_chunk);
+  q.x = static_cast<const T*>(x);
+  q.wdt = static_cast<const T*>(wdt);
+  q.wbc = static_cast<const T*>(wbc);
+  q.P = P;
+  q.batch = batch;
+  q.H = H;
+  q.W = W;
+  img_proj_bwd_kernel<T><<<tc::proj_grid(L, dg, N, 4 * batch),
+                           tc::kGemmThreads, tc::proj_smem<T>(), s>>>(q);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ImgBwdSrc<T> p{};
+  chunk::set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, 4, L, dg, N,
+                      softplus, n_chunk);
+  p.x = static_cast<const T*>(x);
+  p.dy = static_cast<const T*>(dy);
+  p.P = P;
+  p.hck = hck;
+  p.du4 = du4;
+  p.dd = dd;
+  p.dBp = dBp;
+  p.dCp = dCp;
+  p.batch = batch;
+  p.H = H;
+  p.W = W;
+  p.nblk = (dg + chunk::kBwdChan - 1) / chunk::kBwdChan;
+  const int chains = 4 * batch;
+  if (N <= 4)
+    return chunk::launch_chunk_bwd<ImgBwdSrc<T>, 4, false>(p, chains, s);
+  if (N <= 8)
+    return chunk::launch_chunk_bwd<ImgBwdSrc<T>, 8, false>(p, chains, s);
+  if (N <= 16)
+    return chunk::launch_chunk_bwd<ImgBwdSrc<T>, 16, false>(p, chains, s);
+  return chunk::launch_chunk_bwd<ImgBwdSrc<T>, 16, true>(p, chains, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -326,64 +389,31 @@ int sigma_scan_img_fwd(const void* x, const void* wdt, const void* wbc,
                           s);
 }
 
-// K11, fp32. x, wdt, wbc, A, bias, Dk as for K10; hck as K10 wrote it;
-// dy: (batch, H, W, dg). du4: (4, batch, H, W, dg), the direct du term per
-// chain; dd: (2, batch, 2, H W, dg) and dBp, dCp: (2, batch, ceil(dg / 32),
-// 2, H W, N) channel-block partials, image order, [dir, ., layout]; dA:
-// (batch, 4, n_chunk, N, dg), dbias, dD: (batch, 4, n_chunk, dg) per-chunk
-// partials. Scratch, fp32: P as for K10, lam (batch, 4, n_chunk, N, dg), sd
-// (batch, 4, n_chunk, dg), n_chunk = ceil(H W / 128).
-int sigma_scan_img_bwd(const float* x, const float* wdt, const float* wbc,
+// K11. x, wdt, wbc, A, bias, Dk as for K10, x, wdt and wbc in the io type;
+// hck as K10 wrote it; dy: (batch, H, W, dg) in the io type. du4: (4,
+// batch, H, W, dg), the direct du term per chain; dd: (2, batch, 2, H W,
+// dg) and dBp, dCp: (2, batch, ceil(dg / 32), 2, H W, N) channel-block
+// partials, image order, [dir, ., layout]; dA: (batch, 4, n_chunk, N, dg),
+// dbias, dD: (batch, 4, n_chunk, dg) per-chunk partials; all outputs fp32.
+// Scratch, fp32: P as for K10, lam (batch, 4, n_chunk, N, dg), sd (batch,
+// 4, n_chunk, dg), n_chunk = ceil(H W / 128).
+int sigma_scan_img_bwd(const void* x, const void* wdt, const void* wbc,
                        const float* A, const float* bias, const float* Dk,
-                       const float* hck, const float* dy, float* du4,
+                       const float* hck, const void* dy, float* du4,
                        float* P, float* dd, float* dA, float* dbias,
                        float* dD, float* dBp, float* dCp, float* lam,
                        float* sd, int n_chunk, int nck, int batch, int H,
-                       int W, int dg, int N, int softplus, void* stream) {
-  if (bad_image(batch, H, W, dg, N)) return kErrArguments;
-  if (N > kMaxState) return kErrStateWidth;
-  const int L = H * W;
-  if (n_chunk != (L + chunk::kChunk - 1) / chunk::kChunk ||
-      nck != chunk::n_ck_of(L))
-    return kErrArguments;
+                       int W, int dg, int N, int softplus, int bf16,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ImgSrc<float> q{};
-  chunk::set_fwd_args(q, A, bias, Dk, nullptr, nullptr, nullptr, 4, L, dg, N,
-                      softplus, n_chunk);
-  q.x = x;
-  q.wdt = wdt;
-  q.wbc = wbc;
-  q.P = P;
-  q.batch = batch;
-  q.H = H;
-  q.W = W;
-  img_proj_bwd_kernel<<<tc::proj_grid(L, dg, N, 4 * batch),
-                        tc::kGemmThreads, tc::proj_smem<float>(), s>>>(q);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ImgBwdSrc p{};
-  chunk::set_bwd_args(p, A, bias, Dk, lam, sd, dA, dbias, dD, 4, L, dg, N,
-                      softplus, n_chunk);
-  p.x = x;
-  p.dy = dy;
-  p.P = P;
-  p.hck = hck;
-  p.du4 = du4;
-  p.dd = dd;
-  p.dBp = dBp;
-  p.dCp = dCp;
-  p.batch = batch;
-  p.H = H;
-  p.W = W;
-  p.nblk = (dg + chunk::kBwdChan - 1) / chunk::kBwdChan;
-  const int chains = 4 * batch;
-  if (N <= 4)
-    return chunk::launch_chunk_bwd<ImgBwdSrc, 4, false>(p, chains, s);
-  if (N <= 8)
-    return chunk::launch_chunk_bwd<ImgBwdSrc, 8, false>(p, chains, s);
-  if (N <= 16)
-    return chunk::launch_chunk_bwd<ImgBwdSrc, 16, false>(p, chains, s);
-  return chunk::launch_chunk_bwd<ImgBwdSrc, 16, true>(p, chains, s);
+  if (bf16)
+    return bwd_entry<__nv_bfloat16>(x, wdt, wbc, A, bias, Dk, hck, dy, du4,
+                                    P, dd, dA, dbias, dD, dBp, dCp, lam, sd,
+                                    n_chunk, nck, batch, H, W, dg, N,
+                                    softplus, s);
+  return bwd_entry<float>(x, wdt, wbc, A, bias, Dk, hck, dy, du4, P, dd, dA,
+                          dbias, dD, dBp, dCp, lam, sd, n_chunk, nck, batch,
+                          H, W, dg, N, softplus, s);
 }
 
 const char* sigma_scan_img_error_string(int code) {

@@ -1,7 +1,5 @@
-"""Host-side (numpy + integer torch ops on the CPU) augmentation
-pipeline: the port's copy of `sigma_tpu/data/transforms.py`, without its
-native (C++) fused tail, which is not on the `device_norm` path (ROADMAP
-queue A).
+"""Host-side (numpy + integer torch ops on the CPU, and a C++ tail)
+augmentation pipeline: the port's copy of `sigma_tpu/data/transforms.py`.
 
 Mirrors the reference preprocessing exactly (the reference's
 `dataloader/dataloader.py:8-54` and `utils/transforms.py`):
@@ -14,7 +12,10 @@ Mirrors the reference preprocessing exactly (the reference's
 Outputs stay HWC (channel-last) — the model is NHWC-native, unlike the
 reference's CHW transpose (dataloader.py:47-48). The rescale is
 `resize.resize_u8` on CPU tensors, cv2's `INTER_LINEAR` / `INTER_NEAREST`
-bit for bit, so no cv2 is needed.
+bit for bit, so no cv2 is needed. With `device_norm` off, the tail after
+the rescale (normalize + crop + center-pad) runs as the JAX package's
+native fused pass (`data/native.py`) unless `use_native=False` asks for
+the numpy path.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sigma_tpu_torch.data import native
 from sigma_tpu_torch.data.resize import resize_u8
 
 
@@ -87,15 +89,19 @@ def random_crop_pad_to_shape(img, crop_pos, crop_size, pad_value):
 
 class TrainPre:
     """Train-time augmentation. The draws are the JAX package's, in the same
-    order, so a given (seed, index) yields the same geometry. The float path
-    is the numpy semantic reference (the JAX package's native fused tail is
-    not ported)."""
+    order, so a given (seed, index) yields the same geometry. With
+    `device_norm` off, the post-resize tail (normalize + crop + center-pad)
+    runs as ONE fused C++ pass per output pixel (`data/native.py`,
+    `use_native`, which raises if the library cannot be built); the numpy
+    path below (`use_native=False`) is the semantic reference. Both consume
+    the same draws."""
 
-    def __init__(self, norm_mean, norm_std, config,
+    def __init__(self, norm_mean, norm_std, config, use_native: bool = True,
                  device_norm: bool = False):
         self.norm_mean = np.asarray(norm_mean, np.float32)
         self.norm_std = np.asarray(norm_std, np.float32)
         self.config = config
+        self.use_native = use_native
         # device_norm: emit uint8 canvases + pad margins and let the train
         # step normalize/zero-pad on device — 4x less host->device traffic
         self.device_norm = device_norm
@@ -127,15 +133,15 @@ class TrainPre:
             modal_x = _resize(modal_x, sw, sh)
 
         crop_pos = generate_random_crop_pos(rng, rgb.shape[:2], crop_size)
+        # the copied region and where it lands in the centre-padded canvas
+        h, w = rgb.shape[:2]
+        ch, cw = crop_size
+        copy_h = min(ch, h - crop_pos[0])
+        copy_w = min(cw, w - crop_pos[1])
+        pad_t = (ch - copy_h) // 2
+        pad_l = (cw - copy_w) // 2
 
         if self.device_norm:
-            h, w = rgb.shape[:2]
-            ch, cw = crop_size
-            copy_h = min(ch, h - crop_pos[0])
-            copy_w = min(cw, w - crop_pos[1])
-            pad_t = (ch - copy_h) // 2
-            pad_l = (cw - copy_w) // 2
-
             def crop_pad_u8(img, pad_val):
                 sl = img[crop_pos[0] : crop_pos[0] + copy_h,
                          crop_pos[1] : crop_pos[1] + copy_w]
@@ -154,6 +160,17 @@ class TrainPre:
                     np.int32,
                 ),
             )
+
+        if self.use_native:
+            args = (crop_size, crop_pos, (pad_t, pad_l), (copy_h, copy_w))
+            p_rgb = native.fused_image_aug(
+                rgb, *args, self.norm_mean, self.norm_std, 0.0, False
+            )
+            p_x = native.fused_image_aug(
+                modal_x, *args, self.norm_mean, self.norm_std, 0.0, False
+            )
+            p_gt = native.fused_label_aug(gt, *args, 255, False)
+            return p_rgb, p_gt, p_x
 
         rgb = normalize(rgb, self.norm_mean, self.norm_std)
         modal_x = normalize(modal_x, self.norm_mean, self.norm_std)

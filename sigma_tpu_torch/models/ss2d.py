@@ -102,7 +102,10 @@ def project_scan(m, u_layouts, d_state, dt_rank):
     k = xw.shape[0]
     g, n, r = k // j, d_state, dt_rank
     cdt = u_layouts[0].dtype
-    wdt = torch.einsum("krd,ker->kde", xw[:, :r], m.dt_projs_weight)
+    # a batched matmul even at dt rank 1 (einsum would multiply there),
+    # so the FLOP count sees the composition at every width, as JAX's does
+    wdt = torch.matmul(xw[:, :r].transpose(1, 2),
+                       m.dt_projs_weight.transpose(1, 2))
     wdt = wdt.reshape(g, j, d, d).to(cdt)
     wb = xw[:, r:r + n].transpose(1, 2).reshape(g, j, d, n).to(cdt)
     wc = xw[:, r + n:].transpose(1, 2).reshape(g, j, d, n).to(cdt)

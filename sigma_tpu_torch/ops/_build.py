@@ -84,8 +84,9 @@ _SIGNATURES = {
         # batch, H, W, dg, N, softplus, bf16, stream
         "sigma_scan_img_fwd": [_P] * 10 + [_I] + [_P] + [_I] * 8 + [_P],
         # x, wdt, wbc, A, bias, D, hck, dy, du4, P, dd, dA, dbias, dD, dBp,
-        # dCp, lam, sd, n_chunk, nck, batch, H, W, dg, N, softplus, stream
-        "sigma_scan_img_bwd": [_P] * 18 + [_I] * 8 + [_P],
+        # dCp, lam, sd, n_chunk, nck, batch, H, W, dg, N, softplus, bf16,
+        # stream
+        "sigma_scan_img_bwd": [_P] * 18 + [_I] * 9 + [_P],
     },
 }
 _ERROR_STRING = {"fwd": "sigma_scan_error_string",

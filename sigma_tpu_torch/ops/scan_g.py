@@ -37,6 +37,9 @@ states (`split_state`): the fused-projection entry points then take the
 streamed route (`uses_fused_projection` is false), as for calls over the
 weight budget. The raw launches keep the kernels' bound.
 
+Each entry point is one call to the FLOP count (`utils/flops.py`): it
+records its closed form and hides what it dispatches, on either device.
+
 `selective_scan_ss2d_proj` (the image-layout SS2D scan, K10 / K11) lives in
 `ops/scan_img.py` and is exported here too, as JAX exports it from
 `pallas_scan_g`.
@@ -65,6 +68,7 @@ import torch
 
 from sigma_tpu_torch.ops import _build
 from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
+from sigma_tpu_torch.utils import flops as _flops
 
 # launches of each kernel, and of those with bf16 io; reset with
 # reset_launches()
@@ -154,16 +158,22 @@ def selective_scan_g_plain(u, delta, A, B, C, D=None, delta_bias=None,
     return y.flip(2) if reverse else y
 
 
-def selective_scan_g_proj_plain(u, w_dt, w_b, w_c, A, D=None,
-                                delta_bias=None, delta_softplus=False,
-                                reverse=False, swap_groups_c=False,
-                                y_accum=None, remat_chunks=False):
+def _project_plain(u, w_dt, w_b, w_c, swap_groups_c):
+    """fp32 u and its dt / B / C projections, C pair-swapped for CroMB."""
     uf = u.float()
     dts = uf @ w_dt.float()
     bs = uf @ w_b.float()
     cs = uf @ w_c.float()
     if swap_groups_c:
         cs = _pair_swap(cs)
+    return uf, dts, bs, cs
+
+
+def selective_scan_g_proj_plain(u, w_dt, w_b, w_c, A, D=None,
+                                delta_bias=None, delta_softplus=False,
+                                reverse=False, swap_groups_c=False,
+                                y_accum=None, remat_chunks=False):
+    uf, dts, bs, cs = _project_plain(u, w_dt, w_b, w_c, swap_groups_c)
     y = selective_scan_g_plain(uf, dts, A, bs, cs, D, delta_bias,
                                delta_softplus, reverse, remat_chunks)
     if y_accum is not None:
@@ -696,13 +706,16 @@ def selective_scan_g(u, delta, A, B, C, D=None, delta_bias=None,
     """Grouped channel-last scan; `reverse` walks last-to-first in place,
     so selective_scan_g(.., reverse=True) == flip(selective_scan_g(flip(.)))
     with no flipped copies. fp32 math, dtype-preserving."""
-    if not _on_cuda(u, delta, A, B, C, D, delta_bias):
-        return selective_scan_g_plain(u, delta, A, B, C, D, delta_bias,
-                                      delta_softplus, reverse)
-    io = _io_dtype(u)
-    y = _streamed(*_cast(io, u, delta), A, *_cast(io, B, C), D, delta_bias,
-                  delta_softplus, reverse)
-    return y.to(u.dtype)
+    batch, G, L, dg = u.shape
+    with _flops.scan_call(_flops.selective_scan_flops(
+            batch * G, L, dg, A.shape[1], D is not None)):
+        if not _on_cuda(u, delta, A, B, C, D, delta_bias):
+            return selective_scan_g_plain(u, delta, A, B, C, D, delta_bias,
+                                          delta_softplus, reverse)
+        io = _io_dtype(u)
+        y = _streamed(*_cast(io, u, delta), A, *_cast(io, B, C), D,
+                      delta_bias, delta_softplus, reverse)
+        return y.to(u.dtype)
 
 
 def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
@@ -710,28 +723,48 @@ def selective_scan_g_proj(u, w_dt, w_b, w_c, A, D=None, delta_bias=None,
                           swap_groups_c=False, y_accum=None):
     """Fused-projection scan: dt = u @ w_dt, B = u @ w_b, C = u @ w_c per
     group. `swap_groups_c`: chain pair (2k, 2k+1) consumes its partner's C
-    (CroMB). `y_accum` is added into y (CrossMerge's direction-pair sum)."""
-    if not _on_cuda(u, w_dt, w_b, w_c, A, D, delta_bias, y_accum):
-        return selective_scan_g_proj_plain(
-            u, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
-            swap_groups_c, y_accum,
-        )
+    (CroMB). `y_accum` is added into y (CrossMerge's direction-pair sum).
+    A call over the weight budget (`uses_fused_projection`) runs its
+    projections as matmuls outside the scan, on either device."""
+    cuda = _on_cuda(u, w_dt, w_b, w_c, A, D, delta_bias, y_accum)
+    batch, G, L, dg = u.shape
+    N = A.shape[1]
+    scan = _flops.selective_scan_flops(batch * G, L, dg, N, D is not None)
+    if uses_fused_projection(G, dg, N):
+        with _flops.scan_call(
+                scan + _flops.scan_projection_flops(batch * G * L, dg, N)):
+            if not cuda:
+                return selective_scan_g_proj_plain(
+                    u, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus,
+                    reverse, swap_groups_c, y_accum,
+                )
+            io = _io_dtype(u)
+            ui, w_dt, w_b, w_c, y_accum = _cast(io, u, w_dt, w_b, w_c,
+                                                y_accum)
+            (y,) = _fused(
+                (ui,), w_dt, w_b, w_c, A, D, delta_bias, delta_softplus,
+                reverse, swap_groups_c,
+                None if y_accum is None else (y_accum,),
+            )
+            return y.to(u.dtype)
+    # projections outside the kernel, as the JAX package leaves them to
+    # XLA (pallas_scan_g.py:1616-1629); autograd differentiates them
+    if not cuda:
+        uf, dts, bs, cs = _project_plain(u, w_dt, w_b, w_c, swap_groups_c)
+        with _flops.scan_call(scan):
+            y = selective_scan_g_plain(uf, dts, A, bs, cs, D, delta_bias,
+                                       delta_softplus, reverse)
+        if y_accum is not None:
+            y = y + y_accum.float()
+        return y.to(u.dtype)
     io = _io_dtype(u)
     ui, w_dt, w_b, w_c, y_accum = _cast(io, u, w_dt, w_b, w_c, y_accum)
-    G, dg = u.shape[1], u.shape[3]
-    if uses_fused_projection(G, dg, A.shape[1]):
-        (y,) = _fused(
-            (ui,), w_dt, w_b, w_c, A, D, delta_bias, delta_softplus,
-            reverse, swap_groups_c, None if y_accum is None else (y_accum,),
-        )
-    else:
-        # projections outside the kernel, as the JAX package leaves them
-        # to XLA (pallas_scan_g.py:1616-1629); autograd differentiates them
-        dts = torch.matmul(ui, w_dt)
-        bs = torch.matmul(ui, w_b)
-        cs = torch.matmul(ui, w_c)
-        if swap_groups_c:
-            cs = _pair_swap(cs)
+    dts = torch.matmul(ui, w_dt)
+    bs = torch.matmul(ui, w_b)
+    cs = torch.matmul(ui, w_c)
+    if swap_groups_c:
+        cs = _pair_swap(cs)
+    with _flops.scan_call(scan):
         y = _streamed(ui, dts, A, bs, cs, D, delta_bias, delta_softplus,
                       reverse, y_accum)
     return y.to(u.dtype)
@@ -745,25 +778,31 @@ def selective_scan_g_proj_ml(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     row-major and transposed sequences; CroMB's two modalities)."""
     u0, u1 = us
     yas = (None, None) if y_accum is None else tuple(y_accum)
-    if not _on_cuda(u0, u1, w_dt, w_b, w_c, A, D, delta_bias, *yas):
-        return selective_scan_g_proj_ml_plain(
-            us, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus, reverse,
-            swap_groups_c, y_accum,
+    cuda = _on_cuda(u0, u1, w_dt, w_b, w_c, A, D, delta_bias, *yas)
+    batch, L, dg = u0.shape
+    N = A.shape[1]
+    if not uses_fused_projection(2, dg, N):
+        ya = None if y_accum is None else torch.stack(yas, 1)
+        y = selective_scan_g_proj(
+            torch.stack((u0, u1), 1), w_dt, w_b, w_c, A, D, delta_bias,
+            delta_softplus, reverse, swap_groups_c, ya,
         )
-    io = _io_dtype(u0)
-    if uses_fused_projection(2, u0.shape[-1], A.shape[1]):
+        return y[:, 0], y[:, 1]
+    with _flops.scan_call(
+            _flops.selective_scan_flops(batch * 2, L, dg, N, D is not None)
+            + _flops.scan_projection_flops(batch * 2 * L, dg, N)):
+        if not cuda:
+            return selective_scan_g_proj_ml_plain(
+                us, w_dt, w_b, w_c, A, D, delta_bias, delta_softplus,
+                reverse, swap_groups_c, y_accum,
+            )
+        io = _io_dtype(u0)
         y0, y1 = _fused(
             _cast(io, u0, u1), *_cast(io, w_dt, w_b, w_c), A, D, delta_bias,
             delta_softplus, reverse, swap_groups_c,
             None if y_accum is None else _cast(io, *yas),
         )
         return y0.to(u0.dtype), y1.to(u0.dtype)
-    ya = None if y_accum is None else torch.stack(yas, 1)
-    y = selective_scan_g_proj(
-        torch.stack((u0, u1), 1), w_dt, w_b, w_c, A, D, delta_bias,
-        delta_softplus, reverse, swap_groups_c, ya,
-    )
-    return y[:, 0], y[:, 1]
 
 
 def __getattr__(name):

@@ -21,15 +21,17 @@ Kernels (`csrc/scan_img.cu`):
 and the weight gradients and du's chain term run on K5
 (`launch_proj_grad`, `csrc/scan_g_bwd.cu`), once per direction with the
 two layouts' cotangents in image order and us = (x, x). `LAUNCHES` counts
-K10 / K11 once per call (four launches each); K5's launches count in
-`scan_g.LAUNCHES`.
+K10 / K11 once per call (four launches each), `LAUNCHES_BF16` those of
+them with bf16 io; K5's launches count in `scan_g.LAUNCHES`.
 
 Dispatch goes by the device of `x`: a CPU tensor takes the plain version
 (`selective_scan_ss2d_proj_plain`, differentiated by autograd); a CUDA
-tensor launches the kernels or raises — there is no fallback. The
-backward is fp32: a bf16 call with a gradient runs in fp32 from the entry
-on (`_entry_io`) and returns bf16 y and gradients; the checkpoints are
-fp32 (ROADMAP C2). K11's bf16 io is still to be ported (ROADMAP queue B).
+tensor launches the kernels or raises — there is no fallback. Both
+kernels take fp32 or bf16 io, as JAX's image kernels do
+(pallas_scan_g.py:2393-2399): a bf16 call keeps its bf16 x, weights and
+dy through K10 and K11 (read as bf16, fp32 inside), K5 takes x as its
+bf16 operand, and the gradients come back in their inputs' dtypes. The
+checkpoints and every sum are fp32 (ROADMAP C2).
 
 Decided difference (ROADMAP C7): JAX returns None where its planner
 (`_plan_img`) finds no VMEM tiling and its caller falls back to the
@@ -43,9 +45,12 @@ from __future__ import annotations
 import torch
 
 from sigma_tpu_torch.ops import _build, scan_g
+from sigma_tpu_torch.utils import flops as _flops
 
-# launches of each kernel; reset with reset_launches()
+# launches of each kernel, and of those with bf16 io; reset with
+# reset_launches()
 LAUNCHES = {"scan_img_fwd": 0, "scan_img_bwd": 0}
+LAUNCHES_BF16 = dict.fromkeys(LAUNCHES, 0)
 
 # checkpoint spacing in tokens (kTok in csrc/scan_img.cu)
 IMG_CK_TOKENS = 32
@@ -57,7 +62,13 @@ IMG_MAX_STATE = 256
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_BF16[k] = 0
+
+
+def _count(kernel, io):
+    LAUNCHES[kernel] += 1
+    if io == torch.bfloat16:
+        LAUNCHES_BF16[kernel] += 1
 
 
 def _opt(t, d):
@@ -171,7 +182,7 @@ def launch_scan_img_fwd(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
             _n_ck(L), batch, H, W, dg, N, int(bool(delta_softplus)),
             int(io == torch.bfloat16), scan_g._stream(x),
         )
-        LAUNCHES["scan_img_fwd"] += 1
+        _count("scan_img_fwd", io)
     _build.check(code, "scan_img_fwd", "img")
     y = y4.sum((0, 1), dtype=torch.float32).to(io)
     return (y, hck) if with_hck else y
@@ -179,8 +190,9 @@ def launch_scan_img_fwd(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
 
 def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
                         delta_softplus=False):
-    """K11: the chunk-parallel backward from K10's checkpoints, fp32 CUDA
-    tensors. Returns (du planes (2, 2, B, H*W, dg) — the direct term per
+    """K11: the chunk-parallel backward from K10's checkpoints, CUDA
+    tensors; x and dy of one io type (fp32 or bf16), the weights taken in
+    it, as K10 takes them. Returns (du planes (2, 2, B, H*W, dg) — the direct term per
     (direction, layout), K5 adds the chain term —, dd (2, B, 2, H*W, dg),
     dB, dC (2, B, 2, H*W, N), dA (2, 2, N, dg), dbias, dD (2, 2, dg)): dd /
     dB / dC are the cotangents of the projected streams, in image order per
@@ -190,8 +202,11 @@ def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
     L = H * W
     scan_g._expect(dy, x.shape, "dy")
     scan_g._expect(hck, (2, 2, batch, _n_ck(L), N, dg), "hck")
-    x, dy, hck, wdt = (scan_g._f32(t) for t in (x, dy, hck, w_dt))
-    wbc = torch.cat([scan_g._f32(w_b), scan_g._f32(w_c)], -1).contiguous()
+    io = scan_g._bwd_io(x, dy)
+    x, dy = x.contiguous(), dy.contiguous()
+    hck = scan_g._f32(hck)
+    wdt = w_dt.to(io).contiguous()
+    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
     a32 = scan_g._param(A, (2, 2, N, dg), x)
     bias = scan_g._param(delta_bias, (2, 2, dg), x)
     dk = scan_g._param(D, (2, 2, dg), x)
@@ -214,9 +229,10 @@ def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
             du4.data_ptr(), proj.data_ptr(), dd.data_ptr(), dA.data_ptr(),
             dbias.data_ptr(), dD.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
             lam.data_ptr(), sd.data_ptr(), lam.shape[2], _n_ck(L), batch, H,
-            W, dg, N, int(bool(delta_softplus)), scan_g._stream(x),
+            W, dg, N, int(bool(delta_softplus)), int(io == torch.bfloat16),
+            scan_g._stream(x),
         )
-        LAUNCHES["scan_img_bwd"] += 1
+        _count("scan_img_bwd", io)
     _build.check(code, "scan_img_bwd", "img")
     return (du4, dd, dBp.sum(2), dCp.sum(2),
             dA.sum((0, 2)).reshape(2, 2, N, dg),
@@ -226,9 +242,10 @@ def launch_scan_img_bwd(x, w_dt, w_b, w_c, A, D, delta_bias, hck, dy,
 
 def _chain_grads(x, du4, dd, dB, dC, w_dt, w_b, w_c):
     """K5 once per direction: adds the chain term into `du4`'s planes in
-    place and returns the stacked (dW_dt, dW_B, dW_C), each (2, 2, ...)."""
+    place and returns the stacked (dW_dt, dW_B, dW_C), each (2, 2, ...),
+    fp32; x (fp32 or bf16) is K5's operand as it is."""
     batch, H, W, dg = x.shape
-    xs = scan_g._f32(x).reshape(batch, H * W, dg)
+    xs = x.contiguous().reshape(batch, H * W, dg)
     grads = [scan_g.launch_proj_grad(
         (xs, xs), (du4[d, 0], du4[d, 1]), dd[d], dB[d], dC[d], w_dt[d],
         w_b[d], w_c[d]) for d in range(2)]
@@ -253,48 +270,49 @@ class _ScanImg(torch.autograd.Function):
         du4, dd, dB, dC, dA, dbias, dD = launch_scan_img_bwd(
             x, w_dt, w_b, w_c, A, D, bias, hck, dy, ctx.softplus)
         dw_dt, dw_b, dw_c = _chain_grads(x, du4, dd, dB, dC, w_dt, w_b, w_c)
-        dx = du4.sum((0, 1)).reshape(x.shape)
-        return (dx, dw_dt, dw_b, dw_c, dA.reshape(A.shape),
+        # the four planes summed in fp32, rounded to x's dtype once
+        dx = du4.sum((0, 1)).reshape(x.shape).to(x.dtype)
+        return (dx, dw_dt.to(w_dt.dtype), dw_b.to(w_b.dtype),
+                dw_c.to(w_c.dtype), dA.reshape(A.shape),
                 scan_g._grad_like(dD, D), scan_g._grad_like(dbias, bias),
                 None)
 
 
 # ------------------------------------------------------------ entry point
-def _entry_io(x, *tensors):
-    """The io type of a CUDA call: bf16 for bf16 x, else fp32. A bf16 call
-    that needs a gradient runs in fp32 from the entry on, because K11 is
-    fp32; the casts are part of autograd's graph, so the gradients come
-    back in their inputs' dtypes."""
-    io = scan_g._io_dtype(x)
-    if io == torch.bfloat16 and scan_g._needs_grad(x, *tensors):
-        return torch.float32
-    return io
-
-
 def selective_scan_ss2d_proj(x, w_dt, w_b, w_c, A, D=None, delta_bias=None,
                              delta_softplus=False, fold_batch=True):
     """The four-direction SS2D scan of image x with in-kernel projections;
     returns the CrossMerge sum y (B, H, W, dg) with x's dtype, fp32 math.
     Arguments as in the module docstring; `fold_batch` changes nothing."""
     del fold_batch  # TPU chain grouping; the result does not depend on it
-    if not scan_g._on_cuda(x, w_dt, w_b, w_c, A, D, delta_bias):
-        return selective_scan_ss2d_proj_plain(x, w_dt, w_b, w_c, A, D,
-                                              delta_bias, delta_softplus)
-    io = _entry_io(x, w_dt, w_b, w_c, A, D, delta_bias)
-    xi = x.to(io)
-    if scan_g._needs_grad(xi, w_dt, w_b, w_c, A, D, delta_bias):
-        y = _ScanImg.apply(xi, *scan_g._cast(io, w_dt, w_b, w_c), A, D,
-                           delta_bias, bool(delta_softplus))
-    else:
-        y = launch_scan_img_fwd(xi, w_dt, w_b, w_c, A, D, delta_bias,
-                                delta_softplus)
-    return y.to(x.dtype)
+    batch, H, W, dg = x.shape
+    N = A.shape[-2]
+    with _flops.scan_call(
+            _flops.selective_scan_flops(4 * batch, H * W, dg, N,
+                                        D is not None)
+            + _flops.scan_projection_flops(4 * batch * H * W, dg, N)):
+        if not scan_g._on_cuda(x, w_dt, w_b, w_c, A, D, delta_bias):
+            return selective_scan_ss2d_proj_plain(x, w_dt, w_b, w_c, A, D,
+                                                  delta_bias, delta_softplus)
+        # bf16 io for bf16 x, with or without a gradient; the weights are
+        # cast to it inside autograd's graph, so their gradients come back
+        # in their own dtypes
+        io = scan_g._io_dtype(x)
+        xi = x.to(io)
+        if scan_g._needs_grad(xi, w_dt, w_b, w_c, A, D, delta_bias):
+            y = _ScanImg.apply(xi, *scan_g._cast(io, w_dt, w_b, w_c), A, D,
+                               delta_bias, bool(delta_softplus))
+        else:
+            y = launch_scan_img_fwd(xi, w_dt, w_b, w_c, A, D, delta_bias,
+                                    delta_softplus)
+        return y.to(x.dtype)
 
 
 __all__ = [
     "IMG_CK_TOKENS",
     "IMG_MAX_STATE",
     "LAUNCHES",
+    "LAUNCHES_BF16",
     "launch_scan_img_bwd",
     "launch_scan_img_fwd",
     "reset_launches",

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from sigma_tpu_torch.ops import scan_g
 from sigma_tpu_torch.ops.selective_scan import selective_scan_cl_plain
+from sigma_tpu_torch.utils import flops as _flops
 
 
 def selective_scan_seq_cl(u, delta, A, B, C, D=None, delta_bias=None,
@@ -29,6 +30,13 @@ def selective_scan_seq_cl(u, delta, A, B, C, D=None, delta_bias=None,
     """u, delta: (bg, L, dg), bg = batch*G; A: (G, N, dg) negative;
     B, C: (bg, L, N); D, delta_bias: (G, dg) optional. Returns y
     (bg, L, dg), fp32 compute, dtype-preserving."""
+    bg, L, dg = u.shape
+    with _flops.scan_call(_flops.selective_scan_flops(
+            bg, L, dg, A.shape[1], D is not None)):
+        return _seq_cl(u, delta, A, B, C, D, delta_bias, delta_softplus)
+
+
+def _seq_cl(u, delta, A, B, C, D, delta_bias, delta_softplus):
     if not scan_g._on_cuda(u, delta, A, B, C, D, delta_bias):
         return selective_scan_cl_plain(u, delta, A, B, C, D, delta_bias,
                                        delta_softplus)

@@ -30,6 +30,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from sigma_tpu_torch.utils import flops as _flops
+
 
 # chunk length of the chunked scan; it changes only float32 association
 CHUNK = 64
@@ -218,14 +220,17 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
     256 tokens); JAX's `unroll` has no counterpart.
     fp32 math; y has u's dtype.
     """
-    if _use_kernel(backend, u):
-        # imported here: the kernel modules import this one
-        from sigma_tpu_torch.ops.scan_cf import selective_scan_cf
+    batch, dim, L = u.shape
+    with _flops.scan_call(_flops.selective_scan_flops(
+            batch, L, dim, A.shape[1], D is not None)):
+        if _use_kernel(backend, u):
+            # imported here: the kernel modules import this one
+            from sigma_tpu_torch.ops.scan_cf import selective_scan_cf
 
-        return selective_scan_cf(u, delta, A, B, C, D, delta_bias,
-                                 delta_softplus)
-    return selective_scan_chunked(u, delta, A, B, C, D, delta_bias,
-                                  delta_softplus, chunk)
+            return selective_scan_cf(u, delta, A, B, C, D, delta_bias,
+                                     delta_softplus)
+        return selective_scan_chunked(u, delta, A, B, C, D, delta_bias,
+                                      delta_softplus, chunk)
 
 
 def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
@@ -241,13 +246,16 @@ def selective_scan_cl(u, delta, A, B, C, D=None, delta_bias=None,
     route to
     `pallas_scan_seq.py`. `chunk` shapes the plain version only.
     """
-    if _use_kernel(backend, u):
-        from sigma_tpu_torch.ops.scan_seq import selective_scan_seq_cl
+    bg, L, dg = u.shape
+    with _flops.scan_call(_flops.selective_scan_flops(
+            bg, L, dg, A.shape[1], D is not None)):
+        if _use_kernel(backend, u):
+            from sigma_tpu_torch.ops.scan_seq import selective_scan_seq_cl
 
-        return selective_scan_seq_cl(u, delta, A, B, C, D, delta_bias,
-                                     delta_softplus)
-    return selective_scan_cl_plain(u, delta, A, B, C, D, delta_bias,
-                                   delta_softplus, chunk)
+            return selective_scan_seq_cl(u, delta, A, B, C, D, delta_bias,
+                                         delta_softplus)
+        return selective_scan_cl_plain(u, delta, A, B, C, D, delta_bias,
+                                       delta_softplus, chunk)
 
 
 __all__ = [

@@ -35,8 +35,13 @@ of the val split and saves collectively (rank 0 writes); rank 0 alone
 logs, writes tensorboard, `val_epoch_N.log` and `val_scores.json`, and
 prunes.
 
-Not ported: `--profile` (A1, the port's bench), raising with its ROADMAP
-item.
+`--profile DIR`: torch.profiler (CPU activity, and CUDA activity on the
+card) over steps 20-29 of the run's first epoch, as the JAX trainer's
+jax.profiler window (iters 20..30): started before step 20, stopped
+before step 30 or at the end of the epoch, the device synchronised
+first; the Chrome trace is written to DIR/trace_rank<R>.json (one file
+per rank under `--distributed`, R = 0 on one process) and the log says
+"profiler trace written to DIR".
 """
 
 from __future__ import annotations
@@ -76,7 +81,9 @@ def parse_args(argv=None):
     p.add_argument("--no-eval", action="store_true")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="(not ported)")
+                   help="write a torch.profiler trace of steps 20..30 of "
+                        "the first epoch into DIR (Chrome trace JSON, one "
+                        "file per rank)")
     p.add_argument("--distributed", action="store_true",
                    help="data parallel over torchrun's processes")
     p.add_argument("--num-workers", type=int, default=None)
@@ -88,16 +95,44 @@ def parse_args(argv=None):
     return p, p.parse_args(argv)
 
 
-_WAITING = (
-    ("profile", "--profile", "the port's bench, ROADMAP.md item A1"),
-)
+class ProfileWindow:
+    """`--profile DIR`: torch.profiler over the steps [START, STOP) of the
+    run's first epoch (the JAX trainer's window). Call `before_step(n)`
+    with the run's step count before each step of that epoch and `end()`
+    after it."""
+
+    START, STOP = 20, 30
+
+    def __init__(self, out_dir, device, logger):
+        self.out_dir, self.device, self.logger = out_dir, device, logger
+        self.prof = None
+
+    def before_step(self, total_steps):
+        if total_steps == self.START:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif total_steps == self.STOP:
+            self.end()
+
+    def end(self):
+        """Stop a running window and write its trace."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.prof.export_chrome_trace(
+            os.path.join(self.out_dir, f"trace_rank{dist.rank()}.json"))
+        self.prof = None
+        self.logger.info("profiler trace written to %s", self.out_dir)
 
 
 def main(argv=None) -> int:
     parser, args = parse_args(argv)
-    for attr, flag, item in _WAITING:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not ported ({item})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device (pass --device cpu to "
@@ -244,7 +279,11 @@ def _train(args, device) -> int:
         t_epoch = time.time()
         losses = []  # device scalars; synced at log points
         t_win, steps_win = time.time(), 0
+        window = (ProfileWindow(args.profile, device, logger)
+                  if args.profile and epoch == start_epoch else None)
         for it, batch in enumerate(loader):
+            if window is not None:
+                window.before_step(total_steps)
             loss = train_step(state, batch)
             losses.append(loss)
             total_steps += 1
@@ -262,6 +301,9 @@ def _train(args, device) -> int:
                 t_win, steps_win = time.time(), 0
             if args.steps and total_steps >= args.steps:
                 break
+        if window is not None:
+            # the epoch (or the run) ended before the in-loop stop
+            window.end()
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         logger.info("epoch %d done in %.1fs mean-loss %.4f", epoch,
                     time.time() - t_epoch, mean_loss)

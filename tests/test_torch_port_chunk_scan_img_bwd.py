@@ -24,7 +24,11 @@ backward in interpret mode, as tests/test_torch_port_scan_img.py runs it)
 at the fp32 tier, rtol 6e-4 / atol 2e-3 against max(|ref|, 1), as
 chip_smoke.py holds K11, at geometries JAX's planner tiles (`_plan_img`,
 ROADMAP C7) with L not a multiple of 128; and in fp64 to autograd of a
-sequential walk over the image, to rounding.
+sequential walk over the image, to rounding. With bf16 io the model reads
+x, dy and the weights rounded to bf16, as K11 reads them (widened in
+registers, fp32 inside), and returns x's and the weights' gradients
+rounded to bf16 once: all seven against `jax.vjp` of JAX's bf16 image
+scan (its bf16 io kernel, interpret mode) at the bf16 tier, 5e-2.
 """
 
 import jax
@@ -153,6 +157,35 @@ def test_image_backward_model_matches_jax(b, H, W, dg, N):
     for k in NAMES:
         assert got[k].shape == want[k].shape, k
         _close(got[k].numpy(), want[k], k)
+
+
+BF16_TOL = 5e-2
+IO = ("x", "w_dt", "w_b", "w_c")  # the operands K11 takes in the io type
+
+
+def test_image_backward_model_bf16_io_matches_jax():
+    """bf16 io: the model on bf16-rounded x, dy and weights, its x and
+    weight gradients rounded to bf16, against jax.vjp of JAX's image scan
+    on the same bf16 operands (A, D and the dt bias fp32), all seven
+    gradients at 5e-2 of max(|ref|, 1); L 192 is a chunk and a ragged
+    half."""
+    b, H, W, dg, N = CASES[0]
+    assert _plan_img(b, H, W, dg, N, 2) is not None  # JAX's bf16 kernel
+    x = _inputs(b, H, W, dg, N, seed=H * W + N + 1)
+    io = {k: jnp.asarray(x[k], jnp.bfloat16) for k in IO + ("dy",)}
+    _, vjp = jax.vjp(
+        lambda *a: jax_img(*a, delta_softplus=True, interpret=True),
+        *(io.get(k, jnp.asarray(x[k])) for k in NAMES))
+    want = dict(zip(NAMES, vjp(io["dy"])))
+    rounded = {k: np.array(v.astype(jnp.float32)) for k, v in io.items()}
+    got = _model_grads({**x, **rounded}, True, torch.float32)
+    for k in NAMES:
+        g = got[k].bfloat16() if k in IO else got[k]
+        assert want[k].dtype == (jnp.bfloat16 if k in IO else jnp.float32)
+        g, w = g.float().numpy(), np.asarray(want[k], np.float32)
+        scale = max(np.abs(w).max(), 1.0)
+        np.testing.assert_allclose(g / scale, w / scale, rtol=BF16_TOL,
+                                   atol=BF16_TOL, err_msg=k)
 
 
 def sequential_image_scan(x, w_dt, w_b, w_c, A, D, bias, softplus):

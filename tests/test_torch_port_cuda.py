@@ -29,8 +29,9 @@ before K9 joined their backward body (`chip_smoke.body_bits`). The grouped and p
 points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
 SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
 image, odd and small images, dg not a multiple of 32, d_state 1-256 and
-above its bound, in bf16, with its counts and K11 reruns bit for bit (one
-state tile and three). The MiT and Swin segmentation models and the VSSM
+above its bound, in bf16 (K11 too: bf16 io with every gradient, on bf16
+operands), with its counts and K11 reruns bit for bit (one state tile and
+three). The MiT and Swin segmentation models and the VSSM
 classifier take one step on the card against the CPU at the CPU tests'
 widths.
 Tolerances are chip_smoke's: fp32 rtol 6e-4 / atol 2e-3 and bf16 5e-2,
@@ -639,11 +640,11 @@ def _bf16_entry(name, dev):
                                   "selective_scan_ss2d_proj"])
 def test_bf16_grads_at_the_entry_points(dev, name):
     """bf16 u and weights with a gradient (ROADMAP B1), as JAX's
-    test_bf16_io: the grouped entry points run their kernels on the bf16
-    operands, the image scan runs its fp32 kernels from the entry on; y
-    and every gradient come back bf16, within 5e-2 of autograd of the same
-    function on the same values in fp32 (the entry point's kernels, held
-    to the plain versions by the tests above)."""
+    test_bf16_io: every entry point runs its kernels on the bf16 operands
+    (the image scan: K10, K11 and both K5); y and every gradient come back
+    bf16, within 5e-2 of autograd of the same function on the same values
+    in fp32 (the entry point's kernels, held to the plain versions by the
+    tests above)."""
     fn, u, ws = _bf16_entry(name, dev)
     dy = torch.randn(u.shape, device=dev)
     grads = {}
@@ -651,15 +652,17 @@ def test_bf16_grads_at_the_entry_points(dev, name):
         leaves = [t.bfloat16().to(dtype).requires_grad_(True)
                   for t in (u, *ws)]
         scan_g.reset_launches()
+        scan_img.reset_launches()
         y = fn(leaves[0], leaves[1:])
         assert y.dtype == dtype
         grads[dtype] = torch.autograd.grad(y.float(), leaves, dy)
-        bf16_launches = sum(scan_g.LAUNCHES_BF16.values())
-        if dtype == torch.float32 or name == "selective_scan_ss2d_proj":
-            assert bf16_launches == 0, scan_g.LAUNCHES_BF16
+        counts = {**scan_g.LAUNCHES, **scan_img.LAUNCHES}
+        bf16 = {**scan_g.LAUNCHES_BF16, **scan_img.LAUNCHES_BF16}
+        assert sum(counts.values()) > 0
+        if dtype == torch.float32:
+            assert sum(bf16.values()) == 0, bf16
         else:
-            assert scan_g.LAUNCHES_BF16 == scan_g.LAUNCHES, \
-                scan_g.LAUNCHES_BF16
+            assert bf16 == counts, bf16
     for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert got.dtype == torch.bfloat16
         _close(got, want, torch.bfloat16)
@@ -1189,9 +1192,9 @@ def test_image_kernels_match_plain(dev, b, H, W, dg, N, softplus):
 
 
 def test_image_kernel_bf16_and_bounds(dev):
-    """bf16 io forward at 5e-2; a bf16 call with a gradient runs in fp32
-    and returns bf16 gradients at 5e-2; d_state 257 raises; D and
-    delta_bias may be left out."""
+    """bf16 io forward at 5e-2; a bf16 call with a gradient returns bf16
+    gradients at 5e-2; d_state 257 raises; D and delta_bias may be left
+    out."""
     t = _image(2, 9, 12, 48, 16, dev, seed=120)
     for k in ("x", "w_dt", "w_b", "w_c"):
         t[k] = t[k].bfloat16()
@@ -1219,6 +1222,44 @@ def test_image_kernel_bf16_and_bounds(dev):
     wide = _image(1, 2, 3, 8, 257, dev, seed=121)
     with pytest.raises(ValueError, match="at most 256"):
         scan_g.selective_scan_ss2d_proj(**wide)
+
+
+@pytest.mark.parametrize("b,H,W,dg,N", [(1, 1, 1, 8, 4), (2, 7, 9, 40, 16),
+                                        (2, 5, 6, 24, 40)])
+def test_image_backward_bf16_io(dev, b, H, W, dg, N):
+    """A bf16 call with a gradient keeps bf16 io through the backward: one
+    K10 and one K11 on bf16 operands and both K5 on bf16 x (no fp32 copy
+    of x is made), all seven gradients in their inputs' dtypes against
+    autograd of the plain version at 5e-2 (one pixel, an odd image with dg
+    not a multiple of 32, three state tiles); K11 at bf16 io reruns bit for
+    bit."""
+    t = _image(b, H, W, dg, N, dev, seed=150 + N, softplus=True)
+    for k in ("x", "w_dt", "w_b", "w_c"):
+        t[k] = t[k].bfloat16()
+    inputs = {k: _leaf(v) for k, v in t.items()}
+    scan_g.reset_launches()
+    scan_img.reset_launches()
+    got_y, got = _grads(lambda **a: scan_g.selective_scan_ss2d_proj(
+        **a, delta_softplus=True), inputs)
+    assert scan_img.LAUNCHES_BF16 == dict(scan_img_fwd=1, scan_img_bwd=1)
+    launched = {k: n for k, n in scan_g.LAUNCHES_BF16.items() if n}
+    assert launched == dict(proj_grad=2), launched
+    want_y, want = _grads(lambda **a: scan_img.selective_scan_ss2d_proj_plain(
+        **a, delta_softplus=True), inputs)
+    assert got_y[0].dtype == torch.bfloat16
+    _close(got_y[0], want_y[0], torch.bfloat16)
+    for k in want:
+        assert got[k].dtype == inputs[k].dtype, k
+        _close(got[k], want[k], torch.bfloat16)
+    args = [t[k] for k in ("x", "w_dt", "w_b", "w_c", "A", "D",
+                           "delta_bias")]
+    _, hck = scan_img.launch_scan_img_fwd(*args, delta_softplus=True,
+                                          with_hck=True)
+    dy = torch.randn(t["x"].shape, device=dev).bfloat16()
+    first = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+    again = scan_img.launch_scan_img_bwd(*args, hck, dy, True)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)
 
 
 @pytest.mark.parametrize("b,H,W,dg,N", [(2, 7, 9, 40, 16), (1, 12, 25, 64, 4),

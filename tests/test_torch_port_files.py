@@ -18,6 +18,10 @@ package, on the CPU.
     over 5 images) run with `sys.modules["cv2"] = None`, against the JAX
     package's counterparts, which use cv2; `save_prediction` too, and no
     module of the port imports cv2 (JPEG: tests/test_torch_port_jpeg.py).
+  * `sigma_tpu_torch/utils/visualize.py`: `print_iou` (with and without
+    `show_no_back`, class names and a NaN class) returns the JAX
+    package's string, `get_colored_pred` its array, and the colour PNG
+    `save_prediction` writes holds that array.
 """
 
 import ast
@@ -38,11 +42,13 @@ import configs as jax_configs
 from sigma_tpu.data import RGBXDataset as JaxDataset
 from sigma_tpu.data import TrainPre as JaxTrainPre
 from sigma_tpu.engine.evaluator import SlidingEvaluator as JaxEvaluator
+from sigma_tpu.utils import visualize as jax_visualize
 from sigma_tpu_torch import configs
 from sigma_tpu_torch.data import RGBXDataset, TrainPre
 from sigma_tpu_torch.data.png import read_png, write_png
 from sigma_tpu_torch.data.resize import resize_u8
 from sigma_tpu_torch.engine.evaluator import SlidingEvaluator
+from sigma_tpu_torch.utils import visualize
 from sigma_tpu_torch.utils.visualize import save_prediction
 
 torch.set_num_threads(2)
@@ -365,7 +371,7 @@ def test_dataset_and_train_pre_match_jax_without_cv2(cv2_tree, device_norm,
         object.__setattr__(c, "image_width", 48)
     port = RGBXDataset(cfg.data_setting(), "train",
                        TrainPre(cfg.norm_mean, cfg.norm_std, cfg,
-                                device_norm=device_norm),
+                                use_native=False, device_norm=device_norm),
                        file_length=24, seed=2)
     ref = JaxDataset(jcfg.data_setting(), "train",
                      JaxTrainPre(jcfg.norm_mean, jcfg.norm_std, jcfg,
@@ -430,3 +436,27 @@ def _cv2_imports(node, fn):
             child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn)
         found += _cv2_imports(child, inner)
     return found
+
+
+def test_visualize_matches_jax(tmp_path, capsys):
+    rng = np.random.default_rng(21)
+    iou = rng.random(9)
+    iou[3] = np.nan
+    for names in (None, [f"class{i}" for i in range(9)]):
+        for no_back in (False, True):
+            got = visualize.print_iou(iou, 0.81234, 0.95678, names,
+                                      show_no_back=no_back)
+            assert got == jax_visualize.print_iou(
+                iou, 0.81234, 0.95678, names, show_no_back=no_back)
+            assert ("(no back)" in got) == no_back
+    capsys.readouterr()
+    colors = RGBXDataset.get_class_colors(12)
+    pred = rng.integers(0, 12, (20, 30))
+    for background in (255, 11):
+        want = jax_visualize.get_colored_pred(colors, background, pred)
+        got = visualize.get_colored_pred(colors, background, pred)
+        assert got.dtype == np.uint8 and np.array_equal(got, want)
+        pred[:4] = 255  # the background present from the second round on
+    save_prediction(str(tmp_path / "pred"), "p", pred, colors)
+    assert np.array_equal(read_png(tmp_path / "pred_color" / "p.png"),
+                          jax_visualize.get_colored_pred(colors, 255, pred))

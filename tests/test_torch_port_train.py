@@ -18,6 +18,7 @@
     (the switch SIGMA_FUSED_EPILOGUE sets).
 """
 
+import json
 import logging
 
 import cv2
@@ -441,13 +442,19 @@ def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused, monkeypatch,
     """Both CLIs' mains in this process, with the SS2D epilogue switch off
     and on: `ss2d.FUSED_EPILOGUE`, which SIGMA_FUSED_EPILOGUE sets at
     import, as in the JAX package (test_torch_port_epilogue.py holds the
-    env var)."""
+    env var). With the switch on, the train CLI also takes `--profile`,
+    its window moved to start before the second step, so that the end of
+    the run stops it: a Chrome trace of the train step's ops and the log
+    line."""
     from sigma_tpu_torch import eval as eval_cli
     from sigma_tpu_torch import train as train_cli
     from sigma_tpu_torch.engine.logger import get_logger
     from sigma_tpu_torch.models import ss2d
 
     monkeypatch.setattr(ss2d, "FUSED_EPILOGUE", fused)
+    monkeypatch.setattr(train_cli.ProfileWindow, "START", 1)
+    prof = tmp_path / "prof"
+    profile = ["--profile", str(prof)] if fused else []
     common = ["-n", "mfnet", "--dataset-path", str(tiny_tree), "--device",
               "cpu", "--backbone", "sigma_test",
               "--override", "eval_crop_size=(32,32)"]
@@ -460,8 +467,8 @@ def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused, monkeypatch,
     logger = get_logger()  # configured before the handler joins it
     logger.addHandler(handler)
     try:
-        assert train_cli.main([*common, "--steps", "2", "--batch-size", "2",
-                               "--log-dir", str(log),
+        assert train_cli.main([*common, *profile, "--steps", "2",
+                               "--batch-size", "2", "--log-dir", str(log),
                                "--override", "image_height=32",
                                "--override", "image_width=32",
                                "--override", "num_workers=1"]) == 0
@@ -476,16 +483,60 @@ def test_train_cli_then_eval_cli(tiny_tree, tmp_path, fused, monkeypatch,
     assert (log / "checkpoint" / "epoch-1" / "model.pt").exists()
     assert "mean IoU" in capsys.readouterr().out
     assert any(line.startswith("epoch-1: mIoU ") for line in lines)
+    written = f"profiler trace written to {prof}"
+    assert (written in train_log) == fused
+    if fused:
+        events = json.loads((prof / "trace_rank0.json").read_text())[
+            "traceEvents"]
+        names = {e.get("name") for e in events}
+        assert "aten::mm" in names and "aten::convolution" in names
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--profile", "x"], "item A1"),
+    (["--backbone", "mit_b0", "--pretrained", "x"], "Sigma backbone"),
     (["--distributed"], "torchrun's environment")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
-    """`--profile` waits for the port's bench; `--distributed` runs only
+    """`--pretrained` loads a VMamba trunk, so it takes a Sigma backbone
+    only (MiT and Swin have their own loaders); `--distributed` runs only
     under torchrun (tests/test_torch_port_ddp.py)."""
     from sigma_tpu_torch.train import main
 
-    error = NotImplementedError if "--profile" in flag else RuntimeError
+    error = ValueError if "--pretrained" in flag else RuntimeError
     with pytest.raises(error, match=item):
         main(["-n", "mfnet", "--device", "cpu", *flag])
+
+
+def _trace_steps(path):
+    """The `step<n>` spans of a Chrome trace file."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted(int(e["name"][4:]) for e in events
+                  if e.get("name", "").startswith("step")
+                  and e["name"][4:].isdigit())
+
+
+@pytest.mark.parametrize("steps", [35, 25])
+def test_profile_window_spans_steps_20_to_29(tmp_path, steps):
+    """The trainer's `--profile` window, driven as its epoch loop drives
+    it: started before step 20, stopped before step 30 (35 steps) or at
+    the end of the epoch (25), the trace written as trace_rank0.json and
+    the JAX trainer's log line."""
+    from sigma_tpu_torch.train import ProfileWindow
+
+    lines = []
+    logger = logging.getLogger("profile-window-test")
+    logger.setLevel(logging.INFO)
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger.addHandler(handler)
+    window = ProfileWindow(str(tmp_path / "prof"), torch.device("cpu"),
+                           logger)
+    x = torch.ones(4, 4)
+    for n in range(steps):
+        window.before_step(n)
+        with torch.profiler.record_function(f"step{n}"):
+            x = x @ x / 4
+    window.end()
+    logger.removeHandler(handler)
+    assert _trace_steps(tmp_path / "prof" / "trace_rank0.json") == list(
+        range(20, min(steps, 30)))
+    assert lines == [f"profiler trace written to {tmp_path / 'prof'}"]

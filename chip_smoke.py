@@ -14,8 +14,9 @@ its findings:
                 one process per source, all started together (timed);
                 print the card's name and power limit.
   2. kernel   — at every main-path scan shape of sigma_tiny at 480x640,
-                batch 1, run K1 (streamed) / K2 (fused projection), both
-                chunk-parallel, against their plain PyTorch versions on the
+                batch 1, run K1 (streamed, chunk-parallel) / K2 (fused
+                projection on wgmma, one pass with grouped carries)
+                against their plain PyTorch versions on the
                 card, fp32 and bf16 io, with the S4D A and dt-bias inits;
                 print errors and times. At each shape, fp32, reversed with
                 y_accum and checkpoints: a rerun gives the same bits (y and
@@ -43,10 +44,14 @@ its findings:
                 max(|ref|, 1), the kernels launched on bf16 operands
                 (`scan_g.LAUNCHES_BF16`), K3 or K4 and K5 alone timed
                 beside their fp32 runs, their bounds at 2-byte io, and
-                rerun bit for bit. Then bf16 with a gradient
+                rerun bit for bit (K5 also beside cuBLAS's bf16
+                products). Then bf16 with a gradient
                 (ROADMAP B1) at stage 1: the four scan entry points return
                 bf16 y and gradients within 5e-2 of autograd of the plain
-                versions.
+                versions. Then the split (`scan_split`): the device time
+                of every launch of K2 and K4 at ConMB, SS2D and CroMB of
+                stage 0 and SS2D of stages 1-2, fp32 and bf16, one line
+                each.
   4. epilogue — at every SS2D epilogue shape of sigma_tiny at 480x640 (eval
                 batch 1 and train batch 2), fp32 and bf16: K6 against the
                 plain forward, K7 against the plain backward formula; fp32
@@ -216,17 +221,22 @@ its findings:
                 all-reduced gradient and both ranks' running statistics
                 against one process at the fp32 tier; s/step of each and
                 the gradient bytes all-reduced a step.
- 14. bits     — K1-K4, K10 and K11 at the four trunk stages give the bits
-                recorded before K9 joined their backward body
-                (`BODY_BITS`); last, so that its calls precede no timed
-                phase.
+ 14. bits     — K1-K4, K10 and K11 at the four trunk stages give the
+                recorded bits (`BODY_BITS`: K1, K3, K10 and K11's from
+                before K9 joined their backward body, K2 and K4's from
+                their Hopper design); last, so that its calls precede no
+                timed phase.
 
 Ends with the summary (the bf16 io ms of K1-K7, K10 and K11 beside fp32
 with their bounds at 2-byte io, the losses' ms, the FLOP counts, bf16 eval img/s, train s/step and peak memory beside
 fp32), the card line, one JSON line of the kernels (fp32 numbers;
 launches from the train phase's last fp32 run with the switch on, K8 /
 K9's from the ops phase, K10 / K11's from the image phase; bound_ms from
-this run's shapes, see `_work`), then the device line. Exits non-zero, with no result line,
+this run's shapes, see `_work`; the larger of the bytes over the HBM rate
+and the operations over their units' rates, the scan kernels' exps over
+the card's MUFU rate among them, `_bound`), then the device line.
+`python3 chip_smoke.py --scan-split [TREE [K2|K4]]` runs only the build
+and the split, on the port of TREE. Exits non-zero, with no result line,
 without a CUDA card or when a phase fails.
 """
 
@@ -260,6 +270,9 @@ HBM_BYTES_PER_S = 3.35e12
 CF_CARRY_TOKENS = 256
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+# exps a clock on one SM (Hopper's MUFU units); the card's rate is this
+# times its SMs and SM clock, read from the device (`_mufu_per_s`)
+MUFU_PER_CLOCK_SM = 16
 
 KERNELS = {
     "scan_fwd": dict(
@@ -519,15 +532,55 @@ def _tf32_ops(kernel, kw):
     return 2 * proj if kernel == "proj_grad" else proj
 
 
-def _bound(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS, io=4):
+def _exps(kernel, kw):
+    """The exps of one call's function at shape `kw` (`_work`'s shapes):
+    one per (token, chain, channel, state) for every scan kernel, forward
+    or backward (the decay exp(d A), which a backward needs once too), and
+    two per (token, chain, channel) where the kernel applies the softplus
+    of dt (exp and log1p: K1-K4, K10, K11; K8 / K9 take d as it is); none
+    for K5, K6, K7."""
+    if kernel in EPILOGUE or kernel == "proj_grad":
+        return 0
+    dg, N = kw["dg"], kw["N"]
+    if kernel in IMAGE:
+        return 4 * kw["B"] * kw["H"] * kw["W"] * dg * (N + 2)
+    if kernel in OPS:
+        return kw["batch"] * kw["G"] * kw["L"] * dg * N
+    G = kw.get("G", 2 if kw["ml"] else 1)
+    return kw["B"] * G * kw["L"] * dg * (N + 2)
+
+
+_MUFU_PER_S = []
+
+
+def _mufu_per_s():
+    """The card's exp rate: MUFU_PER_CLOCK_SM x its SMs x its maximum SM
+    clock (nvidia-smi), read once."""
+    import torch
+
+    if not _MUFU_PER_S:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _MUFU_PER_S.append(MUFU_PER_CLOCK_SM * sms * mhz * 1e6)
+    return _MUFU_PER_S[0]
+
+
+def _bound(kernel, kw, reverse=False, cf_ck=CF_CARRY_TOKENS, io=4,
+           mufu=None):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes over the HBM rate and the operations over the peak rate
-    of the units that run them (TF32 tensor cores, fp32 cores); `io` bytes
-    an element of the io streams (`_work`)."""
+    of the units that run them (TF32 tensor cores, fp32 cores, and the
+    exps, `_exps`, at `mufu` a second, by default the card's
+    `_mufu_per_s`; `math.inf` leaves the exps' term out); `io` bytes an
+    element of the io streams (`_work`)."""
     nbytes, ops = _work(kernel, kw, reverse, cf_ck, io)
     tc = _tf32_ops(kernel, kw)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max((ops - tc) / FP32_OPS_PER_S, tc / TF32_OPS_PER_S)
+    t_ops = max((ops - tc) / FP32_OPS_PER_S, tc / TF32_OPS_PER_S,
+                _exps(kernel, kw) / (mufu or _mufu_per_s()))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -570,6 +623,69 @@ def _device_ms(fn, reps):
             by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     by_name = {k: v / reps for k, v in by_name.items()}
     return by_name, sum(by_name.values())
+
+
+def _short_kernel(name):
+    """A kernel's name in a trace without its namespaces and arguments:
+    the function and the template arguments that tell the passes apart."""
+    import re
+
+    name = re.sub(r"\(anonymous namespace\)::|\w+::|void ", "", name)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+# the K2 / K4 calls whose launches `scan_split` times: ConMB, SS2D and
+# CroMB (C swapped) at stage 0, the trunk's SS2D at stages 1 and 2
+SPLIT_TAGS = ("conmb0", "ss2d0", "cromb0", "ss2d1", "ss2d2")
+
+
+def scan_split(device, reps=5, names=("K2", "K4")):
+    """The device time of each launch of K2 (at the kernel phase's eval
+    batch 1) and of K4 (at the train step's batch 2), fp32 and bf16 io, at
+    `SPLIT_TAGS` (torch.profiler, `_device_ms`): one line per call, the
+    call's CUDA-event ms (`_time_ms`, as the kernel and backward phases
+    time it), the device total and each launch by kernel name (the
+    wrapper's own copies and fills included). Returns {(K2|K4, tag,
+    dtype): device total ms}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    totals = {}
+    for name, batch in (("K2", 1), ("K4", 2)):
+        if name not in names:
+            continue
+        for _, tag, kw in main_path_scans(batch=batch):
+            if tag not in SPLIT_TAGS:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _inputs(kw, dtype, device, gen)
+                with torch.no_grad():
+                    if name == "K2":
+                        fn = lambda: _run_case(  # noqa: E731
+                            "scan_proj_fwd", kw, x, False, True)
+                    else:
+                        dy = torch.randn(x["u"].shape, generator=gen).to(
+                            device, dtype)
+                        fn = _kernel_runs("scan_proj_bwd", kw, x, dy,
+                                          compare=False)[0]["scan_proj_bwd"]
+                    by_name, total = _device_ms(fn, reps)
+                    event_ms = _time_ms(fn, reps)
+                totals[(name, tag, str(dtype)[6:])] = total
+                print(f"split: {name} {tag} {str(dtype)[6:]} events "
+                      f"{event_ms:.4f} ms, device total {total:.4f} ms: "
+                      + "; ".join(
+                          f"{_short_kernel(k)[:64]} {v:.4f}"
+                          for k, v in sorted(by_name.items(),
+                                             key=lambda kv: -kv[1])),
+                      flush=True)
+                del x, fn
+                torch.cuda.empty_cache()
+    return totals
 
 
 def build_phase():
@@ -763,15 +879,16 @@ def _entry_grads(kw, x, dy, reverse, plain):
 def _proj_grad_library(us, dd, dB, dC, w):
     """K5's function as cuBLAS products: per chain dW = u^T [dd | dB | dC]
     and du_chain = [dd | dB | dC] [W_dt | W_B | W_C]^T, torch.matmul on the
-    concatenated operands (made here, outside the timed closure)."""
+    concatenated operands (made here, outside the timed closure), in u's
+    dtype (bf16 io: cuBLAS's bf16 products)."""
     import torch
 
     u = us[0] if len(us) == 1 else torch.stack(tuple(us), 1)
     G, dg = u.shape[1], u.shape[-1]
-    z = torch.cat([dd, dB, dC], -1)
+    z = torch.cat([dd, dB, dC], -1).to(u.dtype)
     ut = u.transpose(0, 1).reshape(G, -1, dg).transpose(1, 2)
     zt = z.transpose(0, 1).reshape(G, -1, z.shape[-1])
-    wt = torch.cat(w, -1).transpose(1, 2)
+    wt = torch.cat(w, -1).transpose(1, 2).to(u.dtype)
     return lambda: (torch.matmul(ut, zt), torch.matmul(z, wt))
 
 
@@ -955,11 +1072,14 @@ def _bf16_backward(tag, kw, x, dy, ran, reps):
     version in fp32 on the same (bf16-rounded) values, in the bf16 tier;
     every kernel launched on bf16 operands (`LAUNCHES_BF16`). Then K3, or
     K4 and K5, alone on bf16 operands: timed and run twice for the same
-    bits. Returns (failed lines, {kernel: ms}, {kernel: max_abs_err})."""
+    bits; K5's function also as bf16 cuBLAS products (`_proj_grad_library`).
+    Returns (failed lines, {kernel: ms}, {kernel: max_abs_err}, {kernel:
+    library ms})."""
     import torch
 
     from sigma_tpu_torch.ops import scan_g
 
+    lib_ms = {}
     io = ("u", "ya", "w_dt", "w_b", "w_c")
     xb = {k: v.to(torch.bfloat16) if k in io else v for k, v in x.items()}
     xr = {k: v.float() for k, v in xb.items()}  # the same values, fp32
@@ -986,24 +1106,27 @@ def _bf16_backward(tag, kw, x, dy, ran, reps):
                 f"rev={int(reverse)} "
                 + " ".join(f"d{k}={v:.2e}" for k, v in errs.items()))
         if not reverse:
-            runs, _, _, reruns = _kernel_runs(ran[1], kw, xb, dyb,
-                                              compare=False)
+            runs, _, lib_runs, reruns = _kernel_runs(ran[1], kw, xb, dyb)
             bad += [f"{k} rerun changed bits"
                     for k, same in reruns.items() if not same]
             times = {k: _time_ms(fn, reps) for k, fn in runs.items()}
+            lib_ms.update({k: _time_ms(fn, reps)
+                           for k, fn in lib_runs.items()})
             line += (" reruns bit for bit " + " ".join(
                         f"{k} {'ok' if same else 'FAIL'}"
                         for k, same in reruns.items()) + " " + " ".join(
                         f"{k}_ms={v:.4f} (bound {_bound(k, kw, io=2)[0]:.4f})"
-                        for k, v in times.items()))
-            del runs
+                        for k, v in times.items()) + "".join(
+                        f" library_{k}_ms={v:.4f} (bf16 cuBLAS)"
+                        for k, v in lib_ms.items()))
+            del runs, lib_runs
         line += f" {'ok' if not bad else 'FAIL ' + str(bad)}"
         print(line, flush=True)
         if bad:
             failures.append(line)
         del want, got
         torch.cuda.empty_cache()
-    return failures, times, errs_by
+    return failures, times, errs_by, lib_ms
 
 
 def backward_phase(device, reps=3):
@@ -1023,6 +1146,7 @@ def backward_phase(device, reps=3):
                        library_ms=None, at="", bf16_max_abs_err=0.0)
                for k in SCAN_BACKWARD}
     bf16_ms = {}  # (kernel, tag): bf16 ms
+    bf16_lib_ms = {}  # (kernel, tag): bf16 cuBLAS ms (K5)
     failures = []
     for fwd_kernel, tag, kw in main_path_scans(batch=2):
         streamed = fwd_kernel == "scan_fwd"
@@ -1087,10 +1211,12 @@ def backward_phase(device, reps=3):
                 failures.append(line)
             del want, got, run, plain_run
             torch.cuda.empty_cache()
-        bad, times, errs = _bf16_backward(tag, kw, x, dy, ran, reps)
+        bad, times, errs, lib16 = _bf16_backward(tag, kw, x, dy, ran, reps)
         failures += bad
         for k, ms in times.items():
             bf16_ms[(k, tag)] = ms
+        for k, ms in lib16.items():
+            bf16_lib_ms[(k, tag)] = ms
         for k, e in errs.items():
             summary[k]["bf16_max_abs_err"] = max(
                 summary[k]["bf16_max_abs_err"], e)
@@ -1098,6 +1224,7 @@ def backward_phase(device, reps=3):
     scan_g.reset_launches()
     for k, s in summary.items():
         s["bf16_ms"] = bf16_ms[(k, s["tag"])]
+        s["bf16_library_ms"] = bf16_lib_ms.get((k, s["tag"]))
     failures += _bf16_grad_checks(device)
     if failures:
         raise AssertionError(f"{len(failures)} backward comparisons failed")
@@ -1572,9 +1699,10 @@ def _cf_peak_memory(device, tag, kw):
 
 # sha256 of the outputs of the backward body's other sources (K3, K4,
 # K11) and of the forwards that write their checkpoints (K1, K2, K10) on
-# fixed inputs, recorded with `body_bits` on an NVIDIA H100 80GB HBM3 from
-# the tree before K9 joined the body (`csrc/chunk_bwd.cuh`): joining it
-# must not move their bits
+# fixed inputs, recorded with `body_bits` on an NVIDIA H100 80GB HBM3: K1,
+# K3, K10 and K11's from the tree before K9 joined the body
+# (`csrc/chunk_bwd.cuh`), which must not move them; K2 and K4's from their
+# Hopper design (`csrc/proj_wgmma.cuh`, `csrc/chain_fwd.cuh`)
 BODY_BITS = ROOT / "tests" / "fixtures" / "chunk_bwd_bits.json"
 
 
@@ -4194,8 +4322,9 @@ def surface_phase(device, reps=10):
     return out
 
 
-# kernel symbols of K2, K4 and K5 (csrc/scan_g_fwd.cu, scan_g_bwd.cu)
-PROFILED_KERNELS = {"K2": "proj_gemm_kernel", "K4": "bwd_proj_kernel",
+# kernel symbols of K2, K4 and K5 (csrc/scan_g_fwd.cu, scan_g_bwd.cu: K2's
+# one-pass scan, K4's projection tag and its body's source, K5)
+PROFILED_KERNELS = {"K2": "chain_scan_kernel", "K4": "ProjBwd",
                     "K5": "weight_grad_kernel"}
 
 
@@ -4530,6 +4659,7 @@ def main() -> int:
     card = build_phase()
     summary = kernel_phase(device)
     summary.update(backward_phase(device))
+    scan_split(device)
     summary.update(epilogue_phase(device))
     ops_summary, per_row, ops_launches = ops_phase(device)
     summary.update(ops_summary)
@@ -4562,6 +4692,10 @@ def main() -> int:
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=s.get("library_ms")))
+        no_exp = _bound(name, s["kw"], mufu=math.inf)[0]
+        print(f"summary: {name} bound_ms {bound_ms:.4f} ({bound_by}; "
+              f"without the exps' term at {_mufu_per_s() / 1e12:.4f} T/s: "
+              f"{no_exp:.4f})")
         print(f"summary: {name} ms/plain_ms/bound_ms at its slowest "
               f"main-path call, {s['at']}; max_abs_err over all fp32 "
               f"calls (a backward kernel: over the gradients it "
@@ -4591,10 +4725,12 @@ def main() -> int:
         err = (f", bf16 max_abs_err over its gradients "
                f"{s['bf16_max_abs_err']:.3e}"
                if name in SCAN_BACKWARD + ("scan_img_bwd",) else "")
+        lib16 = (f", bf16 cuBLAS {s['bf16_library_ms']:.4f} ms"
+                 if s.get("bf16_library_ms") else "")
         print(f"summary: {name} bf16 io at {s['at'].replace(' fp32', '')}: "
               f"{s['bf16_ms']:.4f} ms (fp32 {s['ms']:.4f}), bound "
               f"{b16:.4f} ms ({by16}, 2-byte io streams; fp32 {b32:.4f})"
-              + err)
+              + err + lib16)
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     for fused in (False, True):
         img, img16 = eval_img_s[fused], bf16_img_s[fused]
@@ -4699,7 +4835,30 @@ def main() -> int:
     return 0
 
 
+def split_main(argv):
+    """`chip_smoke.py --scan-split [TREE [K2|K4 ...]]`: the build and
+    `scan_split` (of the kernels named, by default both) on the port of
+    TREE (a checkout, by default this one), e.g. a parent tree unpacked
+    beside it for a before / after in one call."""
+    import torch
+
+    global ROOT
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if argv:
+        ROOT = Path(argv[0]).resolve()
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"split: tree {ROOT}")
+    build_phase()
+    scan_split(torch.device("cuda", 0), names=tuple(argv[1:]) or ("K2", "K4"))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scan-split"]:
+        sys.exit(split_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(_ddp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--determinism-worker"]:

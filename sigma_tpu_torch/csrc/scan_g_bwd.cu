@@ -17,12 +17,12 @@
 // then the emission of every output from the true exit adjoints and the
 // forward's 32-token checkpoints. Three launches (K4: four), counted as one
 // call by the wrappers:
-//   K4a bwd_proj_kernel — K4 only: [dt | B | C] = u [W_dt | W_B | W_C]
-//     once per chain on the tensor cores into an fp32 scratch stream P
-//     (batch, G, L, dg + 2N), with K2a's tiles (tc::proj_tile: 3xTF32), so
-//     the streams K4 scans back are the bits K2 scanned and checkpointed.
-//     From here on K4 is K3 reading dt / B / C out of P (under swap_c,
-//     C from the partner chain's P).
+//   K4a wg::proj_kernel (csrc/proj_wgmma.cuh) — K4 only: [dt | B | C] =
+//     u [W_dt | W_B | W_C] once per chain on the warpgroup MMAs fed by TMA
+//     into an fp32 scratch stream P (batch, G, L, dg + 2N): K2a's code on
+//     K2a's operands (3xTF32 at fp32 io), so the streams K4 scans back are
+//     the bits K2 scanned and checkpointed. From here on K4 is K3 reading
+//     dt / B / C out of P (under swap_c, C from the partner chain's P).
 //   then adjoint_local_kernel, adjoint_carry_kernel, adjoint_emit_kernel
 //     (chunk_bwd.cuh): du (the direct term; K5 adds the chain term), dd;
 //     dA, dbias, dD as per-chunk partials; dB, dC as per-block partials
@@ -82,6 +82,7 @@
 #include <type_traits>
 
 #include "chunk_bwd.cuh"
+#include "proj_wgmma.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -187,19 +188,8 @@ struct StreamBwdSrc : GroupBwdSrc<T, T, T> {};
 template <typename T>
 struct ProjBwdSrc : GroupBwdSrc<T, float, float> {};
 
-// K4a: P[b, g] = u[b, g] [W_dt | W_B | W_C][g], as K2a (the weights in the
-// io type, as K2 takes them, so that P has K2's bits)
-template <typename T>
-__global__ void __launch_bounds__(tc::kGemmThreads)
-bwd_proj_kernel(const ProjBwdSrc<T> p, const T* wdt, const T* wbc,
-                float* P) {
-  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
-  const int dg = p.dg, N = p.N;
-  tc::proj_tile<T>(p.u[p.n_u == 2 ? g : 0] + p.chain_offset(b, g),
-                   wdt + (size_t)g * dg * dg, wbc + (size_t)g * dg * 2 * N,
-                   P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L, dg,
-                   N, blockIdx.x * tc::kBM, blockIdx.y);
-}
+// K4's projection launches, told apart from K2's in a trace
+struct ProjBwd {};
 
 template <class S>
 int dispatch_bwd(const S& p, int batch, cudaStream_t s) {
@@ -391,17 +381,20 @@ int sigma_scan_bwd(const void* u, const void* dt, const float* A,
 }
 
 // K4. n_u == 2: u0/u1, dy0/dy1, du0/du1 are the two layouts (batch, L, dg)
-// and G == 2; n_u == 1: slot 0 is (batch, G, L, dg). u, dy, wdt: (G, dg,
-// dg) and wbc: (G, dg, 2N), [W_B | W_C], in the io type; du, dd and the
-// scratch P: (batch, G, L, dg + 2N) fp32; the rest as for sigma_scan_bwd,
-// with dCp routed to the partner chain under swap_c (G even).
-int sigma_scan_proj_bwd(const void* u0, const void* u1, const void* wdt,
-                        const void* wbc, const float* A, const float* bias,
-                        const float* Dk, const float* hck, const void* dy0,
-                        const void* dy1, float* du0, float* du1, float* P,
-                        float* dd, float* dA, float* dbias, float* dD,
-                        float* dBp, float* dCp, float* lam, float* sd,
-                        int n_chunk, int batch, int G, int L, int dg, int N,
+// and G == 2; n_u == 1: slot 0 is (batch, G, L, dg). u, dy in the io type;
+// uk0 / uk1, wdt / wb / wc, wt and dgk as for sigma_scan_proj_fwd (the same
+// operands, so P has K2's bits); du, dd and the scratch P: (batch, G, L, dg
+// + 2N) fp32; the rest as for sigma_scan_bwd, with dCp routed to the
+// partner chain under swap_c (G even).
+int sigma_scan_proj_bwd(const void* u0, const void* u1, const void* uk0,
+                        const void* uk1, const void* wdt, const void* wb,
+                        const void* wc, void* wt, const float* A,
+                        const float* bias, const float* Dk,
+                        const float* hck, const void* dy0, const void* dy1,
+                        float* du0, float* du1, float* P, float* dd,
+                        float* dA, float* dbias, float* dD, float* dBp,
+                        float* dCp, float* lam, float* sd, int n_chunk,
+                        int batch, int G, int L, int dg, int dgk, int N,
                         int nck, int n_u, int softplus, int reverse,
                         int swap_c, int bf16, void* stream) {
   if (bad_shape(batch, G, L, dg, N, n_u) || (swap_c && G % 2) ||
@@ -434,11 +427,9 @@ int sigma_scan_proj_bwd(const void* u0, const void* u1, const void* wdt,
     p.reverse = reverse;                                                   \
     p.swap_c = swap_c;                                                     \
     p.nblk = (dg + kBwdChan - 1) / kBwdChan;                               \
-    bwd_proj_kernel<T><<<tc::proj_grid(L, dg, N, batch * G),               \
-                         tc::kGemmThreads, tc::proj_smem<T>(), s>>>(       \
-        p, static_cast<const T*>(wdt), static_cast<const T*>(wbc), P);     \
-    const cudaError_t err = cudaGetLastError();                            \
-    if (err != cudaSuccess) return static_cast<int>(err);                  \
+    const int code = wg::launch_proj<T, ProjBwd>(                          \
+        uk0, uk1, wdt, wb, wc, wt, P, batch, G, L, dg, dgk, N, n_u, s);    \
+    if (code) return code;                                                 \
     return dispatch_bwd(p, batch, s);                                      \
   }
   if (bf16) SIGMA_PROJ_BWD(__nv_bfloat16)
@@ -499,6 +490,8 @@ const char* sigma_scan_bwd_error_string(int code) {
       return "d_state above 16 is not supported by the scan kernels";
     case kErrArguments:
       return "invalid scan backward arguments";
+    case wg::kErrTensorMap:
+      return "the projection's TMA descriptors could not be made";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

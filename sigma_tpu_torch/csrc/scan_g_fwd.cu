@@ -11,10 +11,12 @@
 //     y_t = <C_t, h_t> + D_e * u_t (+ y_accum_t)
 // walked first-to-last, or last-to-first in place for `reverse`.
 //
-// Both kernels scan on the chunk-parallel body of csrc/chunk_fwd.cuh (128-
-// token chunks from a zero state, a fixed-order carry pass, the emission
-// from the true carries; K10 in csrc/scan_img.cu runs the same body). They
-// differ in where dt, B and C come from:
+// K1 scans on the chunk-parallel body of csrc/chunk_fwd.cuh (128-token
+// chunks from a zero state, a fixed-order carry pass, the emission from the
+// true carries; K10 in csrc/scan_img.cu runs the same body), K2 on the
+// one-pass body of csrc/chain_fwd.cuh (the same chunks, scanned once, the
+// carries chained in the walk's order). They differ in where dt, B and C
+// come from:
 //
 // K1 — streamed: dt[b, g, t, e] and B / C[b, g, t, n] are tensors in device
 //   memory in the io type (StreamSrc). Three launches, counted as one call
@@ -27,20 +29,23 @@
 //
 // K2 — fused projection: dt = u W_dt, B = u W_B and C = u W_C (under
 //   swap_c, chain pair (2k, 2k+1) reads C projected from the partner's u
-//   with the partner's W_C: CroMB), then the scan (ProjSrc). Four launches,
+//   with the partner's W_C: CroMB), then the scan (ProjSrc). Two launches,
 //   counted as one call by the wrapper:
-//   K2a proj_gemm_kernel — [dt | B | C] for every token, once per chain,
-//     on the tensor cores (csrc/tc_gemm.cuh), into an fp32 scratch stream
-//     P (batch, G, L, dg + 2N) that the wrapper allocates. On the TPU the
-//     projections stayed in VMEM to save ~550 MB of traffic per stage-1
-//     SS2D; on the card that traffic is about 0.16 ms at 3.35 TB/s, and
-//     projecting once per chain instead of once per channel tile is what
-//     counts.
-//   K2b-d — the chunk states, the carries, the emission (chunk_fwd.cuh).
-//   Bound: operations. The projection is 2 dg (dg + 2N) flops per token and
-//   chain (tensor cores; 3xTF32, fp32's accuracy, at fp32 io); the scan ~9N
-//   per token, channel and state, twice (states, emission), on the CUDA
-//   cores.
+//   K2a wg::proj_kernel (csrc/proj_wgmma.cuh) — [dt | B | C] for every
+//     token, once per chain, on the warpgroup MMAs fed by TMA (3xTF32 at
+//     fp32 io, bf16 products at bf16 io), into an fp32 stream P (batch, G,
+//     L, dg + 2N) that the wrapper allocates, written once.
+//   K2b chain::chain_scan_kernel (csrc/chain_fwd.cuh) — reads P once: one
+//     exp per (token, channel, state), the carries chained chunk to chunk
+//     in the walk's order, y and the checkpoints emitted in the same pass.
+//   Why P and not a projection inside the scan's block: the one-pass body
+//   keeps the carry's weights (4 x 16 values a lane) in registers, which
+//   holds a block to 8 channels; a block that projected its own B and C
+//   would redo those 2N columns once per 8 channels (24 times at dg 192),
+//   where P costs one write and one read of dg + 2N fp32 values a token.
+//   Bound: the scan's exps and fp32 operations (~9N per token, channel and
+//   state, one pass) and P's traffic; the projection is 2 dg (dg + 2N)
+//   flops per token and chain on the tensor cores.
 //
 // K1 and K2: io fp32 or bf16, state and arithmetic fp32, d_state <= 16 per
 // launch (the entry points run wider states as slices). They launch on the
@@ -59,8 +64,9 @@
 
 #include <cstddef>
 
+#include "chain_fwd.cuh"
 #include "chunk_fwd.cuh"
-#include "tc_gemm.cuh"
+#include "proj_wgmma.cuh"
 
 namespace {
 
@@ -118,18 +124,16 @@ struct StreamSrc : FwdArgs {
   }
 };
 
-// K2's operands. n_u == 2: u[j] is layout j, (batch, L, dg), and chain g
-// reads u[g]; n_u == 1: u[0] is (batch, G, L, dg). ya / y follow u; ya may
-// be null. dt / B / C from the scratch stream P, C from the partner chain's
-// under swap_c.
+// K2's operands for the one-pass body (csrc/chain_fwd.cuh). n_u == 2:
+// u[j] is layout j, (batch, L, dg), and chain g reads u[g]; n_u == 1: u[0]
+// is (batch, G, L, dg). ya / y follow u; ya may be null. dt / B / C from
+// the projected stream P, C from the partner chain's under swap_c.
 template <typename T>
-struct ProjSrc : FwdArgs {
+struct ProjSrc : chain::ChainArgs {
   const T* u[2];
-  const T* wdt;  // (G, dg, dg)   dt = u @ wdt[g]
-  const T* wbc;  // (G, dg, 2N)   [B | C] = u @ wbc[g]
   const T* ya[2];
   T* y[2];
-  float* P;  // (batch, G, L, dg + 2N) scratch: [dt | B | C] per token
+  const float* P;  // (batch, G, L, dg + 2N): [dt | B | C] per token
   int n_u, reverse, swap_c;
 
   struct View {
@@ -176,35 +180,26 @@ struct ProjSrc : FwdArgs {
   }
 };
 
-// K2a: P[b, g, t] = u[b, g, t] [W_dt | W_B | W_C][g], a 64 x 64 tile of
-// (token, column) per block on the tensor cores (tc::proj_tile in
-// csrc/tc_gemm.cuh; 3xTF32 at fp32 io, exact 1xTF32 at bf16).
-template <typename T>
-__global__ void __launch_bounds__(tc::kGemmThreads)
-proj_gemm_kernel(const ProjSrc<T> p) {
-  const int g = blockIdx.z % p.G, b = blockIdx.z / p.G;
-  const int dg = p.dg, N = p.N;
-  tc::proj_tile<T>(p.u[p.n_u == 2 ? g : 0] + p.chain_offset(b, g),
-                   p.wdt + (size_t)g * dg * dg,
-                   p.wbc + (size_t)g * dg * 2 * N,
-                   p.P + ((size_t)b * p.G + g) * p.L * (dg + 2 * N), p.L, dg,
-                   N, blockIdx.x * tc::kBM, blockIdx.y);
-}
-
 // K1: the chunk states, the carries, the emission
 template <typename T, int NT>
 int launch_stream(const StreamSrc<T>& p, int batch, cudaStream_t stream) {
   return launch_chunk_scan<StreamSrc<T>, NT, false>(p, batch * p.G, stream);
 }
 
-// K2: the projection GEMM, then the same three passes
+// K2's projection launches, told apart from K4's in a trace
+struct ProjFwd {};
+
+// K2: the projection, then the one-pass scan (flags and counter zeroed by
+// the caller)
 template <typename T, int NT>
-int launch_proj(const ProjSrc<T>& p, int batch, cudaStream_t stream) {
-  proj_gemm_kernel<T><<<tc::proj_grid(p.L, p.dg, p.N, batch * p.G),
-                         tc::kGemmThreads, tc::proj_smem<T>(), stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_chunk_scan<ProjSrc<T>, NT, false>(p, batch * p.G, stream);
+int launch_proj(const ProjSrc<T>& p, const void* uk0, const void* uk1,
+                const void* wdt, const void* wb, const void* wc, void* wt,
+                int batch, int dgk, cudaStream_t stream) {
+  const int code = wg::launch_proj<T, ProjFwd>(
+      uk0, uk1, wdt, wb, wc, wt, const_cast<float*>(p.P), batch, p.G, p.L,
+      p.dg, dgk, p.N, p.n_u, stream);
+  if (code) return code;
+  return chain::launch_chain_scan<ProjSrc<T>, NT>(p, batch * p.G, stream);
 }
 
 // the arguments every launch checks: positive sizes, batch * G chain
@@ -257,33 +252,53 @@ int sigma_scan_fwd(const void* u, const void* dt, const float* A,
 }
 
 // n_u == 2: u0/u1, ya0/ya1, y0/y1 are the two layouts, (batch, L, dg) each,
-// and G must be 2; n_u == 1: u0, ya0, y0 are (batch, G, L, dg).
-// wdt: (G, dg, dg); wbc: (G, dg, 2N) ([W_B | W_C]) in the io type; A: (G,
-// N, dg), bias, Dk: (G, dg) fp32. swap_c needs G even (chain pairs 2k,
-// 2k+1). Scratch, fp32: P (batch, G, L, dg + 2N), hloc (batch, G, n_chunk,
-// N, dg), sd (batch, G, n_chunk, dg) with n_chunk = ceil(L / kChunk).
-// hck as for sigma_scan_fwd.
-int sigma_scan_proj_fwd(const void* u0, const void* u1, const void* wdt,
-                        const void* wbc, const float* A, const float* bias,
-                        const float* Dk, const void* ya0, const void* ya1,
-                        void* y0, void* y1, float* P, float* hloc, float* sd,
+// and G must be 2; n_u == 1: u0, ya0, y0 are (batch, G, L, dg). uk0 / uk1:
+// the same u with rows of dgk >= dg elements (dg rounded up to 16 bytes,
+// zero channels after dg; u itself where dgk == dg), 16-byte aligned, for
+// the projection's TMA. wdt: (G, dg, dg), wb, wc: (G, dg, N), in the io
+// type; wt: scratch for their prepared copy (wg::launch_proj). A: (G, N,
+// dg), bias, Dk: (G, dg) fp32. swap_c needs G even (chain pairs 2k, 2k+1).
+// Scratch: P (batch, G, L, dg + 2N) fp32; 64-bit words, zeroed here
+// (n_words from gstate on): gstate (batch, G, n_group, N, dg), maps (batch
+// G n_ctile n_chunk 2 NT kChan), then the int32 counter; NT = 4, 8 or 16
+// (the least at least N), kChan chain::Tile<NT>'s, n_chunk = ceil(L /
+// kChunk), n_group = ceil(n_chunk / chain::kGroup), n_ctile = ceil(dg /
+// kChan). hck as for sigma_scan_fwd.
+int sigma_scan_proj_fwd(const void* u0, const void* u1, const void* uk0,
+                        const void* uk1, const void* wdt, const void* wb,
+                        const void* wc, void* wt, const float* A,
+                        const float* bias, const float* Dk, const void* ya0,
+                        const void* ya1, void* y0, void* y1, float* P,
+                        void* gstate, void* maps, int* counter, int n_words,
                         int n_chunk, float* hck, int nck, int batch, int G,
-                        int L, int dg, int N, int n_u, int softplus,
+                        int L, int dg, int dgk, int N, int n_u, int softplus,
                         int reverse, int swap_c, int bf16, void* stream) {
   if (bad_sizes(batch, G, L, dg, N, n_chunk, hck, nck) ||
       (n_u != 1 && n_u != 2) || (n_u == 2 && G != 2) || (swap_c && G % 2))
     return kErrArguments;
   if (N > kMaxState) return kErrStateWidth;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(gstate, 0, sizeof(long long) * n_words, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
 #define SIGMA_PROJ(T)                                                      \
   {                                                                        \
     ProjSrc<T> p{};                                                        \
-    set_fwd_args(p, A, bias, Dk, hloc, sd, hck, G, L, dg, N, softplus,     \
-                 n_chunk);                                                 \
+    p.A = A;                                                               \
+    p.bias = bias;                                                         \
+    p.Dk = Dk;                                                             \
+    p.gstate = static_cast<unsigned long long*>(gstate);                   \
+    p.maps = static_cast<unsigned long long*>(maps);                       \
+    p.counter = counter;                                                   \
+    p.hck = hck;                                                           \
+    p.G = G;                                                               \
+    p.L = L;                                                               \
+    p.dg = dg;                                                             \
+    p.N = N;                                                               \
+    p.softplus = softplus;                                                 \
+    p.n_chunk = n_chunk;                                                   \
     p.u[0] = static_cast<const T*>(u0);                                    \
     p.u[1] = static_cast<const T*>(u1);                                    \
-    p.wdt = static_cast<const T*>(wdt);                                    \
-    p.wbc = static_cast<const T*>(wbc);                                    \
     p.ya[0] = static_cast<const T*>(ya0);                                  \
     p.ya[1] = static_cast<const T*>(ya1);                                  \
     p.y[0] = static_cast<T*>(y0);                                          \
@@ -292,9 +307,11 @@ int sigma_scan_proj_fwd(const void* u0, const void* u1, const void* wdt,
     p.n_u = n_u;                                                           \
     p.reverse = reverse;                                                   \
     p.swap_c = swap_c;                                                     \
-    if (N <= 4) return launch_proj<T, 4>(p, batch, s);                     \
-    if (N <= 8) return launch_proj<T, 8>(p, batch, s);                     \
-    return launch_proj<T, 16>(p, batch, s);                                \
+    if (N <= 4)                                                         \
+      return launch_proj<T, 4>(p, uk0, uk1, wdt, wb, wc, wt, batch, dgk, s); \
+    if (N <= 8)                                                         \
+      return launch_proj<T, 8>(p, uk0, uk1, wdt, wb, wc, wt, batch, dgk, s); \
+    return launch_proj<T, 16>(p, uk0, uk1, wdt, wb, wc, wt, batch, dgk, s); \
   }
   if (bf16) SIGMA_PROJ(__nv_bfloat16)
   SIGMA_PROJ(float)
@@ -307,6 +324,8 @@ const char* sigma_scan_error_string(int code) {
       return "d_state above 16 is not supported by the scan kernels";
     case kErrArguments:
       return "invalid scan arguments";
+    case wg::kErrTensorMap:
+      return "the projection's TMA descriptors could not be made";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

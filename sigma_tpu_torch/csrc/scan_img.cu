@@ -26,10 +26,11 @@
 //
 // K10. Bound: operations, the projections (2 dg (dg + 2N) per token and
 // chain, tensor cores) and the scan (~9 N per token, chain, channel and
-// state, fp32 cores). Design: K2's (csrc/scan_g_fwd.cu), four launches
-// counted as one call by the wrapper.
+// state, fp32 cores). Design: K2's before its Hopper rebuild (a
+// projection, then K1's chunk scan), four launches counted as one call by
+// the wrapper.
 //   img_proj_kernel — [dt | B | C] once per (chain, batch) on the tensor
-//     cores with K2a's tiles (tc::proj_tile; 3xTF32 at fp32 io, exact
+//     cores with mma.sync tiles (tc::proj_tile; 3xTF32 at fp32 io, exact
 //     1xTF32 at bf16) into an fp32 scratch P (batch, 4, L, dg + 2N) in each
 //     chain's token order; the x rows of a wh tile are gathered through the
 //     pixel map, one contiguous row per token (the tile's loads are per row

@@ -1,7 +1,7 @@
 // Tensor-core tile products for the scan kernels (sm_90a), shared by
-// csrc/scan_g_fwd.cu (K2's projections), csrc/scan_g_bwd.cu (K4's
-// projections, the same tiles as K2's, and K5) and csrc/scan_img.cu (K10's
-// projections, the same tiles with a row map).
+// csrc/scan_g_bwd.cu (K5) and csrc/scan_img.cu (K10's and K11's
+// projections, the same tiles with a row map). K2's and K4's projection
+// runs on the warpgroup MMAs of csrc/proj_wgmma.cuh.
 //
 // A block of kGemmThreads = 128 threads (four warps, 2 x 2) computes one
 // kBM x kBN = 64 x 64 fp32 tile of a product C = A B over k-tiles of
@@ -394,8 +394,8 @@ __device__ __forceinline__ void gemm_loop_async(int ntiles, int mrows,
 // W_dt (dg x dg), wbc its [W_B | W_C] (dg x 2N), P its (L x (dg + 2N))
 // fp32 rows in token order. Rows m0.. of tokens, column tile ty: tiles
 // below ceil(dg / 64) lie in W_dt, the rest in [W_B | W_C], decided once.
-// 3xTF32 at fp32 io, exact 1xTF32 at bf16. K2 and K4 call it with the same
-// arguments, so K4 recomputes the bits K2 scanned.
+// 3xTF32 at fp32 io, exact 1xTF32 at bf16. K10 and K11 call it with the
+// same arguments, so K11 recomputes the bits K10 scanned.
 template <typename T, class Rows = IdentityRows>
 __device__ __forceinline__ void proj_tile(const T* ub, const T* wdt,
                                           const T* wbc, float* P, int L,

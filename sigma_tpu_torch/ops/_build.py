@@ -45,20 +45,21 @@ _SIGNATURES = {
         # u, dt, A, B, C, bias, D, y_accum, y, hloc, sd, n_chunk, hck, nck,
         # batch, G, L, dg, N, softplus, reverse, bf16, stream
         "sigma_scan_fwd": [_P] * 11 + [_I] + [_P] + [_I] * 9 + [_P],
-        # u0, u1, wdt, wbc, A, bias, D, ya0, ya1, y0, y1, P, hloc, sd,
-        # n_chunk, hck, nck, batch, G, L, dg, N, n_u, softplus, reverse,
-        # swap_c, bf16, stream
-        "sigma_scan_proj_fwd": [_P] * 14 + [_I] + [_P] + [_I] * 11 + [_P],
+        # u0, u1, uk0, uk1, wdt, wb, wc, wt, A, bias, D, ya0, ya1, y0, y1,
+        # P, gstate, maps, counter, n_words, n_chunk, hck, nck, batch, G, L,
+        # dg, dgk, N, n_u, softplus, reverse, swap_c, bf16, stream
+        "sigma_scan_proj_fwd": [_P] * 19 + [_I] * 2 + [_P] + [_I] * 12
+        + [_P],
     },
     "bwd": {
         # u, dt, A, B, C, bias, D, hck, dy, du, dd, dA, dbias, dD, dBp,
         # dCp, lam, sd, n_chunk, batch, G, L, dg, N, nck, softplus,
         # reverse, bf16, stream
         "sigma_scan_bwd": [_P] * 18 + [_I] * 10 + [_P],
-        # u0, u1, wdt, wbc, A, bias, D, hck, dy0, dy1, du0, du1, P, dd,
-        # dA, dbias, dD, dBp, dCp, lam, sd, n_chunk, batch, G, L, dg, N,
-        # nck, n_u, softplus, reverse, swap_c, bf16, stream
-        "sigma_scan_proj_bwd": [_P] * 21 + [_I] * 12 + [_P],
+        # u0, u1, uk0, uk1, wdt, wb, wc, wt, A, bias, D, hck, dy0, dy1, du0,
+        # du1, P, dd, dA, dbias, dD, dBp, dCp, lam, sd, n_chunk, batch, G, L,
+        # dg, dgk, N, nck, n_u, softplus, reverse, swap_c, bf16, stream
+        "sigma_scan_proj_bwd": [_P] * 25 + [_I] * 13 + [_P],
         # u0, u1, du0, du1, dd, dbc, wdt, wbc, dW, batch, G, L, dg, N,
         # n_u, n_l, bf16, stream
         "sigma_proj_grad": [_P] * 9 + [_I] * 8 + [_P],

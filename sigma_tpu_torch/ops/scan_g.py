@@ -17,17 +17,19 @@ the device of `u`: a CPU tensor takes the plain version (differentiated by
 autograd); a CUDA tensor launches the kernels or raises — there is no
 fallback.
 
-Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/tc_gemm.cuh`,
-`csrc/chunk.cuh`, `csrc/chunk_fwd.cuh`):
+Kernels (`csrc/scan_g_fwd.cu`, `csrc/scan_g_bwd.cu`, `csrc/proj_wgmma.cuh`,
+`csrc/chain_fwd.cuh`, `csrc/tc_gemm.cuh`, `csrc/chunk.cuh`,
+`csrc/chunk_fwd.cuh`, `csrc/chunk_bwd.cuh`):
     K1 scan_fwd       streamed forward, chunk-parallel
-    K2 scan_proj_fwd  forward that projects its own dt/B/C (tensor cores,
-                      into a scratch stream), then K1's chunk-parallel scan
+    K2 scan_proj_fwd  forward that projects its own dt/B/C (warpgroup MMAs
+                      fed by TMA, into a scratch stream written once), then
+                      a one-pass chunk scan with chained carries
     K3 scan_bwd       streamed backward, chunk-parallel
-    K4 scan_proj_bwd  backward that re-projects dt/B/C as K2 does (tensor
-                      cores, into a scratch stream), then K3's body
+    K4 scan_proj_bwd  backward that re-projects dt/B/C with K2's code on
+                      K2's operands (the same bits), then K3's body
     K5 proj_grad      weight gradients and the du chain term of K4
                       (tensor cores, TF32)
-`LAUNCHES` counts each wrapper's calls: K2's and K4's four launches, K1's
+`LAUNCHES` counts each wrapper's calls: K2's two launches, K4's four, K1's
 and K3's three and K5's two count once per call; `LAUNCHES_BF16` counts
 those of them whose io (u's dtype) was bf16.
 
@@ -91,6 +93,9 @@ CK_TOKENS = 32
 PROJ_CHUNK = 128
 # channels per block of K3/K4: their dB/dC partials have ceil(dg / 32)
 BWD_CHANNELS = 32
+# chunks per carry group of K2's one-pass scan (kGroup in
+# csrc/chain_fwd.cuh): its scratch follows it and the block's state tile
+CHAIN_GROUP = 16
 # the widest d_state K1-K4 take (kErrStateWidth in csrc/scan_g_*.cu); the
 # entry points run a wider state as slices of at most this many
 K1_MAX_STATE = 16
@@ -366,13 +371,61 @@ def _layouts(us):
     raise ValueError(f"{n_u} layout operands; the kernels take 1 or 2")
 
 
+def _proj_operands(us, w_dt, w_b, w_c, io):
+    """K2's and K4's projection operands, the same for both, so that K4
+    re-projects K2's bits. Returns (uks, (wdt, wb, wc, wt), dgk): u in rows
+    of dgk elements, dg rounded up to 16 bytes (TMA's stride rule; zero
+    channels appended, a copy, where dg is not), each 16-byte aligned; the
+    weights in the io type, and the scratch the kernel prepares them in
+    (transposed, at fp32 io split into TF32 heads and remainders:
+    `wg::weight_prep_kernel`)."""
+    G, dg = w_dt.shape[0], w_dt.shape[-1]
+    N = w_b.shape[-1]
+    align = 8 if io == torch.bfloat16 else 4
+    dgk = -(-dg // align) * align
+    if dgk != dg:
+        us = [torch.nn.functional.pad(u, (0, dgk - dg)) for u in us]
+    else:
+        us = [u if u.data_ptr() % 16 == 0 else u.clone() for u in us]
+    ws = [w.to(io).contiguous() for w in (w_dt, w_b, w_c)]
+    parts = 2 if io == torch.float32 else 1  # 3xTF32: heads, remainders
+    wt = torch.empty(parts * G * (dg + 2 * N) * dgk, dtype=io,
+                     device=w_dt.device)
+    return us, (*ws, wt), dgk
+
+
+def _chain_tile(N):
+    """K2's state tile and channels per block at d_state N (Tile in
+    csrc/chain_fwd.cuh): (4, 16), (8, 16) or (16, 8)."""
+    nt = 4 if N <= 4 else 8 if N <= 8 else 16
+    return nt, 8 if nt == 16 else 16
+
+
+def _chain_scratch(batch, G, L, N, dg, like):
+    """K2's scratch (csrc/chain_fwd.cuh), one int64 tensor that the kernel
+    zeroes: the state entering every carry group of CHAIN_GROUP chunks
+    (batch, G, n_group, N, dg), every chunk's map (prod a, the end state
+    from zero; 2 x NT x channels values a chunk and channel tile,
+    `_chain_tile`), each a 64-bit word of the value and its flag, then the
+    block ticket counter. Returns (n_chunk, gstate, maps, counter)."""
+    n_chunk = -(-L // PROJ_CHUNK)
+    n_group = -(-n_chunk // CHAIN_GROUP)
+    nt, chan = _chain_tile(N)
+    n_state = batch * G * n_group * N * dg
+    n_map = batch * G * -(-dg // chan) * n_chunk * 2 * nt * chan
+    words = torch.empty(n_state + n_map + 1, dtype=torch.int64,
+                        device=like.device)
+    return (n_chunk, words[:n_state], words[n_state:n_state + n_map],
+            words[n_state + n_map:])
+
+
 def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
                          delta_softplus=False, reverse=False,
                          swap_groups_c=False, y_accum=None, with_hck=False):
     """K2 on CUDA tensors. `us`: one (B, G, L, dg) operand, or two
     (B, L, dg) layout operands (G = 2). Returns a list like `us`, and with
-    `with_hck` also the state checkpoints. Its four launches (projection,
-    chunk states, carries, emission) count as one."""
+    `with_hck` also the state checkpoints. Its two launches (projection,
+    one-pass scan) count as one."""
     n_u = len(us)
     io = us[0].dtype
     if io not in (torch.float32, torch.bfloat16):
@@ -386,8 +439,7 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     _expect(w_c, (G, dg, N), "w_c")
     _expect(A, (G, N, dg), "A")
     us = [u.to(io).contiguous() for u in us]
-    wdt = w_dt.to(io).contiguous()
-    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
+    uks, ws, dgk = _proj_operands(us, w_dt, w_b, w_c, io)
     yas = [None] * n_u
     if y_accum is not None:
         for ya in y_accum:
@@ -398,21 +450,24 @@ def launch_scan_proj_fwd(us, w_dt, w_b, w_c, A, D=None, delta_bias=None,
     dk = _param(D, (G, dg), us[0])
     ys = [torch.empty_like(u) for u in us]
     hck = _hck(batch, G, L, N, dg, us[0]) if with_hck else None
-    # scratch: the projected [dt | B | C] stream and the chunk scan's
+    # scratch: the projected [dt | B | C] stream and the carries' words
     proj = torch.empty((batch, G, L, dg + 2 * N), dtype=torch.float32,
                        device=us[0].device)
-    hloc, sd = _chunk_scratch(batch, G, L, N, dg, us[0])
-    n_chunk = hloc.shape[2]
+    n_chunk, gstate, maps, counter = _chain_scratch(batch, G, L, N, dg,
+                                                    us[0])
     pad = [None] * (2 - n_u)  # the second layout pointers are null at n_u 1
     lib = _build.library("fwd")
     with torch.cuda.device(us[0].device):
         code = lib.sigma_scan_proj_fwd(
-            *[_ptr(u) for u in us], *pad, wdt.data_ptr(), wbc.data_ptr(),
+            *[_ptr(u) for u in us], *pad, *[_ptr(u) for u in uks], *pad,
+            *[w.data_ptr() for w in ws],
             a32.data_ptr(), bias.data_ptr(), dk.data_ptr(),
             *[_ptr(ya) for ya in yas], *pad,
-            *[_ptr(y) for y in ys], *pad, proj.data_ptr(), hloc.data_ptr(),
-            sd.data_ptr(), n_chunk, _ptr(hck), _n_ck(L),
-            batch, G, L, dg, N, n_u, int(bool(delta_softplus)),
+            *[_ptr(y) for y in ys], *pad, proj.data_ptr(), gstate.data_ptr(),
+            maps.data_ptr(), counter.data_ptr(),
+            gstate.numel() + maps.numel() + counter.numel(), n_chunk,
+            _ptr(hck), _n_ck(L),
+            batch, G, L, dg, dgk, N, n_u, int(bool(delta_softplus)),
             int(bool(reverse)), int(bool(swap_groups_c)),
             int(io == torch.bfloat16), _stream(us[0]),
         )
@@ -516,8 +571,8 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
     dd, dB, dC, dA, dbias, dD, all fp32): dd / dB / dC are the cotangents
     of the projected streams, dC routed to the chain whose projection made
     the C (the partner under `swap_groups_c`). Its four launches (the
-    projections into a scratch stream, as K2 makes them, then K3's three)
-    count as one."""
+    projections into a scratch stream, K2's code on K2's operands, then
+    K3's three) count as one."""
     n_u = len(us)
     batch, G, L, dg = _layouts(us)
     N = A.shape[1]
@@ -531,8 +586,7 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
     _expect(w_dt, (G, dg, dg), "w_dt")
     _expect(w_b, (G, dg, N), "w_b")
     _expect(w_c, (G, dg, N), "w_c")
-    wdt = w_dt.to(io).contiguous()
-    wbc = torch.cat([w_b, w_c], -1).to(io).contiguous()
+    uks, ws, dgk = _proj_operands(us, w_dt, w_b, w_c, io)
     a32 = _param(A, (G, N, dg), us[0])
     bias = _param(delta_bias, (G, dg), us[0])
     dk = _param(D, (G, dg), us[0])
@@ -545,13 +599,15 @@ def launch_scan_proj_bwd(us, w_dt, w_b, w_c, A, D, delta_bias, hck, dys,
     lib = _build.library("bwd")
     with torch.cuda.device(us[0].device):
         code = lib.sigma_scan_proj_bwd(
-            *[_ptr(u) for u in us], *pad, wdt.data_ptr(), wbc.data_ptr(),
+            *[_ptr(u) for u in us], *pad, *[_ptr(u) for u in uks], *pad,
+            *[w.data_ptr() for w in ws],
             a32.data_ptr(), bias.data_ptr(), dk.data_ptr(), hck.data_ptr(),
             *[_ptr(dy) for dy in dys], *pad, *[_ptr(du) for du in dus], *pad,
             proj.data_ptr(), *_bwd_pointers(o),
-            batch, G, L, dg, N, hck.shape[2], n_u, int(bool(delta_softplus)),
-            int(bool(reverse)), int(bool(swap_groups_c)),
-            int(io == torch.bfloat16), _stream(us[0]),
+            batch, G, L, dg, dgk, N, hck.shape[2], n_u,
+            int(bool(delta_softplus)), int(bool(reverse)),
+            int(bool(swap_groups_c)), int(io == torch.bfloat16),
+            _stream(us[0]),
         )
         _count("scan_proj_bwd", io)
     _build.check(code, "scan_proj_bwd", "bwd")

@@ -31,12 +31,13 @@ TRAIN_BATCH = 2
 # kernel groups, first match wins (the scan kernels' C++ names; the chunk
 # passes are shared, told apart by the operand source in the template: K3,
 # K4, K9 and K11 by StreamBwdSrc, ProjBwdSrc, CfBwdSrc and ImgBwdSrc; K1,
-# K2, K8 and K10 by StreamSrc, ProjSrc, CfSrc and ImgSrc)
+# K2, K8 and K10 by StreamSrc, ProjSrc, CfSrc and ImgSrc; K2's and K4's
+# projection, one kernel, by its caller tag ProjFwd / ProjBwd)
 GROUPS = (
-    ("K4 scan_proj_bwd", ("bwd_proj_kernel", "ProjBwdSrc")),
+    ("K4 scan_proj_bwd", ("ProjBwd",)),
     ("K3 scan_bwd", ("StreamBwdSrc",)),
     ("K11 scan_img_bwd", ("img_proj_bwd_kernel", "ImgBwdSrc")),
-    ("K2 scan_proj_fwd", ("proj_gemm_kernel", "ProjSrc")),
+    ("K2 scan_proj_fwd", ("ProjFwd", "ProjSrc")),
     ("K1 scan_fwd", ("StreamSrc",)),
     ("K10 scan_img_fwd", ("img_proj_kernel", "ImgSrc")),
     ("K8 scan_cf_fwd", ("CfSrc",)),

@@ -1,19 +1,36 @@
-"""The algebra of K2's chunk-parallel scan (`csrc/scan_g_fwd.cu`), on the
-CPU.
+"""The algebra of the chunk-parallel scans of K1 / K8 / K10
+(`csrc/chunk_fwd.cuh`) and of K2's one-pass scan (`csrc/chain_fwd.cuh`),
+on the CPU.
 
-K2 runs on the card only. Its decomposition is modelled here in plain
-torch, step for step: the sequence is cut into chunks of PROJ_CHUNK tokens
-in the walk's order (reversed in place for `reverse`, the last chunk
-ragged); each chunk is scanned from a zero state as the kernel does it,
-every lane folding PROJ_CHUNK / 32 consecutive tokens into one pair of the
-map h -> a h + b and a doubling scan composing the 32 lanes; the carry
-into each chunk follows from the chunks' end states and exp(A * sum d);
-each chunk is then re-emitted from its true carry, y and the checkpoint
-`hck` at every 32-token segment entry. The model is held against JAX's
-`selective_scan_g_proj` / `selective_scan_g_proj_ml` (their Pallas
-kernels in interpret mode, as tests/test_pallas_scan_g.py runs them), and
-its `hck` against the states of a plain sequential walk. Tolerance: fp32
-rtol 6e-4 / atol 2e-3 against max(|ref|, 1), as chip_smoke.py holds K2.
+The kernels run on the card only. Their decompositions are modelled here
+in plain torch, step for step: the sequence is cut into chunks of
+PROJ_CHUNK tokens in the walk's order (reversed in place for `reverse`,
+the last chunk ragged); every lane of 32 folds PROJ_CHUNK / 32 consecutive
+tokens into one pair of the map h -> a h + b and a doubling scan composes
+the 32 lanes.
+
+`chunk_scan_model` (K1, K8, K10): each chunk is scanned from a zero state;
+the carry into each chunk follows from the chunks' end states and
+exp(A * sum d); each chunk is then re-emitted from its true carry, y and
+the checkpoint `hck` at every 32-token segment entry.
+
+`chain_scan_model` (K2): each chunk is scanned once, one exp per (token,
+channel, state); from each lane's exclusive prefix it keeps y from a zero
+carry and the carry's weight in y (C times the decays since the chunk's
+entry); the carries follow in a fixed order, in groups of CHAIN_GROUP
+walk chunks: each chunk applies the maps (prod a, the zero-carry end
+state) of its group's earlier chunks, composed first to last, to the state
+entering the group, and the group's last chunk hands on the state
+entering the next; y and `hck` follow from the carry in. K2's projection is modelled in 3xTF32
+(`project_3xtf32`, `test_torch_port_tf32.tf32`'s rounding), as its
+warpgroup MMAs run it at fp32 io.
+
+The K2 model, fed by the 3xTF32 projection, is held against JAX's
+`selective_scan_g_proj` / `selective_scan_g_proj_ml` (their Pallas kernels
+in interpret mode, as tests/test_pallas_scan_g.py runs them), and its
+`hck` against the states of a plain sequential walk. Tolerance: fp32 rtol
+6e-4 / atol 2e-3 against max(|ref|, 1), as chip_smoke.py holds K2; both
+models' checkpoints equal the walk's in fp64.
 """
 
 import math
@@ -27,7 +44,13 @@ from sigma_tpu.ops.pallas_scan_g import selective_scan_g_proj as jax_g_proj
 from sigma_tpu.ops.pallas_scan_g import (
     selective_scan_g_proj_ml as jax_g_proj_ml,
 )
-from sigma_tpu_torch.ops.scan_g import CK_TOKENS, PROJ_CHUNK, _pair_swap
+from sigma_tpu_torch.ops.scan_g import (
+    CHAIN_GROUP,
+    CK_TOKENS,
+    PROJ_CHUNK,
+    _pair_swap,
+)
+from test_torch_port_tf32 import tf32
 
 torch.set_num_threads(2)
 RTOL, ATOL = 6e-4, 2e-3
@@ -113,9 +136,88 @@ def chunk_scan_model(u, dts, bs, cs, A, D, bias, softplus, reverse,
     y = yw.reshape(batch, G, -1, dg)[:, :, :L] + D[None, :, None, :] * u
     if y_accum is not None:
         y = y + y_accum
-    # checkpoints: the lanes whose run starts a 32-token segment
+    return y, _checkpoints(h_entry, L, reverse)
+
+
+def project_3xtf32(u, w):
+    """u (batch, G, L, dg) @ w (G, dg, k) in 3xTF32, as K2's and K4's
+    warpgroup MMAs run it at fp32 io: u and w split into TF32 heads and the
+    TF32 rounding of their remainders, u_lo w_hi + u_hi w_lo + u_hi w_hi
+    (fp32 sums)."""
+    uh, wh = tf32(u), tf32(w)
+    ul, wl = tf32(u - uh), tf32(w - wh)
+    return ul @ wh + uh @ wl + uh @ wh
+
+
+def chain_scan_model(u, dts, bs, cs, A, D, bias, softplus, reverse,
+                     y_accum=None):
+    """K2's one-pass scan in plain torch; arguments and result as
+    `chunk_scan_model`'s."""
+    batch, G, L, dg = u.shape
+    N = A.shape[1]
+    items = PROJ_CHUNK // LANES
+    n_chunk = -(-L // PROJ_CHUNK)
+    d = dts + bias[None, :, None, :]
+    if softplus:
+        d = torch.nn.functional.softplus(d)
+    dw, uw = _walk(d, n_chunk, reverse), _walk(u, n_chunk, reverse)
+    bw, cw = _walk(bs, n_chunk, reverse), _walk(cs, n_chunk, reverse)
+    At = A.transpose(1, 2)[None, :, None, None]             # (1, G, 1, 1, dg, N)
+    lanes = (batch, G, n_chunk, LANES, items, dg, N)
+    # the decays and inputs, once per (token, channel, state)
+    a = torch.exp(dw[..., None] * At).reshape(lanes)
+    b = ((dw * uw)[..., None] * bw[..., None, :]).reshape(lanes)
+    c = cw.reshape(batch, G, n_chunk, LANES, items, 1, N)
+    fa = torch.ones_like(a[:, :, :, :, 0])
+    fb = torch.zeros_like(b[:, :, :, :, 0])
+    for j in range(items):
+        fb = a[:, :, :, :, j] * fb + b[:, :, :, :, j]
+        fa = fa * a[:, :, :, :, j]
+    fa, fb = _lane_scan(fa, fb)
+    # each lane's exclusive prefix; from it, y from a zero carry and the
+    # carry's weight in y (K)
+    xa = torch.cat([torch.ones_like(fa[:, :, :, :1]), fa[:, :, :, :-1]], 3)
+    xb = torch.cat([torch.zeros_like(fb[:, :, :, :1]), fb[:, :, :, :-1]], 3)
+    h, pr, yz, K = xb, xa, [], []
+    for j in range(items):
+        h = a[:, :, :, :, j] * h + b[:, :, :, :, j]
+        pr = pr * a[:, :, :, :, j]
+        yz.append((c[:, :, :, :, j] * h).sum(-1))
+        K.append(c[:, :, :, :, j] * pr)
+    # the carries in groups of CHAIN_GROUP walk chunks: each chunk applies
+    # the maps of its group's earlier chunks, composed first to last, to
+    # the state entering the group; the group's last chunk carries on
+    order = range(n_chunk - 1, -1, -1) if reverse else range(n_chunk)
+    order = list(order)
+    hg = torch.zeros_like(fb[:, :, 0, 0])
+    hin = [None] * n_chunk
+    for g0 in range(0, n_chunk, CHAIN_GROUP):
+        ma, mb = torch.ones_like(hg), torch.zeros_like(hg)
+        for ci in order[g0:g0 + CHAIN_GROUP]:
+            hin[ci] = ma * hg + mb
+            mb = fa[:, :, ci, -1] * mb + fb[:, :, ci, -1]
+            ma = ma * fa[:, :, ci, -1]
+        hg = fa[:, :, ci, -1] * hin[ci] + fb[:, :, ci, -1]
+    hin = torch.stack(hin, 2)[:, :, :, None]                 # (b, G, c, 1, dg, N)
+    ys = [yz[j] + (K[j] * hin).sum(-1) for j in range(items)]
+    yw = torch.stack(ys, 4).reshape(batch, G, n_chunk, PROJ_CHUNK, dg)
+    if reverse:
+        yw = yw.flip(3)
+    y = yw.reshape(batch, G, -1, dg)[:, :, :L] + D[None, :, None, :] * u
+    if y_accum is not None:
+        y = y + y_accum
+    return y, _checkpoints(xa * hin + xb, L, reverse)
+
+
+def _checkpoints(h_entry, L, reverse):
+    """hck (batch, G, ceil(L / 32), N, dg) from the state entering every
+    lane's run (batch, G, n_chunk, LANES, dg, N): the lanes whose run
+    starts a 32-token segment."""
+    batch, G, n_chunk = h_entry.shape[:3]
+    items = PROJ_CHUNK // LANES
     n_ck = -(-L // CK_TOKENS)
-    hck = torch.zeros(batch, G, n_ck, N, dg, dtype=u.dtype)
+    hck = torch.zeros(batch, G, n_ck, *h_entry.shape[-1:-3:-1],
+                      dtype=h_entry.dtype)
     for c in range(n_chunk):
         for k in range(0, PROJ_CHUNK, CK_TOKENS):
             p = (c * PROJ_CHUNK + PROJ_CHUNK - 1 - k if reverse
@@ -123,7 +225,7 @@ def chunk_scan_model(u, dts, bs, cs, A, D, bias, softplus, reverse,
             if p // CK_TOKENS < n_ck:
                 hck[:, :, p // CK_TOKENS] = h_entry[:, :, c, k // items] \
                     .transpose(-1, -2)
-    return y, hck
+    return hck
 
 
 def sequential_states(u, dts, bs, A, bias, softplus, reverse):
@@ -200,10 +302,11 @@ def test_chunk_model_matches_jax_and_the_sequential_walk(n_u, batch, L, dg,
             y_accum=jnp.asarray(x["ya"]) if ya else None, **opts))
 
     t = {k: torch.from_numpy(v) for k, v in x.items()}
-    dts, bs, cs = (t["u"] @ t[k] for k in ("w_dt", "w_b", "w_c"))
+    dts, bs, cs = (project_3xtf32(t["u"], t[k])
+                   for k in ("w_dt", "w_b", "w_c"))
     if swap:
         cs = _pair_swap(cs)
-    y, hck = chunk_scan_model(t["u"], dts, bs, cs, t["A"], t["D"], t["bias"],
+    y, hck = chain_scan_model(t["u"], dts, bs, cs, t["A"], t["D"], t["bias"],
                               True, reverse, t["ya"] if ya else None)
     _close(y.numpy(), want)
     _close(hck.numpy(), sequential_states(t["u"], dts, bs, t["A"], t["bias"],
@@ -211,16 +314,23 @@ def test_chunk_model_matches_jax_and_the_sequential_walk(n_u, batch, L, dg,
 
 
 def test_chunk_carries_match_a_sequential_walk_in_fp64():
-    """Long sequence, many chunks, fp64: the model's y and hck equal the
-    plain walk's to rounding, so the decomposition itself is exact."""
-    batch, G, L, dg, N = 1, 2, 5 * PROJ_CHUNK + 45, 4, 4
+    """Long sequence, many chunks (the chain model's carries over three
+    groups, the last partial), fp64: both models' hck equal the plain
+    walk's to rounding, and their y each other's, so both decompositions
+    are exact."""
+    batch, G, dg, N = 1, 2, 4, 4
+    L = (2 * CHAIN_GROUP + 3) * PROJ_CHUNK + 45
     x = _inputs(batch, G, L, dg, N, seed=3)
     t = {k: torch.from_numpy(v).double() for k, v in x.items()}
     dts, bs, cs = (t["u"] @ t[k] for k in ("w_dt", "w_b", "w_c"))
     for reverse in (False, True):
-        _, hck = chunk_scan_model(t["u"], dts, bs, cs, t["A"], t["D"],
-                                  t["bias"], True, reverse)
         want = sequential_states(t["u"], dts, bs, t["A"], t["bias"], True,
                                  reverse)
-        assert math.isclose(
-            float((hck - want).abs().max()), 0.0, abs_tol=1e-12)
+        ys = []
+        for model in (chunk_scan_model, chain_scan_model):
+            y, hck = model(t["u"], dts, bs, cs, t["A"], t["D"], t["bias"],
+                           True, reverse)
+            ys.append(y)
+            assert math.isclose(
+                float((hck - want).abs().max()), 0.0, abs_tol=1e-12)
+        assert float((ys[0] - ys[1]).abs().max()) < 1e-12

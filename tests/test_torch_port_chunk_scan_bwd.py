@@ -15,6 +15,9 @@ scan over the segment's 8 lanes), re-sweeps the adjoint from the chunk's
 true exit adjoint, and forms du (the direct term), dd, and per-chunk dA /
 dbias / dD and per-32-channel dB / dC partials, summed afterwards. K4's
 weight gradients and du chain term are K5's products (`proj_grad_plain`).
+The fused-projection cases model K2 + K4 + K5 as they run at fp32 io: the
+streams projected in 3xTF32 (`project_3xtf32`), the checkpoints from K2's
+one-pass scan (`chain_scan_model`), K5's products in 1xTF32 (`tf32`).
 
 All seven gradients are held to JAX's (`jax.vjp` of `selective_scan_g`,
 `selective_scan_g_proj`, `selective_scan_g_proj_ml`, their Pallas
@@ -37,7 +40,14 @@ from sigma_tpu_torch.ops.scan_g import (
     _pair_swap,
     proj_grad_plain,
 )
-from test_torch_port_chunk_scan import LANES, _walk, sequential_states
+from test_torch_port_chunk_scan import (
+    LANES,
+    _walk,
+    chain_scan_model,
+    project_3xtf32,
+    sequential_states,
+)
+from test_torch_port_tf32 import tf32
 
 torch.set_num_threads(2)
 RTOL, ATOL = 6e-4, 2e-3
@@ -227,20 +237,26 @@ def _model(x, kind, swap, softplus, reverse):
     u = t["u"]
     if kind == "streamed":
         dts, bs, cs = t["dt"], t["B"], t["C"]
+        hck = sequential_states(u, dts, bs, t["A"], t["bias"], softplus,
+                                reverse)
     else:
-        dts, bs, cs = (u @ t[k] for k in ("w_dt", "w_b", "w_c"))
+        # K2's and K4's 3xTF32 projection, K2's checkpoints
+        dts, bs, cs = (project_3xtf32(u, t[k])
+                       for k in ("w_dt", "w_b", "w_c"))
         if swap:
             cs = _pair_swap(cs)
-    hck = sequential_states(u, dts, bs, t["A"], t["bias"], softplus,
-                            reverse)
+        _, hck = chain_scan_model(u, dts, bs, cs, t["A"], t["D"], t["bias"],
+                                  softplus, reverse)
     g, _ = chunk_bwd_model(u, dts, bs, cs, t["A"], t["D"], t["bias"],
                            softplus, reverse, t["dy"], hck)
     if kind == "streamed":
         return [g["du"], g["dd"], g["dA"], g["dB"], g["dC"], g["dD"],
                 g["dbias"]]
     dC = _pair_swap(g["dC"]) if swap else g["dC"]
+    # K5: 1xTF32 products
     (du_chain,), dw_dt, dw_b, dw_c = proj_grad_plain(
-        (u,), g["dd"], g["dB"], dC, t["w_dt"], t["w_b"], t["w_c"])
+        (tf32(u),), tf32(g["dd"]), tf32(g["dB"]), tf32(dC),
+        *(tf32(t[k]) for k in ("w_dt", "w_b", "w_c")))
     du = g["du"] + du_chain
     if kind == "ml":
         du = [du[:, 0], du[:, 1]]

@@ -24,8 +24,8 @@ dgamma / dbeta rerun bit for bit. The ops-level entry points take the
 channel-first kernels (K8, K9) at one token, ragged chunks and channel
 blocks, odd dg, d_state 1-40 and above their bound, with K8 (y and its
 32-token checkpoints, against the plain walk) and K9 rerun bit for bit, and
-the per-row route onto K1 + K3. K1-K4, K10 and K11 give the bits recorded
-before K9 joined their backward body (`chip_smoke.body_bits`). The grouped and per-row entry
+the per-row route onto K1 + K3. K1-K4, K10 and K11 give their recorded
+bits (`chip_smoke.body_bits`). The grouped and per-row entry
 points take d_state 17 and 40 as slices of 16 on K1 + K3. The image-layout
 SS2D scan (K10, K11 + K5) is held to its plain version at a one-pixel
 image, odd and small images, dg not a multiple of 32, d_state 1-256 and
@@ -182,6 +182,8 @@ PROJ_CASES = [
     (1, 2, 1, 129, 45, 5, True),     # a chunk and one token; odd dg and N
     (2, 2, 1, 300, 64, 16, False),   # three chunks, the last ragged
     (1, 1, 1, 1, 8, 4, False),       # one token
+    (2, 2, 1, 2200, 24, 16, False),  # K2's carries over two groups
+    (1, 2, 1, 4200, 40, 4, True),    # three groups, the last partial
 ]
 
 
@@ -565,12 +567,13 @@ def test_proj_grad_matches_plain(dev):
         _close(g_, w_, torch.float32)
 
 
-@pytest.mark.parametrize("L", [77, 300, 1000])
+@pytest.mark.parametrize("L", [77, 300, 1000, 4200])
 def test_fused_projection_checkpoints_and_reruns(dev, L):
-    """K2 (chunk-parallel) with checkpoints, reversed with y_accum and the
-    C swap: its hck equals the states of the plain walk over the same
-    projections; a rerun gives the same bits; y without checkpoints (eval)
-    has the same bits as y with them."""
+    """K2 (one pass, the carries in groups of 16 chunks: L 4200 spans
+    three) with checkpoints, reversed with y_accum and the C swap: its hck
+    equals the states of the plain walk over the same projections; a rerun
+    gives the same bits; y without checkpoints (eval) has the same bits as
+    y with them."""
     G, dg, N = 2, 40, 16
     p = _projected(G, dg, N, torch.float32, dev, seed=L)
     a = _arrays(L + 1, u=(2, G, L, dg), ya=(2, G, L, dg))
@@ -1013,8 +1016,9 @@ BITS_CASES = [("small0", dict(B=1, H=9, W=37, dg=40, N=16)),
 def test_body_sources_keep_their_recorded_bits(dev):
     """K9 joined the chunk backward body of K3, K4 and K11 (a
     channel-first source, A read through the source, null bias / D): on
-    fixed inputs, K1-K4, K10 and K11 give the bits recorded on the card
-    from the tree before that change (`chip_smoke.BODY_BITS`)."""
+    fixed inputs, K1, K3, K10 and K11 give the bits recorded on the card
+    from the tree before that change, K2 and K4 those of their Hopper
+    design (`chip_smoke.BODY_BITS`)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
